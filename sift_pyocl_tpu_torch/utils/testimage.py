@@ -1,0 +1,63 @@
+"""Synthetic test scenes and keypoint-set comparison (numpy only).
+
+``synthetic_scene`` is a copy of ``sift_pyocl_tpu/utils/testimage.py``'s
+(that package imports jax); ``tests/test_torch_config.py`` holds the two
+equal.  ``match_keypoint_sets`` is the set comparison of the JAX package's
+test suite (``tests/conftest.py``), so ``chip_smoke.py`` can hold the
+kernel path to the plain path with the suite's own measure.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def synthetic_scene(shape=(512, 512), n_blobs: int = 60, seed: int = 0) -> np.ndarray:
+    """Smoothed-noise background + Gaussian blobs at a range of scales."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    coarse = rng.normal(size=(h // 16 + 2, w // 16 + 2))
+    ys = np.linspace(0, coarse.shape[0] - 1.001, h)
+    xs = np.linspace(0, coarse.shape[1] - 1.001, w)
+    y0 = ys.astype(int)
+    x0 = xs.astype(int)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    bg = (
+        coarse[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
+        + coarse[np.ix_(y0 + 1, x0)] * fy * (1 - fx)
+        + coarse[np.ix_(y0, x0 + 1)] * (1 - fy) * fx
+        + coarse[np.ix_(y0 + 1, x0 + 1)] * fy * fx
+    )
+    img = 30.0 * bg
+    rr, cc = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    for _ in range(n_blobs):
+        cy, cx = rng.uniform(0.1, 0.9) * h, rng.uniform(0.1, 0.9) * w
+        sig = rng.uniform(2.0, 14.0)
+        amp = rng.uniform(60.0, 160.0) * rng.choice([-1.0, 1.0])
+        img = img + amp * np.exp(-((rr - cy) ** 2 + (cc - cx) ** 2) / (2 * sig**2))
+    img -= img.min()
+    img *= 255.0 / max(img.max(), 1e-9)
+    return img.astype(np.float32)
+
+
+def match_keypoint_sets(a, b, tol_xy=0.1, tol_s=0.05, tol_a=0.05):
+    """Greedy set matching of KP_DTYPE records `a` (reference) against `b`.
+
+    Returns (n_matched, mean_desc_l1) over the matched pairs."""
+    used = np.zeros(len(b), bool)
+    hits = 0
+    desc_l1 = []
+    for i in range(len(a)):
+        d = np.abs(b["x"] - a["x"][i]) + np.abs(b["y"] - a["y"][i])
+        d = np.where(used, np.inf, d)
+        if len(d) == 0:
+            break
+        j = int(np.argmin(d))
+        da = abs(b["angle"][j] - a["angle"][i])
+        da = min(da, 2 * np.pi - da)
+        if d[j] < tol_xy and abs(b["scale"][j] - a["scale"][i]) < tol_s and da < tol_a:
+            used[j] = True
+            hits += 1
+            desc_l1.append(np.abs(b["desc"][j].astype(int) - a["desc"][i].astype(int)).mean())
+    return hits, (float(np.mean(desc_l1)) if desc_l1 else 0.0)
