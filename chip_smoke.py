@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA SIFT frontend on one NVIDIA GPU.
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 1. Requires a CUDA card; prints its name and power limit (nvidia-smi).
 2. Builds the kernels of sift_pyocl_tpu_torch/csrc/ with nvcc.
-3. Runs each kernel of the slice (K3 compaction, K4 refinement, K5 gradient
-   atlas, K6 orientation + descriptor) and its plain PyTorch version on the
-   same inputs, taken from a 1080x1920 synthetic scene under SLICE_CONFIG,
-   asserts parity, and times both with CUDA events.
+3. Runs each kernel and its plain PyTorch version on the same inputs at the
+   shapes of the main path (a 1080x1920 frame) and asserts parity: K1/K2
+   (blur ladders) within 1e-3, K3 (compaction) and K7 (best-2 matching, both
+   calls of a VO step) exactly, K4-K6 as in their tests.  Times each with
+   CUDA events, beside the plain version, a PyTorch library call where one
+   computes the same function, and the least time the card could take.
 4. Runs SiftPlan((1080, 1920), config=SLICE_CONFIG).keypoints for a few
-   frames with every launch counter reset just before, asserts that each
-   kernel ran once per frame, and holds the keypoints to the plain-version
-   path on the same card (match_keypoint_sets).
-5. Prints a JSON line of per-kernel results, then, as its last line,
+   frames (the first slice's path, plain pyramid) with every launch counter
+   reset just before, and holds its keypoints to the plain-version path.
+5. The main path: vo_init + 10 vo_step at 1080x1920 with SiftConfig() and
+   VOConfig(), counters reset just before and read just after; every frame
+   tracked with enough matches and a finite pose, K1-K6 launched once and K7
+   twice a frame; the same run with plain=True agrees (keypoint counts,
+   tracking, final camera centre, rotation).  Prints ms per step, the stage
+   split, device time and launches per step, and host syncs per step.
+6. Prints a JSON line of per-kernel results, then, as its last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero.
@@ -22,17 +29,25 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 SHAPE = (1080, 1920)
-FRAMES = 5
+FRAMES = 3
+VO_STEPS = 10
 MIN_KEYPOINTS = 200
 ROOT = "sift_pyocl_tpu"
+# Published peaks of one H100 SXM (dense): HBM bytes/s, f32 outside the
+# tensor cores, int8 tensor-core operations/s.
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+INT8_OPS = 1979e12
 
 
 def nvidia_smi_line() -> str:
@@ -57,24 +72,102 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def check_kernels(x: torch.Tensor, cfg):
-    """Each kernel against its plain version at the slice's shapes."""
+def bound(n_bytes: float, ops: float, peak_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and ops over
+    the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, ops / peak_ops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class Kernels:
+    """Per-kernel records for the final JSON line."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def record(self, name, source, replaces, err, fn, ref, iters, n_bytes, ops,
+               peak_ops=F32_OPS, library=None):
+        ms = cuda_ms(fn, iters)
+        plain_ms = cuda_ms(ref, max(2, iters // 4))
+        library_ms = cuda_ms(library, iters) if library is not None else None
+        bound_ms, bound_by = bound(n_bytes, ops, peak_ops)
+        self.rows[name] = {"name": name, "route": "cuda", "source": source,
+                           "replaces": replaces, "max_abs_err": float(err), "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": library_ms}
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+        print(f"{name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"library {lib} ms  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+
+
+def _conv_calls(octaves, taps_of):
+    """The plain pyramid's cuDNN conv2d calls alone, on inputs padded ahead
+    of time: one (input, kernel) pair per horizontal and vertical pass."""
+    import torch.nn.functional as F
+
+    calls = []
+    for blurs, taps in zip(octaves, taps_of):
+        for lvl, t in zip(blurs, taps):
+            half = (t.numel() - 1) // 2
+            x = F.pad(lvl[None, None], (half, half, 0, 0), mode="replicate")
+            calls.append((x, t.view(1, 1, 1, -1)))
+            y = F.pad(lvl[None, None], (0, 0, half, half), mode="replicate")
+            calls.append((y, t.view(1, 1, -1, 1)))
+    return lambda: [F.conv2d(x, k) for x, k in calls]
+
+
+def check_ladders(x: torch.Tensor, cfg, rec: Kernels) -> None:
+    """K1 and K2 against their plain versions on the main path's pyramid."""
+    from sift_pyocl_tpu_torch.ops.kernels import ladder
+    from sift_pyocl_tpu_torch.ops.pyramid import _taps, downsample_octave, normalize_image
+
+    data = normalize_image(x)
+    pre = float(np.sqrt(cfg.init_sigma**2 - cfg.orig_sigma**2))
+    incs = cfg.sigma_increments()
+    n_oct = cfg.n_octaves(SHAPE)
+    b0, d0 = ladder.octave0_ladder(data, pre, incs)
+    rb0, rd0 = ladder.octave0_ladder_ref(data, pre, incs)
+    base = downsample_octave(rb0[cfg.scales], cfg.downsample_mode)
+    small = ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, cfg.downsample_mode)
+    rsmall = ladder.small_octaves_ladder_ref(base, incs, n_oct - 1, cfg.scales,
+                                             cfg.downsample_mode)
+    torch.cuda.synchronize()
+    err1 = max(float((b0 - rb0).abs().max()), float((d0 - rd0).abs().max()))
+    err2 = max(max(float((a - b).abs().max()), float((c - d).abs().max()))
+               for (a, c), (b, d) in zip(small, rsmall))
+    assert [tuple(b.shape) for b, _ in small] == [tuple(b.shape) for b, _ in rsmall]
+    assert err1 <= 1e-3 and err2 <= 1e-3, f"ladders differ: K1 {err1}, K2 {err2}"
+
+    all_taps = [_taps(float(s), x.device) for s in (pre,) + incs]
+    k_sum = sum(t.numel() for t in all_taps)
+    h, w = SHAPE
+    n_lv = len(incs)
+    rec.record("octave0_ladder", "sift_pyocl_tpu_torch/csrc/ladder.cu",
+               f"{ROOT}/ops/pallas/ladder0.py:256", err1,
+               lambda: ladder.octave0_ladder(data, pre, incs),
+               lambda: ladder.octave0_ladder_ref(data, pre, incs), 20,
+               n_bytes=4 * h * w * (1 + (n_lv + 1) + n_lv), ops=2 * 2 * k_sum * h * w,
+               library=_conv_calls([[data] + list(rb0[:-1])], [all_taps]))
+    k_inc = sum(t.numel() for t in all_taps[1:])
+    px = sum(b.shape[1] * b.shape[2] for b, _ in rsmall)
+    rec.record("small_octaves_ladder", "sift_pyocl_tpu_torch/csrc/ladder.cu",
+               f"{ROOT}/ops/pallas/ladder.py:421", err2,
+               lambda: ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales,
+                                                   cfg.downsample_mode),
+               lambda: ladder.small_octaves_ladder_ref(base, incs, n_oct - 1, cfg.scales,
+                                                       cfg.downsample_mode), 20,
+               n_bytes=4 * (base.numel() + px * (2 * n_lv + 1)), ops=2 * 2 * k_inc * px,
+               library=_conv_calls([list(b[:-1]) for b, _ in rsmall],
+                                   [all_taps[1:]] * len(rsmall)))
+
+
+def check_keypoint_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
+    """K3-K6 against their plain versions at the frontend's shapes."""
     from sift_pyocl_tpu_torch.models.sift import octave_capacities
     from sift_pyocl_tpu_torch.ops.detect import decode_compacted, extrema_mask
     from sift_pyocl_tpu_torch.ops.kernels import compact, gradpad, refine, window
     from sift_pyocl_tpu_torch.ops.orient_desc import _desc_window_size, quantize_descriptors
     from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
-
-    results = []
-
-    def record(name, source, replaces, err, fn, ref, iters):
-        ms = cuda_ms(fn, iters)
-        plain_ms = cuda_ms(ref, max(2, iters // 4))
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
-        print(f"{name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms",
-              flush=True)
 
     octaves = build_scale_space(x, cfg)
     caps = [c for c, _ in octave_capacities(SHAPE, cfg)]
@@ -82,6 +175,7 @@ def check_kernels(x: torch.Tensor, cfg):
     blurs = [b for b, _ in octaves]
     masks = [extrema_mask(d, cfg, o) for o, d in enumerate(dogs)]
     torch.cuda.synchronize()
+    n_slots = sum(caps)
 
     # K3: exact (np.nonzero order, same written/total)
     got = compact.compact_masks_multi(masks, caps)
@@ -95,10 +189,12 @@ def check_kernels(x: torch.Tensor, cfg):
         err = max(err, int((got[0][off:off + w] - want[0][off:off + w]).abs().max().item()) if w else 0)
         off += cap
     assert err == 0, f"compaction differs by {err}"
-    record("compact_masks_multi", "sift_pyocl_tpu_torch/csrc/compact.cu",
-           f"{ROOT}/ops/pallas/compact.py:252", float(err),
-           lambda: compact.compact_masks_multi(masks, caps),
-           lambda: compact.compact_masks_multi_ref(masks, caps), 50)
+    rec.record("compact_masks_multi", "sift_pyocl_tpu_torch/csrc/compact.cu",
+               f"{ROOT}/ops/pallas/compact.py:252", float(err),
+               lambda: compact.compact_masks_multi(masks, caps),
+               lambda: compact.compact_masks_multi_ref(masks, caps), 50,
+               n_bytes=sum(m.numel() for m in masks) + 4 * n_slots, ops=0,
+               library=lambda: [torch.nonzero(m) for m in masks])
 
     # K4: same accepts, same floats (same operation order, no FMA contraction)
     idx, written, _ = got
@@ -110,9 +206,12 @@ def check_kernels(x: torch.Tensor, cfg):
     acc = want[4] > 0
     err = max(float((g[acc] - w[acc]).abs().max()) for g, w in zip(got[:4], want[:4]))
     assert err <= 1e-5, f"refine differs by {err}"
-    record("refine_multi", "sift_pyocl_tpu_torch/csrc/refine.cu",
-           f"{ROOT}/ops/pallas/refine.py:334", err,
-           lambda: refine.refine_multi(*args), lambda: refine.refine_multi_ref(*args), 50)
+    n_valid = int(valid.sum())
+    # least work: one 19-sample solve (about 120 operations) per valid candidate
+    rec.record("refine_multi", "sift_pyocl_tpu_torch/csrc/refine.cu",
+               f"{ROOT}/ops/pallas/refine.py:334", err,
+               lambda: refine.refine_multi(*args), lambda: refine.refine_multi_ref(*args), 50,
+               n_bytes=n_slots * (13 + 20) + n_valid * 19 * 4, ops=n_valid * 120)
     fs, fr, fc = got[0], got[1], got[2]
     kvalid = (got[4] > 0) & valid
 
@@ -125,17 +224,21 @@ def check_kernels(x: torch.Tensor, cfg):
     err_o = float(torch.minimum(d, 2 * np.pi - d).max())
     err = max(err_m, err_o)
     assert err <= 1e-5, f"gradient atlas differs: mag {err_m}, ori {err_o}"
-    record("grad_atlas", "sift_pyocl_tpu_torch/csrc/gradpad.cu",
-           f"{ROOT}/ops/pallas/gradpad.py:168", err,
-           lambda: gradpad.grad_atlas(blurs, cfg.scales),
-           lambda: gradpad.grad_atlas_ref(blurs, cfg.scales), 50)
+    plane_px = sum(b.shape[1] * b.shape[2] for b in blurs)
+    rec.record("grad_atlas", "sift_pyocl_tpu_torch/csrc/gradpad.cu",
+               f"{ROOT}/ops/pallas/gradpad.py:168", err,
+               lambda: gradpad.grad_atlas(blurs, cfg.scales),
+               lambda: gradpad.grad_atlas_ref(blurs, cfg.scales), 50,
+               n_bytes=4 * cfg.scales * plane_px + 2 * got[0].numel() * 4,
+               ops=cfg.scales * plane_px * 30)
     mag, ori, row_starts = got
 
     # K6: same ok flags (up to near-tie peaks), angles within 1e-4, u8
     # descriptors within 1 count (the kernel and the plain version sum the
     # bins in different orders)
     sigma = cfg.init_sigma * 2.0 ** (fs / cfg.scales)
-    wargs = (mag, ori, s, fr, fc, sigma, kvalid, _desc_window_size(cfg), cfg.max_ori,
+    win = _desc_window_size(cfg)
+    wargs = (mag, ori, s, fr, fc, sigma, kvalid, win, cfg.max_ori,
              *window.slot_octave_geometry(caps, row_starts, blurs))
     ang_k, ok_k, raw_k = window.orient_desc_fused(*wargs)
     ang_p, ok_p, raw_p = window.orient_desc_fused_ref(*wargs)
@@ -152,10 +255,199 @@ def check_kernels(x: torch.Tensor, cfg):
     print(f"orient_desc_fused: {n_ok} ok slots, {mismatch} ok flags differ, "
           f"angle err {err_a:.3g}, u8 desc diff max {int(dq.max())} mean {float(dq.float().mean()):.4g}")
     assert err_a <= 1e-4 and int(dq.max()) <= 1 and float(dq.float().mean()) < 0.01
-    record("orient_desc_fused", "sift_pyocl_tpu_torch/csrc/window.cu",
-           f"{ROOT}/ops/pallas/window.py:688", err,
-           lambda: window.orient_desc_fused(*wargs), lambda: window.orient_desc_fused_ref(*wargs), 20)
-    return results
+    n_kv = int(kvalid.sum())
+    # least work: each valid keypoint reads its window of (mag, ori) once;
+    # about 10 operations a sample for the histogram and 20 a sample for
+    # each orientation's descriptor
+    rec.record("orient_desc_fused", "sift_pyocl_tpu_torch/csrc/window.cu",
+               f"{ROOT}/ops/pallas/window.py:688", err,
+               lambda: window.orient_desc_fused(*wargs),
+               lambda: window.orient_desc_fused_ref(*wargs), 20,
+               n_bytes=n_slots * 29 + n_kv * win * win * 8 + raw_k.numel() * 4 + 5 * ok_k.numel(),
+               ops=n_kv * win * win * 10 + n_ok * win * win * 20)
+
+
+def check_matcher(buf, rec: Kernels) -> None:
+    """K7 against its plain version at both calls of a VO step, with the
+    main path's row validity: the frame's 8320 keypoint slots against a
+    2048-slot map of 8 blocks of 256 valid keypoints, and the frame's 256
+    strongest valid keypoints (vo_step's spawn rows) against its 8320 slots
+    (the keyframe)."""
+    from sift_pyocl_tpu_torch.ops.kernels import matchk
+
+    rng = np.random.default_rng(0)
+    valid_ids = torch.nonzero(buf.valid).flatten().cpu().numpy()
+    blocks = [rng.choice(valid_ids, 256, replace=False) for _ in range(8)]
+    map_ids = torch.from_numpy(np.concatenate(blocks)).to(buf.desc.device)
+    map_desc = buf.desc[map_ids].clone()
+    map_valid = buf.valid[map_ids].clone()
+    spawn_ids = torch.sort(torch.where(buf.valid, buf.scale, -torch.inf), descending=True,
+                           stable=True).indices[:256]
+    spawn = buf.desc[spawn_ids].clone()
+    spawn_valid = buf.valid[spawn_ids].clone()
+    assert bool(map_valid.all()) and bool(spawn_valid.all())
+    cases = [("map", buf.desc, map_desc, map_valid, buf.valid),
+             ("keyframe", spawn, buf.desc, buf.valid, spawn_valid)]
+    for tag, d1, d2, v2, v1 in cases:
+        got = matchk.best2_l2(d1, d2, v2, v1)
+        want = matchk.best2_l2_ref(d1, d2, v2)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g[v1], w[v1]), f"K7 ({tag}) differs on valid rows"
+        ms = cuda_ms(lambda: matchk.best2_l2(d1, d2, v2, v1), 50)
+        plain_ms = cuda_ms(lambda: matchk.best2_l2_ref(d1, d2, v2), 12)
+        print(f"best2_l2 ({tag}, {d1.shape[0]} x {d2.shape[0]}, {int(v1.sum())} valid rows): "
+              f"equal on valid rows; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    d1, d2, v2, v1 = buf.desc, map_desc, map_valid, buf.valid
+    n_valid = int(v1.sum())
+    a32, b32 = d1.float(), d2.float()
+
+    def library():
+        torch.topk(torch.mm(a32, b32.T), 2, dim=1, largest=False)
+
+    rec.record("best2_l2", "sift_pyocl_tpu_torch/csrc/matchk.cu",
+               f"{ROOT}/ops/pallas/matchk.py:113", 0.0,
+               lambda: matchk.best2_l2(d1, d2, v2, v1),
+               lambda: matchk.best2_l2_ref(d1, d2, v2), 50,
+               n_bytes=d1.numel() + d2.numel() + v1.numel() + v2.numel() + 12 * d1.shape[0],
+               ops=2 * 128 * n_valid * d2.shape[0], peak_ops=INT8_OPS, library=library)
+
+
+def check_slice_frontend(img, x, dev) -> dict:
+    """The first slice's path: SiftPlan.keypoints under SLICE_CONFIG."""
+    from sift_pyocl_tpu_torch import SLICE_CONFIG, SiftPlan, detect_and_describe
+    from sift_pyocl_tpu_torch.models.sift import to_keypoint_records
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
+
+    cfg = SLICE_CONFIG
+    plan = SiftPlan(SHAPE, config=cfg, device=dev)
+    plan.keypoints(img)  # warm-up: allocator, cuDNN algorithm choice
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    frame_ms = []
+    for _ in range(FRAMES):
+        t = time.perf_counter()
+        kp = plan.keypoints(img)
+        frame_ms.append(1e3 * (time.perf_counter() - t))
+    counts = launch_counts()
+    print("SLICE_CONFIG launch counts over", FRAMES, "frames:", counts, flush=True)
+    for name in ("compact_masks_multi", "refine_multi", "grad_atlas", "orient_desc_fused"):
+        assert counts[name] == FRAMES, f"{name} launched {counts[name]} times in {FRAMES} frames"
+    assert counts["octave0_ladder"] == counts["small_octaves_ladder"] == counts["best2_l2"] == 0
+    assert len(kp) >= MIN_KEYPOINTS, f"only {len(kp)} keypoints"
+    for f in ("x", "y", "scale", "angle"):
+        assert np.isfinite(kp[f]).all(), f
+    assert kp["desc"].shape == (len(kp), 128)
+    print(f"SiftPlan{SHAPE}.keypoints (SLICE_CONFIG): {len(kp)} keypoints, ms/frame "
+          f"{[round(m, 3) for m in frame_ms]} (mean {np.mean(frame_ms):.3f})", flush=True)
+    ref = to_keypoint_records(detect_and_describe(x, cfg, plain=True))
+    hits, l1 = match_keypoint_sets(ref, kp)
+    print(f"plain path: {len(ref)} keypoints, kernel path {len(kp)}, matched {hits}, "
+          f"desc L1 {l1:.4f}", flush=True)
+    assert abs(len(kp) - len(ref)) <= max(2, len(ref) // 50)
+    assert hits >= 0.98 * len(ref) and l1 < 0.1
+    return counts
+
+
+def _camera_centre(R, t):
+    return -(R.T @ t)
+
+
+def run_vo(imgs, K, cfg, vo, plain: bool):
+    """vo_init + VO_STEPS vo_step; returns (state, outs, step ms, init counts)."""
+    from sift_pyocl_tpu_torch import vo_init, vo_step
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    state = vo_init(imgs[0], K, cfg, vo, plain=plain)
+    init_counts = launch_counts()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, ms = [], []
+    for img in imgs[1:VO_STEPS + 1]:
+        t = time.perf_counter()
+        state, out = vo_step(state, img, K, cfg, vo, plain=plain)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        outs.append(out)
+    return state, outs, ms, init_counts
+
+
+def check_vo(dev) -> dict:
+    """The main path: vo_init + VO_STEPS vo_step at 1080x1920, defaults."""
+    from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_step
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts
+    from sift_pyocl_tpu_torch.utils import profiling
+
+    cfg, vo = SiftConfig(), VOConfig()
+    h, w = SHAPE
+    K = torch.tensor([[1000.0, 0, w / 2], [0, 1000.0, h / 2], [0, 0, 1]], device=dev)
+    host = profiling.vo_frames(SHAPE, VO_STEPS + 8)
+    imgs = [torch.from_numpy(f).to(dev) for f in host]
+    run_vo(imgs[:3], K, cfg, vo, plain=False)      # warm-up: allocator, cuDNN
+    state, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False)
+    counts = launch_counts()
+    print("vo_init launch counts:", init_counts, flush=True)
+    print(f"launch counts over {VO_STEPS} vo_step:", counts, flush=True)
+    for name, n in init_counts.items():
+        assert n == (0 if name == "best2_l2" else 1), f"vo_init: {name} launched {n} times"
+    for name, n in counts.items():
+        want = 2 * VO_STEPS if name == "best2_l2" else VO_STEPS
+        assert n == want, f"{name} launched {n} times in {VO_STEPS} steps (want {want})"
+    for i, o in enumerate(outs):
+        assert bool(o.tracked), f"frame {i + 1} not tracked"
+        assert int(o.n_matches) >= vo.min_track_matches, f"frame {i + 1}: {int(o.n_matches)} matches"
+        assert torch.isfinite(o.R).all() and torch.isfinite(o.t).all(), f"frame {i + 1}: pose"
+    print("n_kp", [int(o.n_kp) for o in outs], "n_matches", [int(o.n_matches) for o in outs],
+          "rms_px", [round(float(o.rms_px), 3) for o in outs], flush=True)
+    print(f"vo_step {SHAPE} ms (host clock, synchronised): {[round(m, 3) for m in step_ms]}; "
+          f"warm mean (steps 2-{VO_STEPS}) {np.mean(step_ms[1:]):.3f}", flush=True)
+
+    # the kernel path against the plain path on the same card
+    pstate, pouts, pms, _ = run_vo(imgs, K, cfg, vo, plain=True)
+    for i, (o, p) in enumerate(zip(outs, pouts)):
+        assert abs(int(o.n_kp) - int(p.n_kp)) <= max(2, int(p.n_kp) // 50), (i, int(o.n_kp), int(p.n_kp))
+        assert bool(o.tracked) == bool(p.tracked), i
+    c_k = _camera_centre(outs[-1].R, outs[-1].t)
+    c_p = _camera_centre(pouts[-1].R, pouts[-1].t)
+    travelled = float(torch.linalg.vector_norm(c_p))
+    dc = float(torch.linalg.vector_norm(c_k - c_p))
+    cos = float(((outs[-1].R @ pouts[-1].R.T).trace() - 1) / 2)
+    rot_deg = math.degrees(math.acos(max(-1.0, min(1.0, cos))))
+    print(f"plain path: n_kp {[int(p.n_kp) for p in pouts]}, centre {c_p.tolist()}, "
+          f"kernel path centre {c_k.tolist()}; centre gap {dc:.4g} of {travelled:.4g} travelled, "
+          f"rotation gap {rot_deg:.4g} deg; plain ms/step {np.mean(pms[1:]):.3f}", flush=True)
+    assert dc <= 0.05 * travelled, f"camera centre {dc} apart over {travelled}"
+    assert rot_deg <= 0.1, f"rotation {rot_deg} deg apart"
+
+    # stage split, device profile and host synchronisations of warm steps
+    rest = iter(imgs[VO_STEPS + 1:])
+    state, stages = profiling.vo_stage_ms(state, [next(rest) for _ in range(3)], K, cfg, vo)
+    print("vo stage split (device ms, CUDA events):",
+          {k: round(v, 3) for k, v in stages.items()}, flush=True)
+    box = [state]
+
+    def one():
+        box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
+
+    prof = profiling.device_profile(one, 2)
+    print("vo_step device profile:", json.dumps(prof), flush=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            one()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the first detection also brings a notice that the mode is a prototype
+    syncs = [str(c.message).splitlines()[0] for c in caught
+             if "called a synchronizing" in str(c.message)
+             and not str(c.message).startswith("Synchronization debug mode")]
+    print(f"host synchronisations in one vo_step: {len(syncs)}", flush=True)
+    for line in sorted(set(syncs)):
+        print("  sync:", line[:160])
+    return counts
 
 
 def main() -> int:
@@ -163,11 +455,9 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    from sift_pyocl_tpu_torch import SLICE_CONFIG, SiftPlan, detect_and_describe
-    from sift_pyocl_tpu_torch.models.sift import to_keypoint_records
+    from sift_pyocl_tpu_torch import SLICE_CONFIG, SiftConfig, detect_and_describe
     from sift_pyocl_tpu_torch.ops import _build
-    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, synthetic_scene
+    from sift_pyocl_tpu_torch.utils.testimage import synthetic_scene
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -181,40 +471,19 @@ def main() -> int:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
-    cfg = SLICE_CONFIG
     img = synthetic_scene(SHAPE, seed=0)
     x = torch.from_numpy(img).to(dev)
-    kernels = check_kernels(x, cfg)
+    rec = Kernels()
+    check_ladders(x, SiftConfig(), rec)
+    check_keypoint_kernels(x, SLICE_CONFIG, rec)
+    check_matcher(detect_and_describe(x, SiftConfig()), rec)
+    check_slice_frontend(img, x, dev)
+    counts = check_vo(dev)
 
-    plan = SiftPlan(SHAPE, config=cfg, device=dev)
-    plan.keypoints(img)  # warm-up: allocator, cuDNN algorithm choice
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    frame_ms = []
-    for _ in range(FRAMES):
-        t = time.perf_counter()
-        kp = plan.keypoints(img)
-        frame_ms.append(1e3 * (time.perf_counter() - t))
-    counts = launch_counts()
-    print("launch counts over", FRAMES, "frames:", counts, flush=True)
-    for name, n in counts.items():
-        assert n == FRAMES, f"{name} launched {n} times in {FRAMES} frames"
-    assert len(kp) >= MIN_KEYPOINTS, f"only {len(kp)} keypoints"
-    for f in ("x", "y", "scale", "angle"):
-        assert np.isfinite(kp[f]).all(), f
-    assert kp["desc"].shape == (len(kp), 128)
-    print(f"SiftPlan{SHAPE}.keypoints: {len(kp)} keypoints, ms/frame "
-          f"{[round(m, 3) for m in frame_ms]} (mean {np.mean(frame_ms):.3f}) on {smi}", flush=True)
-
-    ref = to_keypoint_records(detect_and_describe(x, cfg, plain=True))
-    hits, l1 = match_keypoint_sets(ref, kp)
-    print(f"plain path: {len(ref)} keypoints, kernel path {len(kp)}, matched {hits}, "
-          f"desc L1 {l1:.4f}", flush=True)
-    assert abs(len(kp) - len(ref)) <= max(2, len(ref) // 50)
-    assert hits >= 0.98 * len(ref) and l1 < 0.1
-
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
+    kernels = []
+    for name, row in rec.rows.items():
+        row["launches"] = counts[name]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

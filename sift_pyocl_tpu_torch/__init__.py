@@ -1,10 +1,12 @@
-"""sift_pyocl_tpu_torch -- the SIFT frontend in PyTorch, with hand-written
-CUDA kernels for Hopper (sm_90a).
+"""sift_pyocl_tpu_torch -- the SIFT frontend and the VO step in PyTorch,
+with hand-written CUDA kernels for Hopper (sm_90a).
 
 A port of ``sift_pyocl_tpu`` (the JAX/Pallas package beside it, which stays
 the reference).  Public API as there:
-    SiftPlan, SiftConfig, KP_DTYPE, detect_and_describe, KeypointBuffer
-plus SLICE_CONFIG, the configuration that runs end to end on the card.
+    SiftPlan, SiftConfig, KP_DTYPE, detect_and_describe, KeypointBuffer,
+    VOConfig, VOState, vo_init, vo_step, match_descriptors_dense
+plus SLICE_CONFIG (the frontend with the plain pyramid, as run by the first
+slice).
 """
 
 import torch as _torch
@@ -19,5 +21,7 @@ _torch.backends.cudnn.allow_tf32 = False
 from .config import SLICE_CONFIG, SiftConfig, from_jax_config  # noqa: E402,F401
 from .oracle import KP_DTYPE  # noqa: E402,F401
 from .models.sift import KeypointBuffer, SiftPlan, detect_and_describe  # noqa: E402,F401
+from .models.vo import VOConfig, VOState, vo_init, vo_step  # noqa: E402,F401
+from .ops.match import match_descriptors_dense  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
 """End-to-end SIFT frontend and the ``SiftPlan`` public API, in PyTorch.
 
 Port of ``sift_pyocl_tpu/models/sift.py`` on its multi-launch keypoint path
-(``_describe_octaves_pallas``): the plain PyTorch pyramid and extrema mask,
-then one launch each of the four CUDA kernels over all octaves -- K3
-compaction, K4 refinement, K5 gradient atlas, K6 orientation+descriptor --
-and ``quantize_descriptors``.  On a CPU device every kernel wrapper runs its
+(``_describe_octaves_pallas``): the pyramid (ladder kernels K1/K2, or plain
+PyTorch with ``conv_backend="xla"``) and the plain extrema mask, then one
+launch each of the four keypoint kernels over all octaves -- K3 compaction,
+K4 refinement, K5 gradient atlas, K6 orientation+descriptor -- and
+``quantize_descriptors``.  On a CPU device every kernel wrapper runs its
 plain PyTorch version.
 """
 
@@ -81,7 +82,7 @@ def _check_kp_path(cfg: SiftConfig) -> None:
 def detect_and_describe(img: torch.Tensor, cfg: SiftConfig, plain: bool = False) -> KeypointBuffer:
     """The full forward pass on the device of `img`.  ``plain=True`` runs
     each kernel's plain PyTorch version instead (parity runs on the card)."""
-    octaves = build_scale_space(img, cfg)
+    octaves = build_scale_space(img, cfg, plain=plain)
     return describe_octaves(octaves, tuple(img.shape[:2]), cfg, plain=plain)
 
 
@@ -164,9 +165,9 @@ class SiftPlan:
     >>> plan = SiftPlan(shape=(512, 512), dtype="float32")
     >>> kp = plan.keypoints(img)     # structured array, KP_DTYPE records
 
-    ``device`` (default: the first CUDA card if there is one, else the CPU)
-    is where the frontend runs; on a CUDA device the keypoint stage runs on
-    the hand-written kernels.  ``devicetype`` is accepted for signature
+    ``device`` (default: the current CUDA card; raises without one, so
+    pass ``device="cpu"`` for the CPU) is where the frontend runs; on a
+    CUDA device it runs on the hand-written kernels.  ``devicetype`` is accepted for signature
     parity and ignored.
     """
 

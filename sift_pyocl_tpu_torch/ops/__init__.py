@@ -13,10 +13,13 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``device`` as a ``torch.device``; None means the first CUDA card when
-    one is present, else the CPU."""
+    """``device`` as a ``torch.device``; None means the current CUDA card,
+    and raises when there is none (the CPU is only ever asked for)."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device (torch.cuda.is_available() is False); '
+                               'pass device="cpu" to run on the CPU')
+        device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

@@ -11,10 +11,13 @@ from typing import Dict
 
 from .compact import compact_masks_multi
 from .gradpad import grad_atlas
+from .ladder import octave0_ladder, small_octaves_ladder
+from .matchk import best2_l2
 from .refine import refine_multi
 from .window import orient_desc_fused
 
-KERNEL_WRAPPERS = (compact_masks_multi, refine_multi, grad_atlas, orient_desc_fused)
+KERNEL_WRAPPERS = (octave0_ladder, small_octaves_ladder, compact_masks_multi, refine_multi,
+                   grad_atlas, orient_desc_fused, best2_l2)
 
 
 def reset_launch_counts() -> None:

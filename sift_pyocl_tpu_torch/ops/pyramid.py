@@ -1,17 +1,17 @@
-"""Gaussian scale-space pyramid in plain PyTorch.
+"""Gaussian scale-space pyramid.
 
-Port of ``sift_pyocl_tpu/ops/pyramid.py`` on its ``conv_backend="xla"``
-path: separable Gaussian blurs with clamp-to-edge borders, the blur ladder
-of each octave, DoGs, and ceil-sized octave downsampling.  The fused ladder
-kernels (``ladder0.octave0_ladder``, ``ladder.small_octaves_ladder``) are
-not ported yet, so ``conv_backend="pallas"`` raises; ``"auto"`` resolves to
-this plain path until they are.
+Port of ``sift_pyocl_tpu/ops/pyramid.py``: separable Gaussian blurs with
+clamp-to-edge borders, the blur ladder of each octave, DoGs, and ceil-sized
+octave downsampling.  ``conv_backend="pallas"`` or ``"auto"`` runs octave 0
+through the ladder kernel K1 and every octave >= 1 through one call of K2
+(``ops/kernels/ladder.py``; on a CPU tensor their plain versions);
+``"xla"`` is the plain PyTorch path on any device.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,18 +20,23 @@ import torch.nn.functional as F
 from ..config import SiftConfig
 from ..oracle import gaussian_kernel
 
-_LADDER_TODO = ("conv_backend='pallas' needs the ladder kernels K1/K2 "
-                "(ROADMAP.md, Queue 2: octave0_ladder, small_octaves_ladder), "
-                "which are not ported yet; use conv_backend='xla'")
+_FUSED_MASK_TODO = ("mask_backend='fused' needs the in-ladder extrema mask of K1/K2 "
+                    "(ROADMAP.md, Queue 2: the mask_cfg variants), which is not "
+                    "ported yet; use mask_backend='xla'")
+
+Ladder = Tuple[torch.Tensor, torch.Tensor]
 
 
 def resolve_conv_backend(cfg: SiftConfig) -> str:
-    """The pyramid path for `cfg`: "xla" (plain PyTorch) until K1/K2 exist."""
-    if cfg.conv_backend == "pallas":
-        raise NotImplementedError(_LADDER_TODO)
-    if cfg.conv_backend not in ("xla", "auto"):
+    """The pyramid path for `cfg`: "pallas" (the ladder kernels K1/K2, their
+    plain versions on a CPU tensor) for "pallas" and "auto", "xla" (plain
+    PyTorch on any device) for "xla"."""
+    if cfg.conv_backend not in ("xla", "auto", "pallas"):
         raise ValueError(f"unknown conv_backend {cfg.conv_backend!r}")
-    return "xla"
+    backend = "xla" if cfg.conv_backend == "xla" else "pallas"
+    if backend == "pallas" and cfg.mask_backend == "fused":
+        raise NotImplementedError(_FUSED_MASK_TODO)
+    return backend
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
@@ -84,22 +89,12 @@ def upscale2(img: torch.Tensor) -> torch.Tensor:
     return up(up(img, 0), 1)
 
 
-def prepare_input(img: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
-    """Normalize, optionally double, pre-blur to init_sigma (oracle.prepare_input)."""
-    data = normalize_image(img)
-    cur_sigma = cfg.orig_sigma
-    if cfg.double_im_size:
-        data = upscale2(data)
-        cur_sigma *= 2.0
-    if cfg.init_sigma > cur_sigma:
-        data = blur(data, float(np.sqrt(cfg.init_sigma**2 - cur_sigma**2)))
-    return data
-
-
-def build_octave(base: torch.Tensor, cfg: SiftConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One octave: blur stack (S+3, H, W) and DoG stack (S+2, H, W)."""
+def build_octave(base: torch.Tensor,
+                 increments: Sequence[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One octave's blur stack (len(increments)+1, H, W), level l+1 being
+    level l blurred by ``increments[l]``, and its DoG stack."""
     blurs = [base]
-    for inc in cfg.sigma_increments():
+    for inc in increments:
         blurs.append(blur(blurs[-1], inc))
     stack = torch.stack(blurs)
     return stack, stack[1:] - stack[:-1]
@@ -123,18 +118,52 @@ def downsample2_bin(img: torch.Tensor) -> torch.Tensor:
     return pair(pair(img, 0), 1).contiguous()
 
 
-def downsample_octave(img: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
-    """Octave downsample dispatch (cfg.downsample_mode: shrink | bin)."""
-    return downsample2_bin(img) if cfg.downsample_mode == "bin" else downsample2(img)
+def downsample_octave(img: torch.Tensor, mode: str) -> torch.Tensor:
+    """Octave downsample (``downsample_mode``: "shrink" | "bin")."""
+    return downsample2_bin(img) if mode == "bin" else downsample2(img)
 
 
-def build_scale_space(img: torch.Tensor, cfg: SiftConfig) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """All octaves as a list of (blurs (S+3, H, W), dogs (S+2, H, W))."""
-    resolve_conv_backend(cfg)
+def octave0_ladder_ref(img: torch.Tensor, pre_sigma: Optional[float],
+                       increments: Sequence[float]) -> Ladder:
+    """Plain version of K1 (``ops.kernels.ladder.octave0_ladder``): octave
+    0 from the normalized image, pre-blurred by `pre_sigma` unless None."""
+    return build_octave(img if pre_sigma is None else blur(img, pre_sigma), increments)
+
+
+def small_octaves_ladder_ref(base1: torch.Tensor, increments: Sequence[float], n_oct: int,
+                             scales: int, ds_mode: str = "shrink") -> List[Ladder]:
+    """Plain version of K2 (``ops.kernels.ladder.small_octaves_ladder``):
+    `n_oct` octaves from the first small octave's base, each next base being
+    level `scales` downsampled."""
+    out, base = [], base1
+    for _ in range(n_oct):
+        out.append(build_octave(base, increments))
+        base = downsample_octave(out[-1][0][scales], ds_mode)
+    return out
+
+
+def build_scale_space(img: torch.Tensor, cfg: SiftConfig,
+                      plain: bool = False) -> List[Ladder]:
+    """All octaves as a list of (blurs (S+3, H, W), dogs (S+2, H, W)):
+    octave 0 through K1, the others through one call of K2, or their plain
+    versions for ``conv_backend="xla"`` or ``plain=True``."""
     n_oct = cfg.n_octaves(tuple(img.shape[:2]))
-    blurs, dogs = build_octave(prepare_input(img, cfg), cfg)
-    octaves = [(blurs, dogs)]
-    for _ in range(1, n_oct):
-        blurs, dogs = build_octave(downsample_octave(blurs[cfg.scales], cfg), cfg)
-        octaves.append((blurs, dogs))
+    if resolve_conv_backend(cfg) == "xla" or plain:
+        k1, k2 = octave0_ladder_ref, small_octaves_ladder_ref
+    else:
+        # imported here, as the JAX package imports its Pallas ladders: the
+        # kernel module takes its plain versions from this one
+        from .kernels.ladder import octave0_ladder as k1, small_octaves_ladder as k2
+    data = normalize_image(img)
+    cur_sigma = cfg.orig_sigma
+    if cfg.double_im_size:
+        data = upscale2(data)
+        cur_sigma *= 2.0
+    pre = (float(np.sqrt(cfg.init_sigma**2 - cur_sigma**2))
+           if cfg.init_sigma > cur_sigma else None)
+    incs = cfg.sigma_increments()
+    octaves = [k1(data, pre, incs)]
+    if n_oct > 1:
+        octaves += k2(downsample_octave(octaves[0][0][cfg.scales], cfg.downsample_mode),
+                      incs, n_oct - 1, cfg.scales, cfg.downsample_mode)
     return octaves

@@ -3,15 +3,21 @@
     python -m sift_pyocl_tpu_torch.utils.profiling [--shape 1080 1920] [--frames 5]
 
 prints one JSON object:
-  * ``stage_ms``: host-clock time of each stage of the frontend, from the
-    upload of the host frame on, run one after another with a device
-    synchronisation after each (so each figure includes the stage's own
-    launch overhead; the frame's remainder is output assembly and the copy
-    back to the host);
+  * ``stage_ms``: host-clock time of each stage of the frontend
+    (``SLICE_CONFIG``), from the upload of the host frame on, run one after
+    another with a device synchronisation after each (so each figure
+    includes the stage's own launch overhead; the frame's remainder is
+    output assembly and the copy back to the host);
   * ``frame_ms``: ``SiftPlan.keypoints`` per frame, host clock;
-  * ``device``: from ``torch.profiler`` over the same frames: summed kernel
+  * ``profile``: from ``torch.profiler`` over the same frames: summed kernel
     time, the device's busy share of the wall time, the number of kernel
-    launches per frame and the kernels that take the most time.
+    launches per frame and the kernels that take the most time;
+  * ``vo``: the VO step at the default ``SiftConfig`` and ``VOConfig``:
+    ``vo_stage_ms`` (CUDA events at each stage boundary of ``vo_step``:
+    frontend, match, pnp, roll_spawn, ba -- device time from one boundary
+    to the next, so a stage's figure includes any wait of the device on the
+    host), ``step_ms`` (host clock, synchronised) and the same
+    ``torch.profiler`` summary per step.
 Requires a CUDA device; there is no CPU fallback.
 """
 
@@ -22,6 +28,7 @@ import json
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from ..config import SLICE_CONFIG, SiftConfig
@@ -81,16 +88,17 @@ def stage_times(host_img, cfg: SiftConfig, dev: torch.device, frames: int) -> di
     return {k: v / frames for k, v in acc.items()}
 
 
-def device_profile(plan: SiftPlan, img, frames: int) -> dict:
-    """Kernel time and busy share of the device over `frames` keypoints() calls."""
+def device_profile(run_frame, frames: int) -> dict:
+    """Kernel time and busy share of the device over `frames` calls of
+    ``run_frame()`` (after one more call as warm-up)."""
     from torch.profiler import ProfilerActivity, profile
 
-    plan.keypoints(img)
+    run_frame()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(frames):
-            plan.keypoints(img)
+            run_frame()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -106,6 +114,70 @@ def device_profile(plan: SiftPlan, img, frames: int) -> dict:
         "kernel_launches_per_frame": len(kernels) / frames,
         "top_kernels_ms_per_frame": [[name[:90], ms / frames] for name, ms in top],
     }
+
+
+VO_STAGES = ("frontend", "match", "pnp", "roll_spawn", "ba")
+
+
+def vo_stage_ms(state, frames, K, cfg: SiftConfig, vo):
+    """Mean device ms of each VO stage over ``vo_step`` on `frames` (CUDA
+    events recorded as each stage is enqueued).  Returns (state, {stage: ms})."""
+    from ..models.vo import vo_step
+
+    acc = defaultdict(float)
+    for frame in frames:
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        state, _ = vo_step(state, frame, K, cfg, vo, on_stage=mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(events, events[1:]):
+            acc[name] += a.elapsed_time(b)
+    return state, {k: acc[k] / len(frames) for k in VO_STAGES}
+
+
+def vo_frames(shape, n: int, step_px: int = 2):
+    """`n` host frames of a translating scene: crops of a larger
+    ``synthetic_scene`` shifted `step_px` columns a frame.  The scene is
+    (h + 64, w + 64) while the shifts fit in it (21 frames at 2 px), and
+    wider for longer runs, so every frame is (h, w)."""
+    h, w = shape
+    base = synthetic_scene((h + 64, w + max(64, 24 + step_px * (n - 1))), n_blobs=200, seed=0)
+    return [np.ascontiguousarray(base[24:24 + h, 24 + step_px * i:24 + step_px * i + w])
+            for i in range(n)]
+
+
+def vo_report(shape, frames: int, dev: torch.device) -> dict:
+    """The VO step at the default configs on `frames` + 4 frames."""
+    from ..models.vo import VOConfig, vo_init, vo_step
+
+    cfg, vo = SiftConfig(), VOConfig()
+    h, w = shape
+    K = torch.tensor([[1000.0, 0, w / 2], [0, 1000.0, h / 2], [0, 0, 1]], device=dev)
+    host = vo_frames(shape, 2 * frames + 4)
+    imgs = [torch.from_numpy(f).to(dev) for f in host]
+    state = vo_init(imgs[0], K, cfg, vo)
+    state, _ = vo_step(state, imgs[1], K, cfg, vo)
+    torch.cuda.synchronize()
+    step_ms = []
+    for img in imgs[2:2 + frames]:
+        t = time.perf_counter()
+        state, _ = vo_step(state, img, K, cfg, vo)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    state, stages = vo_stage_ms(state, imgs[2 + frames:2 + 2 * frames], K, cfg, vo)
+    rest = iter(imgs[2 + 2 * frames:])
+    box = [state]
+
+    def one():
+        box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
+
+    return {"step_ms": step_ms, "vo_stage_ms": stages, "profile": device_profile(one, 1)}
 
 
 def main() -> int:
@@ -130,7 +202,8 @@ def main() -> int:
         "shape": list(shape),
         "frame_ms": frame_ms,
         "stage_ms": stage_times(img, SLICE_CONFIG, dev, args.frames),
-        "profile": device_profile(plan, img, args.frames),
+        "profile": device_profile(lambda: plan.keypoints(img), args.frames),
+        "vo": vo_report(shape, args.frames, dev),
     }
     print(json.dumps(report))
     return 0

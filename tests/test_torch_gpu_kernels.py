@@ -8,14 +8,15 @@ conftest.py, which imports it):
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from sift_pyocl_tpu_torch import SLICE_CONFIG, detect_and_describe
 from sift_pyocl_tpu_torch.models.sift import octave_capacities, to_keypoint_records
 from sift_pyocl_tpu_torch.ops.detect import decode_compacted, extrema_mask
-from sift_pyocl_tpu_torch.ops.kernels import (compact, gradpad, launch_counts, refine,
-                                              reset_launch_counts, window)
+from sift_pyocl_tpu_torch.ops.kernels import (compact, gradpad, ladder, launch_counts, matchk,
+                                              refine, reset_launch_counts, window)
 from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
 from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, synthetic_scene
 
@@ -85,10 +86,69 @@ def test_slice_kernel_path_matches_plain_path(stage_inputs):
     img = stage_inputs[0]
     reset_launch_counts()
     buf = detect_and_describe(img, CFG)
-    assert all(n == 1 for n in launch_counts().values()), launch_counts()
+    counts = launch_counts()
+    assert counts.pop("best2_l2") == 0, counts
+    assert counts.pop("octave0_ladder") == counts.pop("small_octaves_ladder") == 0, counts
+    assert all(n == 1 for n in counts.values()), counts
 
     got = to_keypoint_records(buf)
     want = to_keypoint_records(detect_and_describe(img, CFG, plain=True))
     assert len(got) == len(want) > 10
     hits, l1 = match_keypoint_sets(want, got)
     assert hits == len(want) and l1 < 0.01
+
+
+@pytest.mark.parametrize("mode", ["shrink", "bin"])
+def test_ladder_kernels_match_plain(cuda, mode):
+    """K1 and K2 within 1e-3 of their plain versions at 240x320 (and an odd
+    size), every octave ceil-sized."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops.pyramid import downsample_octave, normalize_image
+
+    cfg = SiftConfig(downsample_mode=mode)
+    incs = cfg.sigma_increments()
+    pre = float((cfg.init_sigma**2 - cfg.orig_sigma**2) ** 0.5)
+    for shape in (SHAPE, (135, 241)):
+        x = normalize_image(torch.from_numpy(synthetic_scene(shape, n_blobs=20, seed=4)).to(cuda))
+        for p in (pre, None):
+            got = ladder.octave0_ladder(x, p, incs)
+            want = ladder.octave0_ladder_ref(x, p, incs)
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and float((g - w).abs().max()) <= 1e-3
+        base = downsample_octave(want[0][cfg.scales], mode)
+        n_oct = cfg.n_octaves(shape) - 1
+        got = ladder.small_octaves_ladder(base, incs, n_oct, cfg.scales, mode)
+        want = ladder.small_octaves_ladder_ref(base, incs, n_oct, cfg.scales, mode)
+        assert len(got) == len(want) == n_oct
+        for (gb, gd), (wb, wd) in zip(got, want):
+            assert gb.shape == wb.shape and gd.shape == wd.shape
+            assert float((gb - wb).abs().max()) <= 1e-3 and float((gd - wd).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n1,n2", [(512, 8320), (8320, 2048), (37, 1)])
+def test_best2_l2_kernel_is_exact(cuda, n1, n2):
+    """K7 equals its plain version on valid1 rows bit for bit, past the
+    TPU's 8192-column cap, with ties at the minimum and an all-invalid
+    column set; invalid rows come back (0, 0, 0)."""
+    rng = np.random.default_rng(n1 + n2)
+    d1 = torch.from_numpy(rng.integers(0, 256, (n1, 128), dtype=np.uint8))
+    d2 = torch.from_numpy(rng.integers(0, 256, (n2, 128), dtype=np.uint8))
+    v1 = torch.from_numpy(rng.uniform(size=n1) < 0.6)
+    v2 = torch.from_numpy(rng.uniform(size=n2) < 0.8)
+    if n2 > 8:
+        d2[5] = d2[3]
+        d1[0] = d2[3]
+        d2[-1] = d2[-2] = d1[1]
+        v1[:2] = True
+        v2[[3, 5, -2, -1]] = True
+    d1, d2, v1, v2 = (t.to(cuda) for t in (d1, d2, v1, v2))
+    for valid2 in (v2, torch.zeros_like(v2)):
+        got = matchk.best2_l2(d1, d2, valid2, v1)
+        want = matchk.best2_l2_ref(d1, d2, valid2)
+        for a, b in zip(got, want):
+            assert torch.equal(a[v1], b[v1])
+            assert not a[~v1].any()
+        if n2 > 8 and valid2 is v2:
+            assert int(got[2][0]) == 3 and float(got[1][0]) == float(got[0][0]) == 0.0
+    with pytest.raises(TypeError):
+        matchk.best2_l2(d1.float(), d2.float(), v2, v1)

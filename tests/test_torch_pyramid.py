@@ -62,7 +62,10 @@ def test_normalize_matches_jax(rgb):
 
 
 def test_pallas_conv_backend_is_not_ported_yet():
+    """The ladder kernels K1/K2 are ported ("pallas" and "auto" take them);
+    their in-ladder extrema mask (mask_backend="fused") is not yet."""
     img = torch.zeros(64, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.build_scale_space(img, SiftConfig(conv_backend="pallas"))
-    assert tp.resolve_conv_backend(SiftConfig()) == "xla"
+        tp.build_scale_space(img, SiftConfig(conv_backend="pallas", mask_backend="fused"))
+    assert tp.resolve_conv_backend(SiftConfig()) == "pallas"
+    assert tp.resolve_conv_backend(SiftConfig(conv_backend="xla")) == "xla"

@@ -88,3 +88,16 @@ def test_plan_api(scene128):
     assert buf.x.shape == buf.valid.shape == (n_slots,)
     assert int(buf.counts[:, 1].sum()) == int(buf.valid.sum())
     assert tsift._detector(plan.cfg) is plan._fn    # one detector per config
+
+
+def test_plan_without_a_card_raises_unless_asked_for_the_cpu():
+    """device=None means the CUDA card; without one the plan raises and
+    names device="cpu" (no silent fall back to the CPU)."""
+    from sift_pyocl_tpu_torch.ops import resolve_device
+
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SiftPlan((64, 64))
+    assert SiftPlan((64, 64), device="cpu").device == torch.device("cpu")
