@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 1. Requires a CUDA card; prints its name and power limit (nvidia-smi).
-2. Builds the kernels of sift_pyocl_tpu_torch/csrc/ with nvcc.
+2. Builds the kernels of sift_pyocl_tpu_torch/csrc/ with nvcc (one process
+   per source, all at once).
 3. Runs each kernel and its plain PyTorch version on the same inputs at the
-   shapes of the main path (a 1080x1920 frame) and asserts parity: K1/K2
-   (blur ladders) within 1e-3, K3 (compaction) and K7 (best-2 matching, both
-   calls of a VO step) exactly, K4-K6 as in their tests.  Times each with
-   CUDA events, beside the plain version, a PyTorch library call where one
-   computes the same function, and the least time the card could take.
+   shapes of its path (a 1080x1920 frame) and asserts parity: K1/K2 (blur
+   ladders) within 1e-3, K3 and K10a (compaction), K8 (extrema masks, all
+   7 octaves) and K7 (best-2 matching, both calls of a VO step) exactly,
+   K4/K10b (refinement) with the same accepts and floats within 1e-5, K5
+   and K6 as in their tests.  Times each with CUDA events, beside the
+   plain version, a PyTorch library call where one computes the same
+   function, and the least time the card could take.
 4. Runs SiftPlan((1080, 1920), config=SLICE_CONFIG).keypoints for a few
    frames (the first slice's path, plain pyramid) with every launch counter
    reset just before, and holds its keypoints to the plain-version path.
@@ -20,14 +23,25 @@
    twice a frame; the same run with plain=True agrees (keypoint counts,
    tracking, final camera centre, rotation).  Prints ms per step, the stage
    split, device time and launches per step, and host syncs per step.
-6. Prints a JSON line of per-kernel results, then, as its last line,
-   {"ok": true, "device": {...}}.
+6. P1: the same VO run with SiftConfig(mask_backend="pallas"): K8 once,
+   K1-K6 once and K7 twice a step, every frame's keypoint buffer equal to
+   the default run's and the final pose within 1e-6 of it; ms per step,
+   stage split, device time and launches beside the default mask's.
+7. P2: SiftPlan.keypoints with kp_multi_launch=False: K10a, K10b and K6
+   launched once per octave a frame, K3-K5 never; its keypoint buffer equal,
+   bit for bit, to the multi-launch one with grad_backend="xla".
+8. P3: SiftPlan.keypoints with desc_buckets=2: K6 twice a frame; held to its
+   plain=True run.
+9. Prints a JSON line of per-kernel results (launches from the path that
+   runs each kernel), then, as its last line, {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -252,10 +266,11 @@ def check_keypoint_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
     unit = raw_p[both] / raw_p[both].norm(dim=1, keepdim=True).clamp(min=1e-30)
     unit_k = raw_k[both] / raw_k[both].norm(dim=1, keepdim=True).clamp(min=1e-30)
     err = float((unit_k - unit).abs().max())
-    print(f"orient_desc_fused: {n_ok} ok slots, {mismatch} ok flags differ, "
-          f"angle err {err_a:.3g}, u8 desc diff max {int(dq.max())} mean {float(dq.float().mean()):.4g}")
-    assert err_a <= 1e-4 and int(dq.max()) <= 1 and float(dq.float().mean()) < 0.01
     n_kv = int(kvalid.sum())
+    print(f"orient_desc_fused: {n_kv} valid keypoints, {n_ok} ok slots, {mismatch} ok flags "
+          f"differ, angle err {err_a:.3g}, u8 desc diff max {int(dq.max())} mean "
+          f"{float(dq.float().mean()):.4g}")
+    assert err_a <= 1e-4 and int(dq.max()) <= 1 and float(dq.float().mean()) < 0.01
     # least work: each valid keypoint reads its window of (mag, ori) once;
     # about 10 operations a sample for the histogram and 20 a sample for
     # each orientation's descriptor
@@ -265,6 +280,64 @@ def check_keypoint_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
                lambda: window.orient_desc_fused_ref(*wargs), 20,
                n_bytes=n_slots * 29 + n_kv * win * win * 8 + raw_k.numel() * 4 + 5 * ok_k.numel(),
                ops=n_kv * win * win * 10 + n_ok * win * win * 20)
+
+
+def check_mask_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
+    """K8 over all octaves, K10a and K10b on octave 0, against their plain
+    versions at the shapes of their paths (P1, P2)."""
+    from sift_pyocl_tpu_torch.models.sift import octave_capacities
+    from sift_pyocl_tpu_torch.ops.detect import decode_compacted
+    from sift_pyocl_tpu_torch.ops.kernels import compact, maskk, refine
+    from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
+
+    dogs = [d for _, d in build_scale_space(x, cfg)]
+    caps = [c for c, _ in octave_capacities(SHAPE, cfg)]
+    got = maskk.extrema_masks(dogs, cfg)
+    want = maskk.extrema_masks_ref(dogs, cfg)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == cfg.n_octaves(SHAPE)
+    for o, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"K8 differs from the plain stencil in octave {o}"
+    n_cand = [int(w.sum()) for w in want]
+    mask_px = sum(w.numel() for w in want)
+    print(f"extrema_masks: equal on all {len(want)} octaves, candidates {n_cand}", flush=True)
+    # least work: each DoG value read once, each mask byte written once;
+    # about 70 operations a mask element (52 neighbour compares, the
+    # strength test and the 2x2 Hessian edge test)
+    rec.record("extrema_masks", "sift_pyocl_tpu_torch/csrc/maskk.cu",
+               f"{ROOT}/ops/pallas/maskk.py:194", 0.0,
+               lambda: maskk.extrema_masks(dogs, cfg),
+               lambda: maskk.extrema_masks_ref(dogs, cfg), 50,
+               n_bytes=4 * sum(d.numel() for d in dogs) + mask_px, ops=70 * mask_px)
+
+    mask, cap = want[0], caps[0]
+    got = compact.compact_mask(mask, cap)
+    ref = compact.compact_mask_ref(mask, cap)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref):
+        assert g.shape == w.shape and torch.equal(g, w), "K10a differs from its plain version"
+    print(f"compact_mask: exact; written {int(ref[1])}, total {int(ref[2])}", flush=True)
+    rec.record("compact_mask", "sift_pyocl_tpu_torch/csrc/compact.cu",
+               f"{ROOT}/ops/pallas/compact.py:99", 0.0,
+               lambda: compact.compact_mask(mask, cap),
+               lambda: compact.compact_mask_ref(mask, cap), 50,
+               n_bytes=mask.numel() + 4 * cap + 8, ops=0,
+               library=lambda: torch.nonzero(mask))
+
+    s, r, c, valid = decode_compacted(dogs[:1], [mask], [cap], got[0], got[1].reshape(1),
+                                      cfg.border_dist)
+    args = (dogs[0], s, r, c, valid, cfg.border_dist, cfg.peak_thresh, cfg.max_interp_moves)
+    got = refine.refine_octave(*args)
+    ref = refine.refine_octave_ref(*args)
+    assert torch.equal(got[4], ref[4]), "K10b accept flags differ"
+    acc = ref[4] > 0
+    err = max(float((g[acc] - w[acc]).abs().max()) for g, w in zip(got[:4], ref[:4]))
+    assert err <= 1e-5, f"K10b differs by {err}"
+    n_valid = int(valid.sum())
+    rec.record("refine_octave", "sift_pyocl_tpu_torch/csrc/refine.cu",
+               f"{ROOT}/ops/pallas/refine.py:394", err,
+               lambda: refine.refine_octave(*args), lambda: refine.refine_octave_ref(*args), 50,
+               n_bytes=cap * (13 + 20) + n_valid * 19 * 4, ops=n_valid * 120)
 
 
 def check_matcher(buf, rec: Kernels) -> None:
@@ -313,16 +386,13 @@ def check_matcher(buf, rec: Kernels) -> None:
                ops=2 * 128 * n_valid * d2.shape[0], peak_ops=INT8_OPS, library=library)
 
 
-def check_slice_frontend(img, x, dev) -> dict:
-    """The first slice's path: SiftPlan.keypoints under SLICE_CONFIG."""
-    from sift_pyocl_tpu_torch import SLICE_CONFIG, SiftPlan, detect_and_describe
-    from sift_pyocl_tpu_torch.models.sift import to_keypoint_records
+def plan_frames(plan, img):
+    """FRAMES calls of plan.keypoints after one warm-up call (allocator,
+    cuDNN algorithm choice), launch counters reset just before them.
+    Returns (last records, host-clock ms per frame, launch counts)."""
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
 
-    cfg = SLICE_CONFIG
-    plan = SiftPlan(SHAPE, config=cfg, device=dev)
-    plan.keypoints(img)  # warm-up: allocator, cuDNN algorithm choice
+    plan.keypoints(img)
     torch.cuda.synchronize()
     reset_launch_counts()
     frame_ms = []
@@ -330,11 +400,23 @@ def check_slice_frontend(img, x, dev) -> dict:
         t = time.perf_counter()
         kp = plan.keypoints(img)
         frame_ms.append(1e3 * (time.perf_counter() - t))
-    counts = launch_counts()
+    return kp, frame_ms, launch_counts()
+
+
+def check_slice_frontend(img, x, dev) -> dict:
+    """The first slice's path: SiftPlan.keypoints under SLICE_CONFIG."""
+    from sift_pyocl_tpu_torch import SLICE_CONFIG, SiftPlan, detect_and_describe
+    from sift_pyocl_tpu_torch.models.sift import to_keypoint_records
+    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
+
+    cfg = SLICE_CONFIG
+    kp, frame_ms, counts = plan_frames(SiftPlan(SHAPE, config=cfg, device=dev), img)
     print("SLICE_CONFIG launch counts over", FRAMES, "frames:", counts, flush=True)
     for name in ("compact_masks_multi", "refine_multi", "grad_atlas", "orient_desc_fused"):
         assert counts[name] == FRAMES, f"{name} launched {counts[name]} times in {FRAMES} frames"
-    assert counts["octave0_ladder"] == counts["small_octaves_ladder"] == counts["best2_l2"] == 0
+    for name in ("octave0_ladder", "small_octaves_ladder", "best2_l2", "extrema_masks",
+                 "compact_mask", "refine_octave"):
+        assert counts[name] == 0, f"{name} launched {counts[name]} times"
     assert len(kp) >= MIN_KEYPOINTS, f"only {len(kp)} keypoints"
     for f in ("x", "y", "scale", "angle"):
         assert np.isfinite(kp[f]).all(), f
@@ -354,28 +436,92 @@ def _camera_centre(R, t):
     return -(R.T @ t)
 
 
-def run_vo(imgs, K, cfg, vo, plain: bool):
-    """vo_init + VO_STEPS vo_step; returns (state, outs, step ms, init counts)."""
+@contextlib.contextmanager
+def frontend_recorder(bufs: list):
+    """Keeps every KeypointBuffer that vo_init / vo_step take from the
+    frontend, so that two VO runs can be compared frame by frame."""
+    from sift_pyocl_tpu_torch.models import vo as vo_mod
+
+    frontend = vo_mod.detect_and_describe
+
+    def recorded(img, cfg, plain=False):
+        buf = frontend(img, cfg, plain=plain)
+        bufs.append(buf)
+        return buf
+
+    vo_mod.detect_and_describe = recorded
+    try:
+        yield bufs
+    finally:
+        vo_mod.detect_and_describe = frontend
+
+
+def run_vo(imgs, K, cfg, vo, plain: bool, bufs=None):
+    """vo_init + VO_STEPS vo_step; returns (state, outs, step ms, init
+    counts).  With a list `bufs`, every frame's KeypointBuffer goes in it."""
     from sift_pyocl_tpu_torch import vo_init, vo_step
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    reset_launch_counts()
-    state = vo_init(imgs[0], K, cfg, vo, plain=plain)
-    init_counts = launch_counts()
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    outs, ms = [], []
-    for img in imgs[1:VO_STEPS + 1]:
-        t = time.perf_counter()
-        state, out = vo_step(state, img, K, cfg, vo, plain=plain)
+    with frontend_recorder([] if bufs is None else bufs):
+        reset_launch_counts()
+        state = vo_init(imgs[0], K, cfg, vo, plain=plain)
+        init_counts = launch_counts()
         torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t))
-        outs.append(out)
+        reset_launch_counts()
+        outs, ms = [], []
+        for img in imgs[1:VO_STEPS + 1]:
+            t = time.perf_counter()
+            state, out = vo_step(state, img, K, cfg, vo, plain=plain)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            outs.append(out)
     return state, outs, ms, init_counts
 
 
+def timed_vo_steps(imgs, K, cfg, vo):
+    """vo_init + VO_STEPS vo_step; per step the wall ms (synchronised) and
+    the host thread's CPU ms."""
+    from sift_pyocl_tpu_torch import vo_init, vo_step
+
+    state = vo_init(imgs[0], K, cfg, vo)
+    torch.cuda.synchronize()
+    wall, cpu = [], []
+    for img in imgs[1:VO_STEPS + 1]:
+        t, c = time.perf_counter(), time.thread_time()
+        state, _ = vo_step(state, img, K, cfg, vo)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t))
+        cpu.append(1e3 * (time.thread_time() - c))
+    return wall, cpu
+
+
+VO_KERNELS = ("octave0_ladder", "small_octaves_ladder", "compact_masks_multi", "refine_multi",
+              "grad_atlas", "orient_desc_fused", "best2_l2")
+
+
+def check_vo_counts(init_counts, counts, extra=()):
+    """K1-K6 (and `extra`) once in vo_init and once a step, K7 twice a step,
+    every other kernel never."""
+    on_path = VO_KERNELS + tuple(extra)
+    for name, n in init_counts.items():
+        want = 1 if name in on_path and name != "best2_l2" else 0
+        assert n == want, f"vo_init: {name} launched {n} times (want {want})"
+    for name, n in counts.items():
+        want = (2 if name == "best2_l2" else 1) * VO_STEPS if name in on_path else 0
+        assert n == want, f"{name} launched {n} times in {VO_STEPS} steps (want {want})"
+
+
+def check_tracked(outs, vo):
+    for i, o in enumerate(outs):
+        assert bool(o.tracked), f"frame {i + 1} not tracked"
+        assert int(o.n_matches) >= vo.min_track_matches, f"frame {i + 1}: {int(o.n_matches)} matches"
+        assert torch.isfinite(o.R).all() and torch.isfinite(o.t).all(), f"frame {i + 1}: pose"
+
+
 def check_vo(dev) -> dict:
-    """The main path: vo_init + VO_STEPS vo_step at 1080x1920, defaults."""
+    """The main path: vo_init + VO_STEPS vo_step at 1080x1920, defaults.
+    Returns what P1 is compared with: the frames, K, counts, every frame's
+    keypoint buffer, the outputs, step ms, stage split and device profile."""
     from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_step
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts
     from sift_pyocl_tpu_torch.utils import profiling
@@ -386,19 +532,13 @@ def check_vo(dev) -> dict:
     host = profiling.vo_frames(SHAPE, VO_STEPS + 8)
     imgs = [torch.from_numpy(f).to(dev) for f in host]
     run_vo(imgs[:3], K, cfg, vo, plain=False)      # warm-up: allocator, cuDNN
-    state, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False)
+    bufs = []
+    state, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False, bufs=bufs)
     counts = launch_counts()
     print("vo_init launch counts:", init_counts, flush=True)
     print(f"launch counts over {VO_STEPS} vo_step:", counts, flush=True)
-    for name, n in init_counts.items():
-        assert n == (0 if name == "best2_l2" else 1), f"vo_init: {name} launched {n} times"
-    for name, n in counts.items():
-        want = 2 * VO_STEPS if name == "best2_l2" else VO_STEPS
-        assert n == want, f"{name} launched {n} times in {VO_STEPS} steps (want {want})"
-    for i, o in enumerate(outs):
-        assert bool(o.tracked), f"frame {i + 1} not tracked"
-        assert int(o.n_matches) >= vo.min_track_matches, f"frame {i + 1}: {int(o.n_matches)} matches"
-        assert torch.isfinite(o.R).all() and torch.isfinite(o.t).all(), f"frame {i + 1}: pose"
+    check_vo_counts(init_counts, counts)
+    check_tracked(outs, vo)
     print("n_kp", [int(o.n_kp) for o in outs], "n_matches", [int(o.n_matches) for o in outs],
           "rms_px", [round(float(o.rms_px), 3) for o in outs], flush=True)
     print(f"vo_step {SHAPE} ms (host clock, synchronised): {[round(m, 3) for m in step_ms]}; "
@@ -447,6 +587,106 @@ def check_vo(dev) -> dict:
     print(f"host synchronisations in one vo_step: {len(syncs)}", flush=True)
     for line in sorted(set(syncs)):
         print("  sync:", line[:160])
+    return {"imgs": imgs, "K": K, "counts": counts, "bufs": bufs, "outs": outs,
+            "step_ms": step_ms, "stages": stages, "profile": prof}
+
+
+def check_vo_k8(base: dict) -> dict:
+    """P1: the main path with SiftConfig(mask_backend="pallas"), against the
+    default mask's run of check_vo on the same frames."""
+    from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_step
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts
+    from sift_pyocl_tpu_torch.utils import profiling
+
+    cfg, vo = SiftConfig(mask_backend="pallas"), VOConfig()
+    imgs, K = base["imgs"], base["K"]
+    run_vo(imgs[:3], K, cfg, vo, plain=False)      # warm-up
+    bufs = []
+    state, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False, bufs=bufs)
+    counts = launch_counts()
+    print(f"P1 (mask_backend='pallas') launch counts over {VO_STEPS} vo_step:", counts,
+          flush=True)
+    check_vo_counts(init_counts, counts, extra=("extrema_masks",))
+    check_tracked(outs, vo)
+    assert len(bufs) == len(base["bufs"]) == VO_STEPS + 1
+    for i, (a, b) in enumerate(zip(bufs, base["bufs"])):
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f"frame {i}: {f} differs"
+    gap = max(float((outs[-1].R - base["outs"][-1].R).abs().max()),
+              float((outs[-1].t - base["outs"][-1].t).abs().max()))
+    assert gap <= 1e-6, f"final pose {gap} from the default mask's run"
+    rest = iter(imgs[VO_STEPS + 1:])
+    state, stages = profiling.vo_stage_ms(state, [next(rest) for _ in range(3)], K, cfg, vo)
+    box = [state]
+
+    def one():
+        box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
+
+    prof = profiling.device_profile(one, 2)
+    print(f"P1: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
+          f"mask's, final pose {gap:.3g} apart", flush=True)
+    # the two mask backends in turns (default, K8, K8, default) in this one
+    # process: warm steps' wall ms and the host thread's CPU ms
+    for tag, turn_cfg in (("default", SiftConfig()), ("K8", cfg), ("K8", cfg),
+                          ("default", SiftConfig())):
+        gc.collect()
+        wall, cpu = timed_vo_steps(imgs, K, turn_cfg, vo)
+        print(f"  turn {tag}: warm ms/step {np.mean(wall[1:]):.3f} (range {min(wall[1:]):.3f}-"
+              f"{max(wall[1:]):.3f}), host thread CPU ms/step {np.mean(cpu[1:]):.3f}", flush=True)
+    for tag, ms, st, dev_prof in (("default mask", base["step_ms"], base["stages"],
+                                   base["profile"]), ("K8 mask", step_ms, stages, prof)):
+        print(f"  {tag}: ms/step warm mean {np.mean(ms[1:]):.3f} (range {min(ms[1:]):.3f}-"
+              f"{max(ms[1:]):.3f}); stage split {({k: round(v, 3) for k, v in st.items()})}; "
+              f"device ms/step {dev_prof['kernel_ms_per_frame']:.3f}, launches/step "
+              f"{dev_prof['kernel_launches_per_frame']:.0f}, busy share "
+              f"{dev_prof['busy_share']:.3f}",
+              flush=True)
+    return counts
+
+
+def check_per_octave(img, dev) -> dict:
+    """P2: SiftPlan.keypoints with kp_multi_launch=False."""
+    from sift_pyocl_tpu_torch import SiftConfig, SiftPlan
+
+    cfg = SiftConfig(kp_multi_launch=False)
+    n_oct = cfg.n_octaves(SHAPE)
+    plan = SiftPlan(SHAPE, config=cfg, device=dev)
+    multi = SiftPlan(SHAPE, config=SiftConfig(grad_backend="xla"), device=dev)
+    kp, frame_ms, counts = plan_frames(plan, img)
+    print(f"P2 (kp_multi_launch=False) launch counts over {FRAMES} frames:", counts, flush=True)
+    for name, n in counts.items():
+        want = {"compact_mask": n_oct, "refine_octave": n_oct, "orient_desc_fused": n_oct,
+                "octave0_ladder": 1, "small_octaves_ladder": 1}.get(name, 0) * FRAMES
+        assert n == want, f"P2: {name} launched {n} times in {FRAMES} frames (want {want})"
+    assert len(kp) >= MIN_KEYPOINTS, f"only {len(kp)} keypoints"
+    got, want = plan.keypoints_raw(img), multi.keypoints_raw(img)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f"P2: {f} differs from multi-launch"
+    print(f"P2: {len(kp)} keypoints, buffer equal bit for bit to multi-launch with "
+          f"grad_backend='xla'; ms/frame {[round(m, 3) for m in frame_ms]}", flush=True)
+    return counts
+
+
+def check_buckets(img, x, dev) -> dict:
+    """P3: SiftPlan.keypoints with desc_buckets=2, against its plain run."""
+    from sift_pyocl_tpu_torch import SiftConfig, SiftPlan, detect_and_describe
+    from sift_pyocl_tpu_torch.models.sift import _desc_buckets, to_keypoint_records
+    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
+
+    cfg = SiftConfig(desc_buckets=2)
+    assert _desc_buckets(cfg) is not None, "desc_buckets=2 would make one launch"
+    kp, frame_ms, counts = plan_frames(SiftPlan(SHAPE, config=cfg, device=dev), img)
+    print(f"P3 (desc_buckets=2) launch counts over {FRAMES} frames:", counts, flush=True)
+    for name, n in counts.items():
+        want = {"orient_desc_fused": 2}.get(name, 1 if name in VO_KERNELS[:5] else 0) * FRAMES
+        assert n == want, f"P3: {name} launched {n} times in {FRAMES} frames (want {want})"
+    ref = to_keypoint_records(detect_and_describe(x, cfg, plain=True))
+    hits, l1 = match_keypoint_sets(ref, kp)
+    print(f"P3: {len(kp)} keypoints, plain path {len(ref)}, matched {hits}, desc L1 {l1:.4f}; "
+          f"ms/frame {[round(m, 3) for m in frame_ms]}", flush=True)
+    assert len(kp) >= MIN_KEYPOINTS
+    assert abs(len(kp) - len(ref)) <= max(2, len(ref) // 50)
+    assert hits >= 0.98 * len(ref) and l1 < 0.1
     return counts
 
 
@@ -476,13 +716,22 @@ def main() -> int:
     rec = Kernels()
     check_ladders(x, SiftConfig(), rec)
     check_keypoint_kernels(x, SLICE_CONFIG, rec)
+    check_mask_kernels(x, SiftConfig(), rec)
     check_matcher(detect_and_describe(x, SiftConfig()), rec)
     check_slice_frontend(img, x, dev)
-    counts = check_vo(dev)
+    base = check_vo(dev)
+    p1 = check_vo_k8(base)
+    p2 = check_per_octave(img, dev)
+    check_buckets(img, x, dev)
 
+    # each kernel's launches on its path: the main path (10 vo_step) for
+    # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b
+    counts = {**base["counts"], "extrema_masks": p1["extrema_masks"],
+              "compact_mask": p2["compact_mask"], "refine_octave": p2["refine_octave"]}
     kernels = []
     for name, row in rec.rows.items():
         row["launches"] = counts[name]
+        assert row["launches"] > 0, f"{name} was not launched on its path"
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

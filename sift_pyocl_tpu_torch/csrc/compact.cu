@@ -1,6 +1,7 @@
 // K3: stream compaction of every octave's extrema mask in one call.
 //
-// Replaces sift_pyocl_tpu/ops/pallas/compact.py::compact_masks_multi.
+// Replaces sift_pyocl_tpu/ops/pallas/compact.py::compact_masks_multi and,
+// called with one mask, compact_mask_pallas (K10a).
 // Output: for octave o, the flat row-major indices of its set mask bytes in
 // exactly np.nonzero order, at idx[outoff[o] ...], at most MAX_PER_TILE
 // kept per 64x512-element tile (bits past that are dropped but counted in

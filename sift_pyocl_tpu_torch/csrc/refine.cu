@@ -1,6 +1,8 @@
 // K4: iterative subpixel refinement of every octave's candidates in one call.
 //
-// Replaces sift_pyocl_tpu/ops/pallas/refine.py::refine_atlas_pallas.
+// Replaces sift_pyocl_tpu/ops/pallas/refine.py::refine_atlas_pallas and,
+// called with one octave, refine_pallas (K10b), which took the octave's
+// pad_dogs copy.
 // Per candidate (s, r, c): up to max_moves re-centring moves while an
 // in-plane offset exceeds 0.6 (moves clamped to [bd, H-bd) x [bd, W-bd)),
 // then a 3x3 adjugate solve of the DoG Hessian at the final position.

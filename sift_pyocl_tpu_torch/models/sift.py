@@ -1,12 +1,18 @@
 """End-to-end SIFT frontend and the ``SiftPlan`` public API, in PyTorch.
 
-Port of ``sift_pyocl_tpu/models/sift.py`` on its multi-launch keypoint path
-(``_describe_octaves_pallas``): the pyramid (ladder kernels K1/K2, or plain
-PyTorch with ``conv_backend="xla"``) and the plain extrema mask, then one
-launch each of the four keypoint kernels over all octaves -- K3 compaction,
-K4 refinement, K5 gradient atlas, K6 orientation+descriptor -- and
-``quantize_descriptors``.  On a CPU device every kernel wrapper runs its
-plain PyTorch version.
+Port of ``sift_pyocl_tpu/models/sift.py`` on its kernel keypoint paths.
+The pyramid (ladder kernels K1/K2, or plain PyTorch with
+``conv_backend="xla"``), then either
+* ``kp_multi_launch=True`` (``_describe_octaves_multi``, the JAX package's
+  ``_describe_octaves_pallas``): the extrema masks (plain stencil, or K8
+  with ``mask_backend="pallas"``) and one launch each over all octaves of
+  K3 compaction, K4 refinement, K5 gradient atlas and K6 orientation +
+  descriptor (two K6 launches split by sigma with ``desc_buckets >= 2``);
+* ``kp_multi_launch=False`` (``_describe_octaves_per_octave``): per
+  octave, the plain stencil, K10a, K10b, the plain gradient planes and one
+  K6 launch;
+then ``quantize_descriptors``.  On a CPU device every kernel wrapper runs
+its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -23,11 +29,12 @@ import torch
 from ..config import SiftConfig
 from ..oracle import KP_DTYPE
 from ..ops import resolve_device
-from ..ops.detect import detect_all_octaves
+from ..ops.detect import detect_all_octaves, detect_octave
 from ..ops.kernels.gradpad import grad_atlas, grad_atlas_ref
 from ..ops.kernels.window import orient_desc_fused, orient_desc_fused_ref, slot_octave_geometry
-from ..ops.orient_desc import _desc_window_size, quantize_descriptors
-from ..ops.pyramid import build_scale_space, resolve_conv_backend
+from ..ops.orient_desc import (_desc_window_for_sigma, _desc_window_size,
+                               orient_and_describe_fused, quantize_descriptors)
+from ..ops.pyramid import FUSED_MASK_TODO, build_scale_space, resolve_conv_backend
 
 logger = logging.getLogger(__name__)
 
@@ -68,15 +75,12 @@ def _check_kp_path(cfg: SiftConfig) -> None:
             f"kp_backend={cfg.kp_backend!r}: only the kernel path "
             "('pallas' or 'auto') is ported (ROADMAP.md, Queue 1: the "
             "kp_backend='xla' path is still to come)")
-    if not cfg.kp_multi_launch:
-        raise NotImplementedError(
-            "kp_multi_launch=False (per-octave launches, K10a/K10b) is not "
-            "ported yet (ROADMAP.md, Queue 2)")
-    if cfg.desc_buckets != 1:
-        raise NotImplementedError(
-            "desc_buckets != 1 is not ported yet (ROADMAP.md, Queue 1)")
     if cfg.grad_backend not in ("pallas", "xla"):
         raise ValueError(f"unknown grad_backend {cfg.grad_backend!r}")
+    if cfg.mask_backend == "fused":
+        raise NotImplementedError(FUSED_MASK_TODO)
+    if cfg.mask_backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown mask_backend {cfg.mask_backend!r}")
 
 
 def detect_and_describe(img: torch.Tensor, cfg: SiftConfig, plain: bool = False) -> KeypointBuffer:
@@ -88,13 +92,37 @@ def detect_and_describe(img: torch.Tensor, cfg: SiftConfig, plain: bool = False)
 
 def describe_octaves(octaves, shape: Tuple[int, int], cfg: SiftConfig,
                      plain: bool = False) -> KeypointBuffer:
-    """Detection + orientation + descriptors over a prebuilt scale space:
-    one compaction, one refinement, one gradient atlas and one fused
-    orientation+descriptor launch over every octave.  Duplicate orientation
-    slots are keypoint-major (slot i*max_ori + o)."""
+    """Detection + orientation + descriptors over a prebuilt scale space,
+    by ``cfg.kp_multi_launch``.  Duplicate orientation slots are
+    keypoint-major (slot i*max_ori + o), octave after octave."""
     _check_kp_path(cfg)
-    max_ori = cfg.max_ori
     caps = [c for c, _ in octave_capacities(shape, cfg)]
+    if cfg.kp_multi_launch:
+        return _describe_octaves_multi(octaves, caps, cfg, plain)
+    return _describe_octaves_per_octave(octaves, caps, cfg, plain)
+
+
+def _desc_buckets(cfg: SiftConfig):
+    """(small window, sigma split) of the two K6 launches of
+    ``desc_buckets >= 2``, or None where one launch is used: the fused
+    kernel's work grows with its window, sized for sigma_max, while fs is
+    roughly uniform over [0.5, scales + 0.5], so keypoints below the middle
+    sigma fit a smaller window.  If the floor ``desc_window`` dominates,
+    a second launch would buy nothing."""
+    if cfg.desc_buckets < 2:
+        return None
+    fs_split = 0.5 * (cfg.scales + 1.0)
+    sig_split = cfg.init_sigma * 2.0 ** (fs_split / cfg.scales)
+    win_s = _desc_window_for_sigma(cfg, sig_split)
+    return (win_s, sig_split) if win_s < _desc_window_size(cfg) else None
+
+
+def _describe_octaves_multi(octaves, caps: List[int], cfg: SiftConfig,
+                            plain: bool) -> KeypointBuffer:
+    """One compaction, one refinement, one gradient atlas and one fused
+    orientation+descriptor launch (two with ``desc_buckets``) over every
+    octave."""
+    max_ori = cfg.max_ori
     blurs = [b for b, _ in octaves]
     detected = detect_all_octaves([d for _, d in octaves], cfg, caps, plain=plain)
     atlas = grad_atlas_ref if (plain or cfg.grad_backend == "xla") else grad_atlas
@@ -104,9 +132,25 @@ def describe_octaves(octaves, shape: Tuple[int, int], cfg: SiftConfig,
     s_cat, fs_cat, fr_cat, fc_cat, _, valid_cat = (torch.cat(f) for f in zip(*kps_l))
     sigma_cat = cfg.init_sigma * 2.0 ** (fs_cat / cfg.scales)
     fused = orient_desc_fused_ref if plain else orient_desc_fused
-    ang, ok, raw = fused(mag_a, ori_a, s_cat, fr_cat, fc_cat, sigma_cat, valid_cat,
-                         _desc_window_size(cfg), max_ori,
-                         *slot_octave_geometry(caps, row_starts, blurs))
+    geom = slot_octave_geometry(caps, row_starts, blurs)
+
+    def launch(valid, win):
+        return fused(mag_a, ori_a, s_cat, fr_cat, fc_cat, sigma_cat, valid, win, max_ori,
+                     *geom)
+
+    buckets = _desc_buckets(cfg)
+    if buckets is None:
+        ang, ok, raw = launch(valid_cat, _desc_window_size(cfg))
+    else:
+        # two launches over the same slots, each skipping the other bucket
+        # through the valid mask, merged by bucket
+        win_s, sig_split = buckets
+        small = sigma_cat <= sig_split
+        ang_s, ok_s, raw_s = launch(valid_cat & small, win_s)
+        ang_l, ok_l, raw_l = launch(valid_cat & ~small, _desc_window_size(cfg))
+        ang = torch.where(small[:, None], ang_s, ang_l)
+        ok = torch.where(small[:, None], ok_s, ok_l)
+        raw = torch.where(small[:, None, None], raw_s, raw_l)
     desc = quantize_descriptors(raw.reshape(-1, 128))
 
     base = 0.5 if cfg.double_im_size else 1.0
@@ -131,6 +175,32 @@ def describe_octaves(octaves, shape: Tuple[int, int], cfg: SiftConfig,
         valid=ok.reshape(-1),
         counts=torch.stack(counts),
     )
+
+
+def _describe_octaves_per_octave(octaves, caps: List[int], cfg: SiftConfig,
+                                 plain: bool) -> KeypointBuffer:
+    """Per-octave launches (``kp_multi_launch=False``): per octave one
+    detection (plain stencil, K10a, K10b) and one fused
+    orientation+descriptor launch (K6) over the octave's plain gradient
+    planes, as the JAX package's per-octave path, which takes neither
+    ``mask_backend``, ``grad_backend`` nor ``desc_buckets``."""
+    fields = {f: [] for f in ("x", "y", "scale", "angle", "desc", "valid", "counts")}
+    octsize = 0.5 if cfg.double_im_size else 1.0
+    for o, (blurs, dogs) in enumerate(octaves):
+        kps, _ = detect_octave(dogs, cfg, o, caps[o], plain=plain)
+        mag, ori, _ = grad_atlas_ref([blurs], cfg.scales)
+        okps, desc = orient_and_describe_fused(mag, ori, kps, cfg, cfg.max_ori, plain=plain)
+        sigma = cfg.init_sigma * 2.0 ** (okps.fs / cfg.scales)
+        fields["x"].append(okps.fc * octsize)
+        fields["y"].append(okps.fr * octsize)
+        fields["scale"].append(sigma * octsize)
+        fields["angle"].append(okps.angle)
+        fields["desc"].append(desc)
+        fields["valid"].append(okps.valid)
+        fields["counts"].append(torch.stack([kps.valid.sum().to(torch.int32), okps.count]))
+        octsize *= 2.0
+    return KeypointBuffer(
+        **{f: (torch.stack(v) if f == "counts" else torch.cat(v)) for f, v in fields.items()})
 
 
 def to_keypoint_records(buf: KeypointBuffer) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Builds the CUDA kernels of ``csrc/`` and loads them with ctypes.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds).  The library is built at first use into ``_build/`` beside this
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds).  The library is built at first use into ``_build/`` beside this
 package (listed in ``.gitignore``) and named by a hash of the sources and
 flags, so a changed source is rebuilt and an unchanged one is loaded as it
 is.  Every C entry point launches on the stream it is given and returns
@@ -30,8 +30,9 @@ BUILD_DIR = PKG_DIR / "_build"
 # rounds like its plain PyTorch version (one rounding per op).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -57,7 +58,7 @@ def _sources():
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -65,23 +66,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept in ``_build/build.log``."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    ``nvcc -c`` per source, run in parallel, then one link.  The compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) is kept in
+    ``_build/build.log``."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    tmp = out.with_name(f"{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stdout + proc.stderr)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
     os.replace(tmp, out)
     return out
 

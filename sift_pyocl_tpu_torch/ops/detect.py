@@ -1,9 +1,12 @@
 """DoG extrema detection: mask, compaction and subpixel refinement.
 
-Port of ``sift_pyocl_tpu/ops/detect.py`` on the multi-launch keypoint path:
-the extrema mask is the plain PyTorch stencil (the JAX package's default
-``mask_backend="xla"``), compaction is K3 and refinement is K4
-(``ops/kernels/``), one launch each for all octaves.
+Port of ``sift_pyocl_tpu/ops/detect.py`` on its kernel paths.
+``detect_all_octaves`` (the multi-launch path) takes the extrema masks of
+every octave from the plain stencil (``mask_backend="xla"``) or from one
+launch of K8 (``"pallas"``), then ONE compaction (K3) and ONE refinement
+(K4) over every octave.  ``detect_octave`` (the per-octave path of
+``kp_multi_launch=False``) runs one octave through the plain stencil, K10a
+and K10b.  The kernels live in ``ops/kernels/``.
 """
 
 from __future__ import annotations
@@ -13,12 +16,12 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 from ..config import SiftConfig
-from .kernels.compact import compact_masks_multi, compact_masks_multi_ref
-from .kernels.refine import refine_multi, refine_multi_ref
-
-_MASK_TODO = ("mask_backend={!r} needs the extrema-mask kernel K8 (ROADMAP.md, "
-              "Queue 2: extrema_masks_atlas_pallas), which is not ported yet; "
-              "use mask_backend='xla'")
+from .kernels.compact import (compact_mask, compact_mask_ref, compact_masks_multi,
+                              compact_masks_multi_ref)
+from .kernels.maskk import (extrema_mask, extrema_masks, extrema_masks_ref,  # noqa: F401
+                            octave_edge_thresh)
+from .kernels.refine import refine_multi, refine_multi_ref, refine_octave, refine_octave_ref
+from .pyramid import FUSED_MASK_TODO
 
 
 class RefinedKeypoints(NamedTuple):
@@ -32,47 +35,18 @@ class RefinedKeypoints(NamedTuple):
     valid: torch.Tensor   # (cap,) bool
 
 
-def octave_edge_thresh(cfg: SiftConfig, octave: int) -> float:
-    """Edge threshold by the octsize <= 1 rule (oracle.local_maxmin):
-    edge_thresh1 for octave 0, and for octave 1 too when double_im_size."""
-    octsize = 2.0 ** (octave - 1) if cfg.double_im_size else 2.0 ** octave
-    return cfg.edge_thresh1 if octsize <= 1.0 else cfg.edge_thresh
-
-
-def extrema_mask(dogs: torch.Tensor, cfg: SiftConfig, octave: int) -> torch.Tensor:
-    """Bool mask (scales, H-2bd, W-2bd) of extrema candidates: strict
-    26-neighbour max or min, |v| > 0.8 peak_thresh, 2x2 spatial-Hessian edge
-    test, border excluded (the "stencil" semantics of the JAX package)."""
-    S, H, W = dogs.shape
-    bd = cfg.border_dist
-    eth = octave_edge_thresh(cfg, octave)
-    v = dogs[1 : S - 1, bd : H - bd, bd : W - bd]
-    strong = v.abs() > 0.8 * cfg.peak_thresh
-    is_max = torch.ones_like(strong)
-    is_min = torch.ones_like(strong)
-    for ds in (-1, 0, 1):
-        for dr in (-1, 0, 1):
-            for dc in (-1, 0, 1):
-                if ds == 0 and dr == 0 and dc == 0:
-                    continue
-                nb = dogs[1 + ds : S - 1 + ds, bd + dr : H - bd + dr, bd + dc : W - bd + dc]
-                is_max &= v > nb
-                is_min &= v < nb
-    cand = strong & (is_max | is_min)
-    d = dogs[1 : S - 1]
-    ctr = d[:, bd : H - bd, bd : W - bd]
-    hxx = d[:, bd : H - bd, bd - 1 : W - bd - 1] + d[:, bd : H - bd, bd + 1 : W - bd + 1] - 2 * ctr
-    hyy = d[:, bd - 1 : H - bd - 1, bd : W - bd] + d[:, bd + 1 : H - bd + 1, bd : W - bd] - 2 * ctr
-    hxy = 0.25 * (
-        d[:, bd + 1 : H - bd + 1, bd + 1 : W - bd + 1]
-        - d[:, bd + 1 : H - bd + 1, bd - 1 : W - bd - 1]
-        - d[:, bd - 1 : H - bd - 1, bd + 1 : W - bd + 1]
-        + d[:, bd - 1 : H - bd - 1, bd - 1 : W - bd - 1]
-    )
-    det = hxx * hyy - hxy * hxy
-    tr = hxx + hyy
-    not_edge = (det > 0) & (det >= eth * tr * tr)
-    return cand & not_edge
+def octave_masks(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
+                 plain: bool = False) -> List[torch.Tensor]:
+    """Every octave's extrema mask by ``cfg.mask_backend``: the plain
+    stencil for "xla", K8 for "pallas" (its plain version with
+    ``plain=True``).  "fused" (the in-ladder masks of K1/K2) raises."""
+    if cfg.mask_backend == "xla":
+        return extrema_masks_ref(octave_dogs, cfg)
+    if cfg.mask_backend == "pallas":
+        return (extrema_masks_ref if plain else extrema_masks)(octave_dogs, cfg)
+    if cfg.mask_backend == "fused":
+        raise NotImplementedError(FUSED_MASK_TODO)
+    raise ValueError(f"unknown mask_backend {cfg.mask_backend!r}")
 
 
 def decode_compacted(octave_dogs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
@@ -103,16 +77,15 @@ def decode_compacted(octave_dogs: Sequence[torch.Tensor], masks: Sequence[torch.
 def detect_all_octaves(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
                        caps: Sequence[int],
                        plain: bool = False) -> List[Tuple[RefinedKeypoints, torch.Tensor]]:
-    """Detection for all octaves: extrema masks, then ONE compaction (K3)
-    and ONE refinement (K4) over every octave.  ``plain=True`` runs the two
-    kernels' plain PyTorch versions instead (parity runs on the card).
-    Returns a list of (RefinedKeypoints, true extrema count) per octave."""
-    if cfg.mask_backend != "xla":
-        raise NotImplementedError(_MASK_TODO.format(cfg.mask_backend))
+    """Detection for all octaves: extrema masks (``octave_masks``), then ONE
+    compaction (K3) and ONE refinement (K4) over every octave.
+    ``plain=True`` runs the kernels' plain PyTorch versions instead (parity
+    runs on the card).  Returns a list of (RefinedKeypoints, true extrema
+    count) per octave."""
     compact = compact_masks_multi_ref if plain else compact_masks_multi
     refine = refine_multi_ref if plain else refine_multi
     bd = cfg.border_dist
-    masks = [extrema_mask(d, cfg, o) for o, d in enumerate(octave_dogs)]
+    masks = octave_masks(octave_dogs, cfg, plain=plain)
     idx_all, written, total = compact(masks, list(caps))
     s, r, c, valid = decode_compacted(octave_dogs, masks, caps, idx_all, written, bd)
     fs, fr, fc, peak, acc = refine(octave_dogs, s, r, c, valid, caps, bd,
@@ -126,3 +99,22 @@ def detect_all_octaves(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
                                peak=peak[sl], valid=(acc[sl] > 0) & valid[sl])
         out.append((kps, total[o]))
     return out
+
+
+def detect_octave(dogs: torch.Tensor, cfg: SiftConfig, octave: int, cap: int,
+                  plain: bool = False) -> Tuple[RefinedKeypoints, torch.Tensor]:
+    """Detection in one octave, the counterpart of the JAX package's
+    ``detect_octave_pallas``: the plain stencil (which the per-octave path
+    runs whatever ``mask_backend`` says), compaction by K10a and refinement
+    by K10b (their plain versions with ``plain=True``).  Returns
+    (RefinedKeypoints, true extrema count)."""
+    compact = compact_mask_ref if plain else compact_mask
+    refine = refine_octave_ref if plain else refine_octave
+    bd = cfg.border_dist
+    mask = extrema_mask(dogs, cfg, octave)
+    idx, written, total = compact(mask, cap)
+    s, r, c, valid = decode_compacted([dogs], [mask], [cap], idx, written.reshape(1), bd)
+    fs, fr, fc, peak, acc = refine(dogs, s, r, c, valid, bd, cfg.peak_thresh,
+                                   cfg.max_interp_moves)
+    kps = RefinedKeypoints(s_int=s, fs=fs, fr=fr, fc=fc, peak=peak, valid=(acc > 0) & valid)
+    return kps, total

@@ -9,15 +9,17 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .compact import compact_masks_multi
+from .compact import compact_mask, compact_masks_multi
 from .gradpad import grad_atlas
 from .ladder import octave0_ladder, small_octaves_ladder
+from .maskk import extrema_masks
 from .matchk import best2_l2
-from .refine import refine_multi
+from .refine import refine_multi, refine_octave
 from .window import orient_desc_fused
 
 KERNEL_WRAPPERS = (octave0_ladder, small_octaves_ladder, compact_masks_multi, refine_multi,
-                   grad_atlas, orient_desc_fused, best2_l2)
+                   grad_atlas, orient_desc_fused, best2_l2, extrema_masks, compact_mask,
+                   refine_octave)
 
 
 def reset_launch_counts() -> None:

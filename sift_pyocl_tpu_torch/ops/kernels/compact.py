@@ -1,8 +1,10 @@
-"""K3: multi-octave stream compaction of extrema masks.
+"""K3 and K10a: stream compaction of extrema masks.
 
-Port of ``sift_pyocl_tpu/ops/pallas/compact.py::compact_masks_multi``; the
-kernel is ``csrc/compact.cu``.  Octave o's set mask elements come out as
-flat row-major indices in exactly ``np.nonzero`` order, at most
+Port of ``sift_pyocl_tpu/ops/pallas/compact.py``: ``compact_masks_multi``
+(K3, every octave in one launch) and ``compact_mask_pallas`` (K10a, one
+mask, here ``compact_mask``); both launch the kernels of
+``csrc/compact.cu``.  Octave o's set mask elements come out as flat
+row-major indices in exactly ``np.nonzero`` order, at most
 ``MAX_PER_TILE`` per ``TILE``-element tile (the rest are dropped but still
 counted in ``total``), cut at ``caps[o]``.
 """
@@ -31,20 +33,14 @@ def _check_masks(masks: Sequence[torch.Tensor], caps: Sequence[int]) -> None:
             raise TypeError(f"mask dtype {m.dtype}: expected bool or 8-bit ints")
 
 
-def compact_masks_multi(masks: Sequence[torch.Tensor], caps: Sequence[int]
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Compact every octave's mask (any shapes, flattened row-major).
-
-    Returns (idx (sum(caps),) int32 -- octave o's indices at
-    [sum(caps[:o]), sum(caps[:o]) + written[o]), zeros after --,
-    written (n_oct,) int32, total (n_oct,) int32)."""
-    _check_masks(masks, caps)
-    if not on_cuda(masks[0]):
-        return compact_masks_multi_ref(masks, caps)
+def _launch(masks: Sequence[torch.Tensor], caps: Sequence[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/compact.cu`` over `masks` (the work of K3 and K10a)."""
     dev = masks[0].device
     flats: List[torch.Tensor] = []
     for m in masks:
-        f = (m != 0).view(torch.uint8).reshape(-1).contiguous()
+        # bool, uint8 and int8 are bytes, and the kernel counts nonzero bytes
+        f = m.contiguous().view(torch.uint8).reshape(-1)
         if f.data_ptr() % 16:
             f = f.clone()
         flats.append(f)
@@ -65,9 +61,23 @@ def compact_masks_multi(masks: Sequence[torch.Tensor], caps: Sequence[int]
         err = fn(n_oct, ptrs, lens, caps_c, _build.ptr(idx), _build.ptr(written),
                  _build.ptr(total), _build.ptr(tile_cnt), _build.ptr(tile_off),
                  _build.stream_of(idx))
-    _build.check(err, "compact_masks_multi")
-    compact_masks_multi.launches += 1
+    _build.check(err, "compact")
     return idx, written, total
+
+
+def compact_masks_multi(masks: Sequence[torch.Tensor], caps: Sequence[int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: compact every octave's mask (any shapes, flattened row-major).
+
+    Returns (idx (sum(caps),) int32 -- octave o's indices at
+    [sum(caps[:o]), sum(caps[:o]) + written[o]), zeros after --,
+    written (n_oct,) int32, total (n_oct,) int32)."""
+    _check_masks(masks, caps)
+    if not on_cuda(masks[0]):
+        return compact_masks_multi_ref(masks, caps)
+    out = _launch(masks, caps)
+    compact_masks_multi.launches += 1
+    return out
 
 
 compact_masks_multi.launches = 0
@@ -77,24 +87,47 @@ def compact_masks_multi_ref(masks: Sequence[torch.Tensor], caps: Sequence[int]
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``compact_masks_multi`` (same outputs)."""
     _check_masks(masks, caps)
-    dev = masks[0].device
-    idx_l, wr_l, tot_l = [], [], []
-    for m, cap in zip(masks, caps):
-        f = (m != 0).reshape(-1)
-        nt = (f.numel() + TILE - 1) // TILE
-        tiles = torch.zeros(nt * TILE, dtype=torch.bool, device=dev)
-        tiles[: f.numel()] = f
-        tiles = tiles.view(nt, TILE)
-        cnt = tiles.sum(1)
-        rank = tiles.cumsum(1) - 1                    # in-tile rank of each bit
-        kept = cnt.clamp(max=MAX_PER_TILE)
-        slot = (kept.cumsum(0) - kept)[:, None] + rank
-        take = tiles & (rank < MAX_PER_TILE) & (slot < cap)
-        pos = torch.nonzero(take.reshape(-1)).squeeze(1)
-        out = torch.zeros(int(cap), dtype=torch.int32, device=dev)
-        out[slot.reshape(-1)[pos]] = pos.to(torch.int32)
-        idx_l.append(out)
-        wr_l.append(kept.sum().clamp(max=int(cap)))
-        tot_l.append(cnt.sum())
-    return (torch.cat(idx_l), torch.stack(wr_l).to(torch.int32),
-            torch.stack(tot_l).to(torch.int32))
+    parts = [compact_mask_ref(m, cap) for m, cap in zip(masks, caps)]
+    idx, written, total = zip(*parts)
+    return torch.cat(idx), torch.stack(written), torch.stack(total)
+
+
+def compact_mask(mask: torch.Tensor, cap: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10a, port of ``sift_pyocl_tpu/ops/pallas/compact.py::compact_mask_pallas``:
+    one mask's set elements in ``np.nonzero`` order, under the same tile
+    rule as K3 (a single-mask launch of its kernels).
+
+    Returns (idx (cap,) int32, zeros after `written`; written () int32;
+    total () int32)."""
+    _check_masks([mask], [cap])
+    if not on_cuda(mask):
+        return compact_mask_ref(mask, cap)
+    idx, written, total = _launch([mask], [cap])
+    compact_mask.launches += 1
+    return idx, written[0], total[0]
+
+
+compact_mask.launches = 0
+
+
+def compact_mask_ref(mask: torch.Tensor, cap: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``compact_mask`` (same outputs)."""
+    _check_masks([mask], [cap])
+    dev = mask.device
+    f = (mask != 0).reshape(-1)
+    nt = (f.numel() + TILE - 1) // TILE
+    tiles = torch.zeros(nt * TILE, dtype=torch.bool, device=dev)
+    tiles[: f.numel()] = f
+    tiles = tiles.view(nt, TILE)
+    cnt = tiles.sum(1)
+    rank = tiles.cumsum(1) - 1                    # in-tile rank of each bit
+    kept = cnt.clamp(max=MAX_PER_TILE)
+    slot = (kept.cumsum(0) - kept)[:, None] + rank
+    take = tiles & (rank < MAX_PER_TILE) & (slot < cap)
+    pos = torch.nonzero(take.reshape(-1)).squeeze(1)
+    out = torch.zeros(int(cap), dtype=torch.int32, device=dev)
+    out[slot.reshape(-1)[pos]] = pos.to(torch.int32)
+    return (out, kept.sum().clamp(max=int(cap)).to(torch.int32),
+            cnt.sum().to(torch.int32))

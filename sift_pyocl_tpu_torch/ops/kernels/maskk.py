@@ -1,0 +1,122 @@
+"""K8: the DoG extrema masks of every octave in one launch.
+
+Port of ``sift_pyocl_tpu/ops/pallas/maskk.py::extrema_masks_atlas_pallas``;
+the kernel is ``csrc/maskk.cu``.  The TPU kernel reads a padded DoG atlas
+and its caller strips each octave's border window out of the atlas mask;
+the kernel here reads each octave's own DoG stack and writes the
+border-stripped masks straight into one allocation, each octave's part
+16-byte aligned, which K3 (``compact.py``) takes as it is.
+
+The plain version is the stencil of ``sift_pyocl_tpu/ops/detect.py``
+(``extrema_mask``), which ``mask_backend="xla"`` runs on any device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence
+
+import torch
+
+from .. import _build, on_cuda
+from ...config import SiftConfig
+
+
+def octave_edge_thresh(cfg: SiftConfig, octave: int) -> float:
+    """Edge threshold by the octsize <= 1 rule (oracle.local_maxmin):
+    edge_thresh1 for octave 0, and for octave 1 too when double_im_size."""
+    octsize = 2.0 ** (octave - 1) if cfg.double_im_size else 2.0 ** octave
+    return cfg.edge_thresh1 if octsize <= 1.0 else cfg.edge_thresh
+
+
+def extrema_mask(dogs: torch.Tensor, cfg: SiftConfig, octave: int) -> torch.Tensor:
+    """Bool mask (scales, H-2bd, W-2bd) of extrema candidates: strict
+    26-neighbour max or min, |v| > 0.8 peak_thresh, 2x2 spatial-Hessian edge
+    test, border excluded (the "stencil" semantics of the JAX package)."""
+    S, H, W = dogs.shape
+    bd = cfg.border_dist
+    eth = octave_edge_thresh(cfg, octave)
+    v = dogs[1 : S - 1, bd : H - bd, bd : W - bd]
+    strong = v.abs() > 0.8 * cfg.peak_thresh
+    is_max = torch.ones_like(strong)
+    is_min = torch.ones_like(strong)
+    for ds in (-1, 0, 1):
+        for dr in (-1, 0, 1):
+            for dc in (-1, 0, 1):
+                if ds == 0 and dr == 0 and dc == 0:
+                    continue
+                nb = dogs[1 + ds : S - 1 + ds, bd + dr : H - bd + dr, bd + dc : W - bd + dc]
+                is_max &= v > nb
+                is_min &= v < nb
+    cand = strong & (is_max | is_min)
+    d = dogs[1 : S - 1]
+    ctr = d[:, bd : H - bd, bd : W - bd]
+    hxx = d[:, bd : H - bd, bd - 1 : W - bd - 1] + d[:, bd : H - bd, bd + 1 : W - bd + 1] - 2 * ctr
+    hyy = d[:, bd - 1 : H - bd - 1, bd : W - bd] + d[:, bd + 1 : H - bd + 1, bd : W - bd] - 2 * ctr
+    hxy = 0.25 * (
+        d[:, bd + 1 : H - bd + 1, bd + 1 : W - bd + 1]
+        - d[:, bd + 1 : H - bd + 1, bd - 1 : W - bd - 1]
+        - d[:, bd - 1 : H - bd - 1, bd + 1 : W - bd + 1]
+        + d[:, bd - 1 : H - bd - 1, bd - 1 : W - bd - 1]
+    )
+    det = hxx * hyy - hxy * hxy
+    tr = hxx + hyy
+    not_edge = (det > 0) & (det >= eth * tr * tr)
+    return cand & not_edge
+
+
+def _check(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> None:
+    bd = cfg.border_dist
+    if not octave_dogs or bd < 1:
+        raise ValueError("need at least one DoG stack and border_dist >= 1")
+    for d in octave_dogs:
+        if d.dtype != torch.float32 or d.ndim != 3 or d.shape[0] < 3:
+            raise ValueError("DoG stacks must be (S+2, H, W) float32")
+        if d.shape[1] <= 2 * bd or d.shape[2] <= 2 * bd:
+            raise ValueError(f"DoG plane {tuple(d.shape[1:])} has no pixel inside the border")
+        if d.device != octave_dogs[0].device or d.shape[0] != octave_dogs[0].shape[0]:
+            raise ValueError("DoG stacks must lie on one device with one plane count")
+
+
+def extrema_masks(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> List[torch.Tensor]:
+    """Every octave's extrema mask in one launch: octave o's (S-2, H-2bd,
+    W-2bd) bool mask, equal to ``extrema_mask(octave_dogs[o], cfg, o)``.
+    On the card the masks are views of one uint8 0/1 allocation."""
+    _check(octave_dogs, cfg)
+    if not on_cuda(octave_dogs[0]):
+        return extrema_masks_ref(octave_dogs, cfg)
+    dogs = [d.contiguous() for d in octave_dogs]
+    dev = dogs[0].device
+    bd = cfg.border_dist
+    shapes = [(d.shape[0] - 2, d.shape[1] - 2 * bd, d.shape[2] - 2 * bd) for d in dogs]
+    sizes = [s * h * w for s, h, w in shapes]
+    offs, n = [], 0
+    for size in sizes:
+        offs.append(n)
+        n += (size + 15) // 16 * 16
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    n_oct = len(dogs)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("sift_extrema_masks",
+                         [ci, vp, vp, vp, vp, vp, ci, ci, ctypes.c_float, vp, vp])
+    ptrs = (vp * n_oct)(*[d.data_ptr() for d in dogs])
+    hs = (ci * n_oct)(*[d.shape[1] for d in dogs])
+    ws = (ci * n_oct)(*[d.shape[2] for d in dogs])
+    eths = (ctypes.c_float * n_oct)(*[octave_edge_thresh(cfg, o) for o in range(n_oct)])
+    outoff = (ctypes.c_longlong * n_oct)(*offs)
+    with torch.cuda.device(dev):
+        err = fn(n_oct, ptrs, hs, ws, eths, outoff, int(dogs[0].shape[0]), int(bd),
+                 float(0.8 * cfg.peak_thresh), _build.ptr(out), _build.stream_of(out))
+    _build.check(err, "extrema_masks")
+    extrema_masks.launches += 1
+    flat = out.view(torch.bool)
+    return [flat[off:off + size].view(shape) for off, size, shape in zip(offs, sizes, shapes)]
+
+
+extrema_masks.launches = 0
+
+
+def extrema_masks_ref(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> List[torch.Tensor]:
+    """Plain PyTorch version of ``extrema_masks``: the stencil per octave."""
+    _check(octave_dogs, cfg)
+    return [extrema_mask(d, cfg, o) for o, d in enumerate(octave_dogs)]

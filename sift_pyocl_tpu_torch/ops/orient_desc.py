@@ -1,19 +1,33 @@
-"""Gradients, window sizes and descriptor quantization in plain PyTorch.
+"""Gradients, window sizes, descriptor quantization and the per-octave
+orientation + descriptor call.
 
-Port of the plain parts of ``sift_pyocl_tpu/ops/orient_desc.py`` that the
-multi-launch keypoint path uses; the per-keypoint histograms themselves are
-the K6 kernel (``ops/kernels/window.py``).
+Port of the parts of ``sift_pyocl_tpu/ops/orient_desc.py`` that the kernel
+keypoint paths use; the per-keypoint histograms themselves are the K6
+kernel (``ops/kernels/window.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..config import SiftConfig
 from ..oracle import DESC_GRID, MAG_FACTOR
+
+
+class OrientedKeypoints(NamedTuple):
+    """Keypoints with assigned orientations, one slot per (keypoint,
+    orientation), octave-local coordinates."""
+
+    s_int: torch.Tensor   # (n,) int32 integer scale index (gradient plane)
+    fs: torch.Tensor      # (n,) f32
+    fr: torch.Tensor      # (n,) f32
+    fc: torch.Tensor      # (n,) f32
+    angle: torch.Tensor   # (n,) f32 in (-pi, pi]
+    valid: torch.Tensor   # (n,) bool
+    count: torch.Tensor   # () int32 number of oriented keypoints
 
 
 def gradient(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,3 +78,31 @@ def quantize_descriptors(raw: torch.Tensor) -> torch.Tensor:
     n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
     v = torch.where(n > 0, v / torch.where(n > 0, n, torch.ones_like(n)), v)
     return torch.clamp(512.0 * v, max=255.0).to(torch.uint8)
+
+
+def orient_and_describe_fused(mag: torch.Tensor, ori: torch.Tensor, kps, cfg: SiftConfig,
+                              max_ori: int = 2, plain: bool = False
+                              ) -> Tuple[OrientedKeypoints, torch.Tensor]:
+    """One octave's orientations and descriptors in one K6 launch (its plain
+    version with ``plain=True``), the counterpart of the JAX package's
+    ``orient_and_describe_fused_pallas``.  `mag` / `ori` are the octave's
+    (scales, H, W) gradient planes, a one-octave atlas; `kps` are its
+    RefinedKeypoints.  Slots are keypoint-major (slot i*max_ori + o).
+    Returns (OrientedKeypoints over cap*max_ori slots, u8 descriptors)."""
+    # imported here: the kernel modules import this one
+    from .kernels.window import orient_desc_fused, orient_desc_fused_ref, slot_octave_geometry
+
+    cap = kps.fr.shape[0]
+    sigma = cfg.init_sigma * 2.0 ** (kps.fs / cfg.scales)
+    fused = orient_desc_fused_ref if plain else orient_desc_fused
+    ang, ok, raw = fused(mag, ori, kps.s_int, kps.fr, kps.fc, sigma, kps.valid,
+                         _desc_window_size(cfg), max_ori,
+                         *slot_octave_geometry([cap], [0], [mag]))
+
+    def rep(x):
+        return torch.repeat_interleave(x, max_ori, dim=0)
+
+    okps = OrientedKeypoints(s_int=rep(kps.s_int), fs=rep(kps.fs), fr=rep(kps.fr),
+                             fc=rep(kps.fc), angle=ang.reshape(-1), valid=ok.reshape(-1),
+                             count=ok.sum().to(torch.int32))
+    return okps, quantize_descriptors(raw.reshape(cap * max_ori, 128))

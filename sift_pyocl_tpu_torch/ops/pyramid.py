@@ -20,9 +20,9 @@ import torch.nn.functional as F
 from ..config import SiftConfig
 from ..oracle import gaussian_kernel
 
-_FUSED_MASK_TODO = ("mask_backend='fused' needs the in-ladder extrema mask of K1/K2 "
-                    "(ROADMAP.md, Queue 2: the mask_cfg variants), which is not "
-                    "ported yet; use mask_backend='xla'")
+FUSED_MASK_TODO = ("mask_backend='fused' needs the in-ladder extrema mask of K1/K2 "
+                   "(ROADMAP.md, Queue 2: the mask_cfg variants), which is not "
+                   "ported yet; use mask_backend='xla' or 'pallas'")
 
 Ladder = Tuple[torch.Tensor, torch.Tensor]
 
@@ -35,7 +35,7 @@ def resolve_conv_backend(cfg: SiftConfig) -> str:
         raise ValueError(f"unknown conv_backend {cfg.conv_backend!r}")
     backend = "xla" if cfg.conv_backend == "xla" else "pallas"
     if backend == "pallas" and cfg.mask_backend == "fused":
-        raise NotImplementedError(_FUSED_MASK_TODO)
+        raise NotImplementedError(FUSED_MASK_TODO)
     return backend
 
 

@@ -4,15 +4,18 @@
 
 prints one JSON object:
   * ``stage_ms``: host-clock time of each stage of the frontend
-    (``SLICE_CONFIG``), from the upload of the host frame on, run one after
-    another with a device synchronisation after each (so each figure
-    includes the stage's own launch overhead; the frame's remainder is
-    output assembly and the copy back to the host);
+    (``SLICE_CONFIG``; and ``stage_ms_mask_pallas``, the same with
+    ``mask_backend="pallas"``, whose mask stage is "K8 extrema_masks" in
+    place of the plain "extrema_mask"), from the upload of the host frame
+    on, run one after another with a device synchronisation after each (so
+    each figure includes the stage's own launch overhead; the frame's
+    remainder is output assembly and the copy back to the host);
   * ``frame_ms``: ``SiftPlan.keypoints`` per frame, host clock;
   * ``profile``: from ``torch.profiler`` over the same frames: summed kernel
     time, the device's busy share of the wall time, the number of kernel
     launches per frame and the kernels that take the most time;
-  * ``vo``: the VO step at the default ``SiftConfig`` and ``VOConfig``:
+  * ``vo``: the VO step at the default ``VOConfig``, under
+    ``mask_backend`` "xla" (the default ``SiftConfig``) and "pallas" (K8):
     ``vo_stage_ms`` (CUDA events at each stage boundary of ``vo_step``:
     frontend, match, pnp, roll_spawn, ba -- device time from one boundary
     to the next, so a stage's figure includes any wait of the device on the
@@ -31,10 +34,13 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+import dataclasses
+
 from ..config import SLICE_CONFIG, SiftConfig
 from ..models.sift import SiftPlan, octave_capacities
-from ..ops.detect import decode_compacted, extrema_mask
+from ..ops.detect import decode_compacted
 from ..ops.kernels import compact_masks_multi, grad_atlas, orient_desc_fused, refine_multi
+from ..ops.kernels.maskk import extrema_masks, extrema_masks_ref
 from ..ops.kernels.window import slot_octave_geometry
 from ..ops.orient_desc import _desc_window_size, quantize_descriptors
 from ..ops.pyramid import build_scale_space
@@ -57,8 +63,10 @@ def _stage_frame(host_img, cfg: SiftConfig, caps, dev, t: dict) -> None:
     octaves = _timed(lambda: build_scale_space(img, cfg), t, "pyramid")
     dogs = [d for _, d in octaves]
     blurs = [b for b, _ in octaves]
-    masks = _timed(lambda: [extrema_mask(d, cfg, o) for o, d in enumerate(dogs)],
-                   t, "extrema_mask")
+    if cfg.mask_backend == "pallas":
+        masks = _timed(lambda: extrema_masks(dogs, cfg), t, "K8 extrema_masks")
+    else:
+        masks = _timed(lambda: extrema_masks_ref(dogs, cfg), t, "extrema_mask")
     idx, wr, _ = _timed(lambda: compact_masks_multi(masks, caps), t, "K3 compact")
     s, r, c, valid = _timed(
         lambda: decode_compacted(dogs, masks, caps, idx, wr, cfg.border_dist), t, "decode")
@@ -153,31 +161,37 @@ def vo_frames(shape, n: int, step_px: int = 2):
 
 
 def vo_report(shape, frames: int, dev: torch.device) -> dict:
-    """The VO step at the default configs on `frames` + 4 frames."""
+    """The VO step at the default ``VOConfig`` on `frames` + 4 frames, under
+    each mask backend: {"xla": ..., "pallas": ...}."""
     from ..models.vo import VOConfig, vo_init, vo_step
 
-    cfg, vo = SiftConfig(), VOConfig()
+    vo = VOConfig()
     h, w = shape
     K = torch.tensor([[1000.0, 0, w / 2], [0, 1000.0, h / 2], [0, 0, 1]], device=dev)
     host = vo_frames(shape, 2 * frames + 4)
     imgs = [torch.from_numpy(f).to(dev) for f in host]
-    state = vo_init(imgs[0], K, cfg, vo)
-    state, _ = vo_step(state, imgs[1], K, cfg, vo)
-    torch.cuda.synchronize()
-    step_ms = []
-    for img in imgs[2:2 + frames]:
-        t = time.perf_counter()
-        state, _ = vo_step(state, img, K, cfg, vo)
+    report = {}
+    for mask_backend in ("xla", "pallas"):
+        cfg = SiftConfig(mask_backend=mask_backend)
+        state = vo_init(imgs[0], K, cfg, vo)
+        state, _ = vo_step(state, imgs[1], K, cfg, vo)
         torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t))
-    state, stages = vo_stage_ms(state, imgs[2 + frames:2 + 2 * frames], K, cfg, vo)
-    rest = iter(imgs[2 + 2 * frames:])
-    box = [state]
+        step_ms = []
+        for img in imgs[2:2 + frames]:
+            t = time.perf_counter()
+            state, _ = vo_step(state, img, K, cfg, vo)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+        state, stages = vo_stage_ms(state, imgs[2 + frames:2 + 2 * frames], K, cfg, vo)
+        rest = iter(imgs[2 + 2 * frames:])
+        box = [state]
 
-    def one():
-        box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
+        def one():
+            box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
-    return {"step_ms": step_ms, "vo_stage_ms": stages, "profile": device_profile(one, 1)}
+        report[mask_backend] = {"step_ms": step_ms, "vo_stage_ms": stages,
+                                "profile": device_profile(one, 1)}
+    return report
 
 
 def main() -> int:
@@ -202,6 +216,8 @@ def main() -> int:
         "shape": list(shape),
         "frame_ms": frame_ms,
         "stage_ms": stage_times(img, SLICE_CONFIG, dev, args.frames),
+        "stage_ms_mask_pallas": stage_times(
+            img, dataclasses.replace(SLICE_CONFIG, mask_backend="pallas"), dev, args.frames),
         "profile": device_profile(lambda: plan.keypoints(img), args.frames),
         "vo": vo_report(shape, args.frames, dev),
     }

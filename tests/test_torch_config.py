@@ -101,7 +101,7 @@ def test_port_sources_never_import_jax():
     files = sorted(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent / "chip_smoke.py"]
     names = {p.relative_to(PORT_DIR).as_posix() for p in files[:-1]}
     assert {"models/vo.py", "ops/match.py", "ops/kernels/ladder.py", "ops/kernels/matchk.py",
-            "sfm/geometry.py", "sfm/pnp.py", "sfm/ba.py"} <= names
+            "ops/kernels/maskk.py", "sfm/geometry.py", "sfm/pnp.py", "sfm/ba.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -134,5 +134,8 @@ def test_kernel_build_is_keyed_by_source_hash():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p == _build.library_path()
     assert {s.name for s in _build.CSRC_DIR.glob("*.cu")} >= {
-        "compact.cu", "refine.cu", "gradpad.cu", "window.cu", "ladder.cu", "matchk.cu"}
+        "compact.cu", "refine.cu", "gradpad.cu", "window.cu", "ladder.cu", "matchk.cu",
+        "maskk.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.LINK_FLAGS and "-shared" in _build.LINK_FLAGS
+    assert "--fmad=false" in _build.NVCC_FLAGS

@@ -1,6 +1,7 @@
-"""Detection parity: extrema mask, K3 compaction and K4 refinement (plain
-versions, as the wrappers run them on the CPU) against the JAX package, its
-Pallas kernels in interpret mode, on the same DoGs and candidates."""
+"""Detection parity: extrema masks (the plain stencil and K8), K3 and K10a
+compaction, K4 and K10b refinement (plain versions, as the wrappers run
+them on the CPU) against the JAX package, its Pallas kernels in interpret
+mode, on the same DoGs and candidates."""
 
 import dataclasses
 
@@ -12,15 +13,20 @@ import torch
 from sift_pyocl_tpu.config import SiftConfig as JaxConfig
 from sift_pyocl_tpu.models.sift import octave_capacities as j_caps
 from sift_pyocl_tpu.ops import detect as jd
+from sift_pyocl_tpu.ops.pallas.compact import compact_mask_pallas
 from sift_pyocl_tpu.ops.pallas.compact import compact_masks_multi as j_compact
-from sift_pyocl_tpu.ops.pallas.refine import build_dog_atlas, refine_atlas_pallas
+from sift_pyocl_tpu.ops.pallas.maskk import extrema_masks_atlas_pallas
+from sift_pyocl_tpu.ops.pallas.refine import (build_dog_atlas, pad_dogs, refine_atlas_pallas,
+                                              refine_pallas)
 from sift_pyocl_tpu.ops.pyramid import build_scale_space_jax
 
 from sift_pyocl_tpu_torch import SiftConfig
 from sift_pyocl_tpu_torch.ops import detect as td
-from sift_pyocl_tpu_torch.ops.kernels.compact import (MAX_PER_TILE, compact_masks_multi,
+from sift_pyocl_tpu_torch.ops.kernels.compact import (MAX_PER_TILE, compact_mask,
+                                                      compact_masks_multi,
                                                       compact_masks_multi_ref)
-from sift_pyocl_tpu_torch.ops.kernels.refine import refine_multi
+from sift_pyocl_tpu_torch.ops.kernels.maskk import extrema_masks, extrema_masks_ref
+from sift_pyocl_tpu_torch.ops.kernels.refine import refine_multi, refine_octave
 from sift_pyocl_tpu_torch.utils.convert import to_torch
 
 
@@ -144,10 +150,105 @@ def test_decode_and_detect_all_octaves(dogs160, scene160):
 
 
 def test_mask_kernel_backends_are_not_ported_yet(dogs160):
+    """K8 is ported; the in-ladder masks of K1/K2 (mask_backend="fused")
+    still raise, naming their ROADMAP item, and an unknown backend is an
+    error."""
     _, dogs = dogs160
-    with pytest.raises(NotImplementedError, match="K8"):
-        td.detect_all_octaves(to_torch(dogs), SiftConfig(mask_backend="pallas"),
+    with pytest.raises(NotImplementedError, match="mask_cfg"):
+        td.detect_all_octaves(to_torch(dogs), SiftConfig(mask_backend="fused"),
                               [64] * len(dogs))
+    with pytest.raises(ValueError, match="mask_backend"):
+        td.octave_masks(to_torch(dogs), SiftConfig(mask_backend="stencil"))
+
+
+@pytest.mark.parametrize("double", [False, True])
+def test_mask_kernel_plain_version_matches_jax_atlas_kernel(dogs160, double):
+    """K8's plain version (what the wrapper runs on the CPU) against
+    extrema_masks_atlas_pallas in interpret mode: exact on every octave,
+    also under double_im_size's edge-threshold rule."""
+    _, dogs = dogs160
+    jcfg, tcfg = JaxConfig(double_im_size=double), SiftConfig(double_im_size=double)
+    atlas, row_starts = build_dog_atlas([jnp.asarray(d) for d in dogs])
+    want = extrema_masks_atlas_pallas(atlas, row_starts, [d.shape for d in dogs], jcfg,
+                                      interpret=True)
+    got = extrema_masks(to_torch(dogs), tcfg)
+    assert len(got) == len(want) == len(dogs)
+    for o, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"octave {o}")
+    assert sum(int(np.asarray(w).sum()) for w in want) > 5
+    for g, r in zip(got, extrema_masks_ref(to_torch(dogs), tcfg)):
+        assert torch.equal(g, r)
+
+
+def test_mask_backends_detect_the_same(dogs160, scene160):
+    """detect_all_octaves gives the same keypoints with the plain stencil
+    and with K8 (its plain version here)."""
+    cfg, dogs = dogs160
+    caps = [c for c, _ in j_caps(scene160.shape, cfg)]
+    tdogs = to_torch(dogs)
+    a = td.detect_all_octaves(tdogs, SiftConfig(kp_per_octave_cap=256), caps)
+    b = td.detect_all_octaves(tdogs, SiftConfig(kp_per_octave_cap=256, mask_backend="pallas"),
+                              caps)
+    for (ka, ta), (kb, tb) in zip(a, b):
+        assert int(ta) == int(tb)
+        for x, y in zip(ka, kb):
+            assert torch.equal(x, y)
+
+
+def _single_masks():
+    rng = np.random.default_rng(11)
+    dense = rng.random((3, 100, 150)) < 0.002
+    dense[1, 20:30, 100:150] = True      # 500 bits in one tile: past MAX_PER_TILE
+    crowded = rng.random((2, 40, 70)) < 0.03   # ~170 bits for a cap of 64
+    return {"dense_tile": (dense, 256), "cap_cut": (crowded, 64)}
+
+
+@pytest.mark.parametrize("case", ["dense_tile", "cap_cut"])
+def test_single_mask_compaction_matches_jax_kernel(case):
+    """K10a's plain version against compact_mask_pallas in interpret mode:
+    exact idx[:written], written and total."""
+    mask, cap = _single_masks()[case]
+    idx, written, total = (np.asarray(x) for x in
+                           compact_mask_pallas(jnp.asarray(mask), cap, interpret=True))
+    got_idx, got_wr, got_tot = compact_mask(torch.from_numpy(mask), cap)
+    assert got_idx.shape == (cap,) and got_wr.shape == got_tot.shape == ()
+    assert int(got_wr) == int(written) and int(got_tot) == int(total)
+    np.testing.assert_array_equal(got_idx.numpy()[: int(written)], idx[: int(written)])
+    assert not got_idx.numpy()[int(written):].any()
+    if case == "dense_tile":
+        assert int(total) > int(written) >= MAX_PER_TILE
+    else:
+        assert int(written) == cap < int(total)
+
+
+def test_octave_refinement_matches_jax_kernel(dogs160):
+    """K10b's plain version against refine_pallas(pad_dogs(...)) in
+    interpret mode on the candidates of the octave that has the most: same
+    accepts, floats within the 1e-5 of the atlas test (fr included: both
+    are octave rows)."""
+    cfg, dogs = dogs160
+    tcfg = SiftConfig(**dataclasses.asdict(cfg))
+    masks = [td.extrema_mask(to_torch(d), tcfg, o) for o, d in enumerate(dogs)]
+    o = max(range(len(dogs)), key=lambda i: int(masks[i].sum()))
+    d, mask = dogs[o], masks[o]
+    _, H, W = d.shape
+    bd, cap = cfg.border_dist, 256
+    idx, written, _ = compact_mask(mask, cap)
+    s, r, c, valid = td.decode_compacted([d], [mask], [cap], idx, written.reshape(1), bd)
+    want = [np.asarray(x) for x in refine_pallas(
+        pad_dogs(jnp.asarray(d)), *(jnp.asarray(t.numpy()) for t in (s, r, c, valid)),
+        H=H, W=W, bd=bd, peak_thresh=cfg.peak_thresh, max_moves=cfg.max_interp_moves,
+        interpret=True)]
+    got = [x.numpy() for x in refine_octave(to_torch(d), s, r, c, valid, bd, cfg.peak_thresh,
+                                            cfg.max_interp_moves)]
+    v = valid.numpy()
+    assert v.sum() > 5
+    np.testing.assert_array_equal(got[4][v], want[4][v])
+    acc = v & (want[4] > 0)
+    assert acc.sum() > 5
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_allclose(g[acc], w[acc], atol=1e-5, rtol=0)
+    assert not got[4][~v].any()
 
 
 def test_wrappers_refuse_other_devices():

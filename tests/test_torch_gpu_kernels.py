@@ -15,8 +15,8 @@ import torch
 from sift_pyocl_tpu_torch import SLICE_CONFIG, detect_and_describe
 from sift_pyocl_tpu_torch.models.sift import octave_capacities, to_keypoint_records
 from sift_pyocl_tpu_torch.ops.detect import decode_compacted, extrema_mask
-from sift_pyocl_tpu_torch.ops.kernels import (compact, gradpad, ladder, launch_counts, matchk,
-                                              refine, reset_launch_counts, window)
+from sift_pyocl_tpu_torch.ops.kernels import (compact, gradpad, ladder, launch_counts, maskk,
+                                              matchk, refine, reset_launch_counts, window)
 from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
 from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, synthetic_scene
 
@@ -89,6 +89,8 @@ def test_slice_kernel_path_matches_plain_path(stage_inputs):
     counts = launch_counts()
     assert counts.pop("best2_l2") == 0, counts
     assert counts.pop("octave0_ladder") == counts.pop("small_octaves_ladder") == 0, counts
+    for name in ("extrema_masks", "compact_mask", "refine_octave"):
+        assert counts.pop(name) == 0, counts
     assert all(n == 1 for n in counts.values()), counts
 
     got = to_keypoint_records(buf)
@@ -96,6 +98,46 @@ def test_slice_kernel_path_matches_plain_path(stage_inputs):
     assert len(got) == len(want) > 10
     hits, l1 = match_keypoint_sets(want, got)
     assert hits == len(want) and l1 < 0.01
+
+
+@pytest.mark.parametrize("double", [False, True])
+def test_mask_kernel_is_exact(stage_inputs, double):
+    """K8 equals the plain stencil on every octave, bit for bit (also under
+    double_im_size's edge-threshold rule), and K3 takes its masks as they
+    are."""
+    _, _, dogs, masks, caps = stage_inputs
+    cfg = dataclasses.replace(CFG, double_im_size=double)
+    got = maskk.extrema_masks(dogs, cfg)
+    want = maskk.extrema_masks_ref(dogs, cfg)
+    assert len(got) == len(want) == len(dogs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bool and g.data_ptr() % 16 == 0
+        assert torch.equal(g, w)
+    assert sum(int(w.sum()) for w in want) > 10
+    for g, w in zip(compact.compact_masks_multi(got, caps), compact.compact_masks_multi(want, caps)):
+        assert torch.equal(g, w)
+
+
+def test_per_octave_kernels_are_exact(stage_inputs):
+    """K10a and K10b equal their plain versions on the octave with the most
+    candidates, bit for bit, and the per-octave frontend equals the
+    multi-launch one with the plain gradients."""
+    img, _, dogs, masks, caps = stage_inputs
+    o = max(range(len(masks)), key=lambda i: int(masks[i].sum()))
+    got = compact.compact_mask(masks[o], caps[o])
+    want = compact.compact_mask_ref(masks[o], caps[o])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert int(want[1]) > 5
+    s, r, c, valid = decode_compacted([dogs[o]], [masks[o]], [caps[o]], got[0],
+                                      got[1].reshape(1), CFG.border_dist)
+    args = (dogs[o], s, r, c, valid, CFG.border_dist, CFG.peak_thresh, CFG.max_interp_moves)
+    for g, w in zip(refine.refine_octave(*args), refine.refine_octave_ref(*args)):
+        assert torch.equal(g, w)
+    per_octave = detect_and_describe(img, dataclasses.replace(CFG, kp_multi_launch=False))
+    multi = detect_and_describe(img, dataclasses.replace(CFG, grad_backend="xla"))
+    for f in per_octave._fields:
+        assert torch.equal(getattr(per_octave, f), getattr(multi, f)), f
 
 
 @pytest.mark.parametrize("mode", ["shrink", "bin"])

@@ -1,5 +1,7 @@
-"""The slice end to end: the port's SiftPlan.keypoints under SLICE_CONFIG
-(the kernel wrappers take their plain versions on the CPU) against the JAX
+"""The frontend end to end: the port's SiftPlan.keypoints under SLICE_CONFIG
+and under the kernel configurations K8 (mask_backend="pallas"), per-octave
+launches (kp_multi_launch=False) and bucketed K6 (desc_buckets=2) -- the
+kernel wrappers take their plain versions on the CPU -- against the JAX
 package's detect_and_describe with the same config, its Pallas kernels in
 interpret mode."""
 
@@ -23,8 +25,8 @@ from conftest import match_keypoint_sets
 CFG = dataclasses.replace(SLICE_CONFIG, kp_per_octave_cap=256)
 
 
-def _jax_keypoints(img):
-    cfg = JaxConfig(**{**dataclasses.asdict(CFG), "pallas_interpret": True})
+def _jax_keypoints(img, cfg=CFG):
+    cfg = JaxConfig(**{**dataclasses.asdict(cfg), "pallas_interpret": True})
     buf = jsift.detect_and_describe(jnp.asarray(img), cfg)
     m = np.asarray(buf.valid)
     out = np.zeros(int(m.sum()), dtype=J_KP_DTYPE)
@@ -53,6 +55,44 @@ def test_slice_matches_jax(scene, request):
     np.testing.assert_array_equal(plan.keypoints_raw(img).counts.numpy(), want_counts)
 
 
+@pytest.mark.parametrize("kw", [{"kp_multi_launch": False}, {"mask_backend": "pallas"},
+                                {"desc_buckets": 2}], ids=["per_octave", "mask_k8", "buckets"])
+def test_kernel_configurations_match_jax(kw, scene160, monkeypatch):
+    """Each kernel configuration end to end on scene160, held as the default
+    is above.  desc_buckets=2 must make its two K6 calls at this config."""
+    cfg = dataclasses.replace(CFG, **kw)
+    want, want_counts = _jax_keypoints(scene160, cfg)
+    calls = []
+    fused = tsift.orient_desc_fused
+    monkeypatch.setattr(tsift, "orient_desc_fused",
+                        lambda *a, **k: calls.append(a[7]) or fused(*a, **k))
+    plan = SiftPlan(scene160.shape, config=cfg, device="cpu")
+    reset_launch_counts()
+    got = plan.keypoints(scene160)
+    assert sum(launch_counts().values()) == 0
+    if "desc_buckets" in kw:
+        win_s, _ = tsift._desc_buckets(cfg)
+        assert calls == [win_s, tsift._desc_window_size(cfg)] and win_s < calls[1]
+    assert len(got) == len(want) > 10
+    hits, desc_l1 = match_keypoint_sets(want, got)
+    assert hits == len(want)
+    assert desc_l1 < 0.01
+    np.testing.assert_array_equal(plan.keypoints_raw(scene160).counts.numpy(), want_counts)
+
+
+@pytest.mark.parametrize("scene", ["scene128", "scene160"])
+def test_per_octave_path_equals_multi_launch(scene, request):
+    """kp_multi_launch=False (K10a, K10b and one K6 call an octave over the
+    plain gradients) gives the multi-launch buffer with grad_backend="xla"
+    bit for bit, every field and every slot."""
+    img = torch.from_numpy(request.getfixturevalue(scene))
+    a = tsift.detect_and_describe(img, dataclasses.replace(CFG, kp_multi_launch=False))
+    b = tsift.detect_and_describe(img, dataclasses.replace(CFG, grad_backend="xla"))
+    assert int(a.valid.sum()) > 10
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
 @pytest.mark.parametrize("shape,kw", [
     ((1080, 1920), {}),
     ((1080, 1920), {"kp_per_octave_cap": 256, "pix_per_kp": 4}),
@@ -65,8 +105,8 @@ def test_octave_capacities_match_jax(shape, kw):
 
 @pytest.mark.parametrize("kw,match", [
     ({"kp_backend": "xla"}, "kp_backend"),
-    ({"kp_multi_launch": False}, "kp_multi_launch"),
-    ({"desc_buckets": 2}, "desc_buckets"),
+    ({"mask_backend": "fused"}, "mask_cfg"),
+    ({"mask_backend": "fused", "conv_backend": "xla"}, "mask_cfg"),
 ])
 def test_paths_not_ported_yet_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):

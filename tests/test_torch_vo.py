@@ -196,6 +196,22 @@ def test_vo_end_to_end_matches_jax(jax_run):
     np.testing.assert_allclose(out.t.numpy(), np.asarray(jout.t), atol=0.03)
 
 
+def test_vo_step_with_mask_kernel_equals_default():
+    """vo_init + one vo_step with mask_backend="pallas" (K8, its plain
+    version here) give the default-mask run's state and output exactly:
+    the masks are the same bits."""
+    frames = [torch.from_numpy(f) for f in _frames()[:2]]
+    runs = []
+    for mask_backend in ("xla", "pallas"):
+        cfg = dataclasses.replace(CFG, mask_backend=mask_backend)
+        st = vo_init(frames[0], K, cfg, VO)
+        runs.append(vo_step(st, frames[1], K, cfg, VO))
+    (st_a, out_a), (st_b, out_b) = runs
+    assert bool(out_a.tracked) and int(out_a.n_matches) > 8
+    for a, b in zip(out_a + st_a, out_b + st_b):
+        assert torch.equal(a, b)
+
+
 def test_vo_survives_blank_frame():
     """A blank frame is not tracked, holds the pose and the window map, and
     the next good frame re-localizes (tests/test_vo.py's survival case)."""
