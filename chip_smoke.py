@@ -8,12 +8,13 @@
    per source, all at once).
 3. Runs each kernel and its plain PyTorch version on the same inputs at the
    shapes of its path (a 1080x1920 frame) and asserts parity: K1/K2 (blur
-   ladders) within 1e-3, K3 and K10a (compaction), K8 (extrema masks, all
-   7 octaves) and K7 (best-2 matching, both calls of a VO step) exactly,
-   K4/K10b (refinement) with the same accepts and floats within 1e-5, K5
-   and K6 as in their tests.  Times each with CUDA events, beside the
-   plain version, a PyTorch library call where one computes the same
-   function, and the least time the card could take.
+   ladders) and K9 (the blur of one plane, at SiftConfig(scales=2)'s five
+   octave-0 sigmas) within 1e-3, K3 and K10a (compaction), K8 (extrema
+   masks, all 7 octaves) and K7 (best-2 matching, both calls of a VO step)
+   exactly, K4/K10b (refinement) with the same accepts and floats within
+   1e-5, K5, K6, K11a and K11b as in their tests.  Times each with CUDA
+   events, beside the plain version, a PyTorch library call where one
+   computes the same function, and the least time the card could take.
 4. Runs SiftPlan((1080, 1920), config=SLICE_CONFIG).keypoints for a few
    frames (the first slice's path, plain pyramid) with every launch counter
    reset just before, and holds its keypoints to the plain-version path.
@@ -32,7 +33,17 @@
    bit for bit, to the multi-launch one with grad_backend="xla".
 8. P3: SiftPlan.keypoints with desc_buckets=2: K6 twice a frame; held to its
    plain=True run.
-9. Prints a JSON line of per-kernel results (launches from the path that
+9. P4: SiftPlan.keypoints with SiftConfig(scales=2): octave 0 level by level
+   through K9 (5 launches a frame, no K1), K2 once; its octave-0 stacks
+   bit-equal to K1's on the same frame and sigmas, its keypoints held to
+   its plain=True run.
+10. P5: per octave, detection (K10a, K10b), the padded plain gradients,
+   assign_orientations_pallas (K11a) and compute_descriptors_pallas
+   (K11b), held against K6 and against the plain versions on the same
+   keypoints.
+11. P6: SiftPlan.keypoints with kp_backend="xla" (plain PyTorch after the
+   K1/K2 pyramid), held to the kernel path's keypoints.
+12. Prints a JSON line of per-kernel results (launches from the path that
    runs each kernel), then, as its last line, {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero.
@@ -86,6 +97,21 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, name: str, calls: int = 5) -> float:
+    """Device ms per fn() call spent in CUDA kernels whose names contain
+    `name` (torch.profiler), apart from the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name) / 1e3 / calls
+
+
 def bound(n_bytes: float, ops: float, peak_ops: float):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and ops over
     the peak rate of their type."""
@@ -112,6 +138,44 @@ class Kernels:
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         print(f"{name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"library {lib} ms  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+
+
+def window_samples(fr, fc, sigma, valid, win: int, oct_h, oct_w, angles=None, ok=None):
+    """The window samples the histogram kernels (K6, K11a, K11b) read, over
+    the valid slots: those inside the keypoint's octave (oct_h x oct_w: ints
+    or per-slot tensors) and inside the orientation circle d2 <
+    floor(4.5 sigma)^2 + 0.5, or inside the descriptor's rotated square at
+    each ok angle of angles (n, k).  Returns (circle, squares summed over
+    the ok angles, union of the circle and the squares), the counts of
+    this run's keypoints."""
+    from sift_pyocl_tpu_torch.oracle import DESC_GRID, MAG_FACTOR
+    from sift_pyocl_tpu_torch.ops.kernels.window import _offsets, _valid_chunks, window_origin
+
+    rs, cs, fro, fco = window_origin(fr.float(), fc.float(), win)
+    ar = torch.arange(win, device=fr.device)
+    n_circle = n_square = n_union = 0
+    for ks in _valid_chunks(valid, 256):
+        rr, cc = _offsets(fro[ks], fco[ks], win)
+        sig = sigma[ks].float()[:, None, None]
+        radius = torch.floor(3.0 * (1.5 * sig))
+        circle = rr * rr + cc * cc < radius * radius + 0.5
+        h = oct_h if isinstance(oct_h, int) else oct_h[ks].long()[:, None]
+        w = oct_w if isinstance(oct_w, int) else oct_w[ks].long()[:, None]
+        r, c = rs[ks].long()[:, None] + ar, cs[ks].long()[:, None] + ar
+        inb = ((r >= 0) & (r < h))[:, :, None] & ((c >= 0) & (c < w))[:, None, :]
+        union = circle & inb
+        n_circle += int(union.sum())
+        for k in range(0 if angles is None else angles.shape[1]):
+            a = angles[ks, k].float()[:, None, None]
+            spacing = MAG_FACTOR * sig
+            rbin = (torch.cos(a) * rr - torch.sin(a) * cc) / spacing + (DESC_GRID / 2.0 - 0.5)
+            cbin = (torch.sin(a) * rr + torch.cos(a) * cc) / spacing + (DESC_GRID / 2.0 - 0.5)
+            square = ((rbin > -1.0) & (rbin < DESC_GRID) & (cbin > -1.0) & (cbin < DESC_GRID)
+                      & inb & ok[ks, k][:, None, None])
+            n_square += int(square.sum())
+            union |= square
+        n_union += int(union.sum())
+    return n_circle, n_square, n_union
 
 
 def _conv_calls(octaves, taps_of):
@@ -271,15 +335,18 @@ def check_keypoint_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
           f"differ, angle err {err_a:.3g}, u8 desc diff max {int(dq.max())} mean "
           f"{float(dq.float().mean()):.4g}")
     assert err_a <= 1e-4 and int(dq.max()) <= 1 and float(dq.float().mean()) < 0.01
-    # least work: each valid keypoint reads its window of (mag, ori) once;
-    # about 10 operations a sample for the histogram and 20 a sample for
-    # each orientation's descriptor
+    # least work: each valid keypoint reads the (mag, ori) samples of its
+    # orientation circle and descriptor squares once; about 10 operations a
+    # circle sample for the histogram and 20 a square sample for each
+    # orientation's descriptor
+    n_circle, n_square, n_union = window_samples(fr, fc, sigma, kvalid, win, *wargs[-2:],
+                                                 angles=ang_k, ok=ok_k)
     rec.record("orient_desc_fused", "sift_pyocl_tpu_torch/csrc/window.cu",
                f"{ROOT}/ops/pallas/window.py:688", err,
                lambda: window.orient_desc_fused(*wargs),
                lambda: window.orient_desc_fused_ref(*wargs), 20,
-               n_bytes=n_slots * 29 + n_kv * win * win * 8 + raw_k.numel() * 4 + 5 * ok_k.numel(),
-               ops=n_kv * win * win * 10 + n_ok * win * win * 20)
+               n_bytes=n_slots * 29 + n_union * 8 + raw_k.numel() * 4 + 5 * ok_k.numel(),
+               ops=n_circle * 10 + n_square * 20)
 
 
 def check_mask_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
@@ -386,8 +453,8 @@ def check_matcher(buf, rec: Kernels) -> None:
                ops=2 * 128 * n_valid * d2.shape[0], peak_ops=INT8_OPS, library=library)
 
 
-def plan_frames(plan, img):
-    """FRAMES calls of plan.keypoints after one warm-up call (allocator,
+def plan_frames(plan, img, frames: int = FRAMES):
+    """`frames` calls of plan.keypoints after one warm-up call (allocator,
     cuDNN algorithm choice), launch counters reset just before them.
     Returns (last records, host-clock ms per frame, launch counts)."""
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -396,7 +463,7 @@ def plan_frames(plan, img):
     torch.cuda.synchronize()
     reset_launch_counts()
     frame_ms = []
-    for _ in range(FRAMES):
+    for _ in range(frames):
         t = time.perf_counter()
         kp = plan.keypoints(img)
         frame_ms.append(1e3 * (time.perf_counter() - t))
@@ -415,7 +482,8 @@ def check_slice_frontend(img, x, dev) -> dict:
     for name in ("compact_masks_multi", "refine_multi", "grad_atlas", "orient_desc_fused"):
         assert counts[name] == FRAMES, f"{name} launched {counts[name]} times in {FRAMES} frames"
     for name in ("octave0_ladder", "small_octaves_ladder", "best2_l2", "extrema_masks",
-                 "compact_mask", "refine_octave"):
+                 "separable_blur", "compact_mask", "refine_octave", "orientation_hist",
+                 "descriptor_hist"):
         assert counts[name] == 0, f"{name} launched {counts[name]} times"
     assert len(kp) >= MIN_KEYPOINTS, f"only {len(kp)} keypoints"
     for f in ("x", "y", "scale", "angle"):
@@ -690,6 +758,242 @@ def check_buckets(img, x, dev) -> dict:
     return counts
 
 
+def check_blur(x: torch.Tensor, rec: Kernels) -> None:
+    """K9 against its plain version on the per-level octave 0 of
+    SiftConfig(scales=2) at 1080x1920 (the pre-blur and four increments,
+    each on the level before it), and that route's octave-0 blur and DoG
+    stacks against K1's on the same frame and sigmas: bit-equal, since K9
+    launches K1's level kernel."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops.kernels import conv, ladder
+    from sift_pyocl_tpu_torch.ops.pyramid import (_taps, build_octave, normalized_input,
+                                                  pre_blur_sigma, prepare_input,
+                                                  separable_blur_ref)
+
+    cfg = SiftConfig(scales=2)
+    pre, incs = pre_blur_sigma(cfg), cfg.sigma_increments()
+    blurs, dogs = build_octave(prepare_input(x, cfg, "pallas"), incs, "pallas")
+    k1_blurs, k1_dogs = ladder.octave0_ladder(normalized_input(x, cfg), pre, incs)
+    torch.cuda.synchronize()
+    assert torch.equal(blurs, k1_blurs) and torch.equal(dogs, k1_dogs), \
+        "the per-level octave 0 differs from K1's"
+    print(f"P4: per-level octave 0 (5 K9 launches) bit-equal to K1 on {SHAPE}", flush=True)
+    inputs = [normalized_input(x, cfg)] + list(blurs[:-1])
+    taps = [_taps(s, x.device) for s in (pre,) + incs]
+    err = max(float((conv.separable_blur(i, t) - separable_blur_ref(i, t)).abs().max())
+              for i, t in zip(inputs, taps))
+    assert err <= 1e-3, f"K9 differs from its plain version by {err}"
+    h, w = SHAPE
+    # one row for the five launches of a frame, as K1's row times its ladder
+    rec.record("separable_blur", "sift_pyocl_tpu_torch/csrc/ladder.cu",
+               f"{ROOT}/ops/pallas/conv.py:70", err,
+               lambda: [conv.separable_blur(i, t) for i, t in zip(inputs, taps)],
+               lambda: [separable_blur_ref(i, t) for i, t in zip(inputs, taps)], 20,
+               n_bytes=4 * h * w * 2 * len(taps),
+               ops=2 * 2 * sum(t.numel() for t in taps) * h * w,
+               library=_conv_calls([inputs], [taps]))
+
+
+def check_scales2(img, x, dev) -> dict:
+    """P4: SiftPlan.keypoints with SiftConfig(scales=2), against its plain
+    run."""
+    from sift_pyocl_tpu_torch import SiftConfig, SiftPlan, detect_and_describe
+    from sift_pyocl_tpu_torch.models.sift import to_keypoint_records
+    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
+
+    cfg = SiftConfig(scales=2)
+    kp, frame_ms, counts = plan_frames(SiftPlan(SHAPE, config=cfg, device=dev), img)
+    print(f"P4 (scales=2) launch counts over {FRAMES} frames:", counts, flush=True)
+    for name, n in counts.items():
+        want = {"separable_blur": 5, "octave0_ladder": 0}.get(
+            name, 1 if name in VO_KERNELS[1:6] else 0) * FRAMES
+        assert n == want, f"P4: {name} launched {n} times in {FRAMES} frames (want {want})"
+    ref = to_keypoint_records(detect_and_describe(x, cfg, plain=True))
+    hits, l1 = match_keypoint_sets(ref, kp)
+    print(f"P4: {len(kp)} keypoints, plain path {len(ref)}, matched {hits}, desc L1 {l1:.4f}; "
+          f"ms/frame {[round(m, 3) for m in frame_ms]} (mean {np.mean(frame_ms):.3f})",
+          flush=True)
+    assert len(kp) >= MIN_KEYPOINTS
+    assert abs(len(kp) - len(ref)) <= max(2, len(ref) // 50)
+    assert hits >= 0.98 * len(ref) and l1 < 0.1
+    return counts
+
+
+def _by_keypoint(okps, desc, cap: int, max_ori: int, dense: bool):
+    """(ok, angle, u8 desc) as (cap, max_ori[, 128]), keypoint i's o-th
+    orientation at [i, o]: dense slots are cap*o + i, fused ones
+    i*max_ori + o."""
+    if dense:
+        return (okps.valid.view(max_ori, cap).T, okps.angle.view(max_ori, cap).T,
+                desc.view(max_ori, cap, 128).transpose(0, 1))
+    return okps.valid.view(cap, max_ori), okps.angle.view(cap, max_ori), desc.view(cap, max_ori, 128)
+
+
+def _compare_oriented(tag: str, a, b) -> int:
+    """Keypoint-wise comparison of two (ok, angle, desc) triples: returns the
+    slots whose ok flags differ (printed one by one); where both are ok,
+    angles within 1e-4 and u8 descriptors within 1 count, mean < 0.05."""
+    ok_a, ang_a, d_a = a
+    ok_b, ang_b, d_b = b
+    flips = torch.nonzero(ok_a != ok_b).tolist()
+    for i, o in flips:
+        print(f"  {tag}: keypoint {i} orientation {o}: ok {bool(ok_a[i, o])} / "
+              f"{bool(ok_b[i, o])}, angles {float(ang_a[i, o]):.6f} / {float(ang_b[i, o]):.6f}",
+              flush=True)
+    both = ok_a & ok_b
+    if not bool(both.any()):
+        return len(flips)
+    da = (ang_a[both] - ang_b[both]).abs()
+    err_a = float(torch.minimum(da, 2 * np.pi - da).max())
+    dq = (d_a[both].int() - d_b[both].int()).abs()
+    assert err_a <= 1e-4, f"{tag}: angles {err_a} apart"
+    assert int(dq.max()) <= 1 and float(dq.float().mean()) < 0.05, \
+        f"{tag}: u8 descriptors {int(dq.max())} apart, mean {float(dq.float().mean())}"
+    return len(flips)
+
+
+def check_split_windows(x: torch.Tensor, rec: Kernels) -> dict:
+    """P5: per octave of the 1080x1920 frame under SiftConfig(), detection
+    (K10a, K10b), the plain gradient planes padded by pad_grad_planes,
+    assign_orientations_pallas (K11a) and compute_descriptors_pallas
+    (K11b); held against K6 (orient_and_describe_fused) and against the
+    plain versions on the same keypoints."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.models.sift import octave_capacities
+    from sift_pyocl_tpu_torch.ops import orient_desc as od
+    from sift_pyocl_tpu_torch.ops.detect import detect_octave_pallas
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, window
+    from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
+
+    cfg = SiftConfig()
+    m = cfg.max_ori
+    caps = [c for c, _ in octave_capacities(SHAPE, cfg)]
+    octaves = build_scale_space(x, cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    per = []
+    for o, (blurs, dogs) in enumerate(octaves):
+        kps, _ = detect_octave_pallas(dogs, cfg, o, caps[o])
+        mags, oris = od.gradient_planes(blurs, cfg)
+        mag_p, ori_p = od.pad_grad_planes(mags, oris)
+        okps = od.assign_orientations_pallas(mag_p, ori_p, kps, cfg, max_ori=m)
+        desc = od.compute_descriptors_pallas(mag_p, ori_p, okps, cfg)
+        per.append((kps, mags, oris, mag_p, ori_p, okps, desc))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print("P5 (split entry points) launch counts over one frame:", counts, flush=True)
+    for name, n in counts.items():
+        want = len(octaves) if name in ("compact_mask", "refine_octave", "orientation_hist",
+                                        "descriptor_hist") else 0
+        assert n == want, f"P5: {name} launched {n} times (want {want})"
+
+    win_o, win_d = od._ori_window_size(cfg), od._desc_window_size(cfg)
+    flips_k6 = flips_plain = 0
+    err_h = err_d = 0.0
+    n_kv = n_ok = n_slots = n_dslots = 0
+    n_circle = n_square = 0
+    for o, (kps, mags, oris, mag_p, ori_p, okps, desc) in enumerate(per):
+        cap = caps[o]
+        sig = od._sigma(cfg, kps.fs)
+        hist = window.orientation_hist(mag_p, ori_p, kps.s_int, kps.fr, kps.fc, sig, kps.valid, win_o)
+        hist_p = window.orientation_hist_ref(mag_p, ori_p, kps.s_int, kps.fr, kps.fc, sig,
+                                             kps.valid, win_o)
+        # K11a: bins within 1e-3 of the largest one (sums in other orders),
+        # invalid slots exactly 0
+        e = float((hist - hist_p).abs().max())
+        assert e <= 1e-3 * max(1.0, float(hist_p.abs().max())), f"octave {o}: K11a differs by {e}"
+        assert not bool(hist[~kps.valid].any()), f"octave {o}: K11a filled an invalid slot"
+        err_h = max(err_h, e)
+        okps_p = od.orientation_peaks_dense(hist_p, kps, cfg, m)
+        osig = od._sigma(cfg, okps.fs)
+        raw = window.descriptor_hist(mag_p, ori_p, okps.s_int, okps.fr, okps.fc, osig,
+                                     okps.angle, okps.valid, win_d)
+        raw_p = window.descriptor_hist_ref(mag_p, ori_p, okps.s_int, okps.fr, okps.fc, osig,
+                                           okps.angle, okps.valid, win_d)
+        # K11b: unit descriptors within 1e-5, invalid slots exactly 0
+        unit = raw / raw.norm(dim=1, keepdim=True).clamp(min=1e-30)
+        unit_p = raw_p / raw_p.norm(dim=1, keepdim=True).clamp(min=1e-30)
+        e = float((unit - unit_p).abs().max())
+        assert e <= 1e-5, f"octave {o}: K11b unit descriptors differ by {e}"
+        assert not bool(raw[~okps.valid].any()), f"octave {o}: K11b filled an invalid slot"
+        err_d = max(err_d, e)
+        H, W = mags.shape[1], mags.shape[2]
+        n_circle += window_samples(kps.fr, kps.fc, sig, kps.valid, win_o, H, W)[0]
+        n_square += window_samples(okps.fr, okps.fc, osig, okps.valid, win_d, H, W,
+                                   angles=okps.angle[:, None], ok=okps.valid[:, None])[1]
+        split = _by_keypoint(okps, desc, cap, m, dense=True)
+        fused = _by_keypoint(*od.orient_and_describe_fused(mags, oris, kps, cfg, m), cap, m,
+                             dense=False)
+        plain = _by_keypoint(okps_p, od.quantize_descriptors(raw_p), cap, m, dense=True)
+        flips_k6 += _compare_oriented(f"octave {o}, K11a/K11b vs K6", split, fused)
+        flips_plain += _compare_oriented(f"octave {o}, K11a/K11b vs plain", split, plain)
+        n_kv += int(kps.valid.sum())
+        n_ok += int(okps.valid.sum())
+        n_slots += cap
+        n_dslots += okps.valid.numel()
+    print(f"P5: {n_kv} keypoints, {n_ok} oriented slots; ok flags differing from K6 "
+          f"{flips_k6}, from the plain versions {flips_plain}; hist err {err_h:.3g}, "
+          f"unit descriptor err {err_d:.3g}", flush=True)
+    assert n_ok >= MIN_KEYPOINTS and flips_k6 <= 2 and flips_plain <= 2
+
+    def each_octave(fn):
+        return lambda: [fn(*p) for p in per]
+
+    def ori_args(kps, mags, oris, mag_p, ori_p, okps, desc):
+        return (mag_p, ori_p, kps.s_int, kps.fr, kps.fc, od._sigma(cfg, kps.fs), kps.valid,
+                win_o)
+
+    def desc_args(kps, mags, oris, mag_p, ori_p, okps, desc):
+        return (mag_p, ori_p, okps.s_int, okps.fr, okps.fc, od._sigma(cfg, okps.fs),
+                okps.angle, okps.valid, win_d)
+
+    # least work: each valid slot reads the (mag, ori) samples of its
+    # orientation circle (K11a) or rotated descriptor square (K11b) inside
+    # its octave once (window_samples, this run's keypoints), about 10
+    # operations a sample for a histogram and 20 for a descriptor; per slot
+    # its inputs and its f32 output row
+    rec.record("orientation_hist", "sift_pyocl_tpu_torch/csrc/window.cu",
+               f"{ROOT}/ops/pallas/window.py:193", err_h,
+               each_octave(lambda *p: window.orientation_hist(*ori_args(*p))),
+               each_octave(lambda *p: window.orientation_hist_ref(*ori_args(*p))), 20,
+               n_bytes=n_slots * (17 + 36 * 4) + n_circle * 8, ops=n_circle * 10)
+    rec.record("descriptor_hist", "sift_pyocl_tpu_torch/csrc/window.cu",
+               f"{ROOT}/ops/pallas/window.py:321", err_d,
+               each_octave(lambda *p: window.descriptor_hist(*desc_args(*p))),
+               each_octave(lambda *p: window.descriptor_hist_ref(*desc_args(*p))), 20,
+               n_bytes=n_dslots * (21 + 128 * 4) + n_square * 8, ops=n_square * 20)
+    print(f"P5: window samples read: K11a {n_circle} ({n_circle / max(1, n_kv):.0f} a keypoint "
+          f"of {win_o}^2), K11b {n_square} ({n_square / max(1, n_ok):.0f} a slot of {win_d}^2)",
+          flush=True)
+    for name, args in (("orientation_hist", ori_args), ("descriptor_hist", desc_args)):
+        fn = getattr(window, name)
+        ms = device_ms(each_octave(lambda *p: fn(*args(*p))), f"{name}_kernel")
+        print(f"{name}: device time of its {len(per)} kernels {ms:.4f} ms a frame "
+              "(torch.profiler)", flush=True)
+    return counts
+
+
+def check_plain_keypoints(img, dev) -> None:
+    """P6: SiftPlan.keypoints with kp_backend="xla" (plain PyTorch after the
+    K1/K2 pyramid), against the kernel path on the same frame."""
+    from sift_pyocl_tpu_torch import SiftConfig, SiftPlan
+    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
+
+    kp, frame_ms, counts = plan_frames(SiftPlan(SHAPE, config=SiftConfig(kp_backend="xla"),
+                                                device=dev), img, frames=1)
+    print("P6 (kp_backend='xla') launch counts over one frame:", counts, flush=True)
+    for name, n in counts.items():
+        want = 1 if name in ("octave0_ladder", "small_octaves_ladder") else 0
+        assert n == want, f"P6: {name} launched {n} times (want {want})"
+    ref = SiftPlan(SHAPE, config=SiftConfig(), device=dev).keypoints(img)
+    hits, l1 = match_keypoint_sets(ref, kp)
+    print(f"P6: {len(kp)} keypoints, kernel path {len(ref)}, matched {hits}, desc L1 {l1:.4f}; "
+          f"ms/frame {[round(t, 3) for t in frame_ms]}", flush=True)
+    assert len(kp) >= MIN_KEYPOINTS
+    assert abs(len(kp) - len(ref)) <= max(2, len(ref) // 50)
+    assert hits >= 0.98 * len(ref) and l1 < 0.1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)",
@@ -718,21 +1022,30 @@ def main() -> int:
     check_keypoint_kernels(x, SLICE_CONFIG, rec)
     check_mask_kernels(x, SiftConfig(), rec)
     check_matcher(detect_and_describe(x, SiftConfig()), rec)
+    check_blur(x, rec)
     check_slice_frontend(img, x, dev)
     base = check_vo(dev)
     p1 = check_vo_k8(base)
     p2 = check_per_octave(img, dev)
     check_buckets(img, x, dev)
+    p4 = check_scales2(img, x, dev)
+    p5 = check_split_windows(x, rec)
+    check_plain_keypoints(img, dev)
 
     # each kernel's launches on its path: the main path (10 vo_step) for
-    # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b
+    # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b, P4
+    # (FRAMES frames) for K9, P5 (one frame) for K11a/K11b
     counts = {**base["counts"], "extrema_masks": p1["extrema_masks"],
-              "compact_mask": p2["compact_mask"], "refine_octave": p2["refine_octave"]}
+              "compact_mask": p2["compact_mask"], "refine_octave": p2["refine_octave"],
+              "separable_blur": p4["separable_blur"],
+              "orientation_hist": p5["orientation_hist"],
+              "descriptor_hist": p5["descriptor_hist"]}
     kernels = []
     for name, row in rec.rows.items():
         row["launches"] = counts[name]
         assert row["launches"] > 0, f"{name} was not launched on its path"
         kernels.append(row)
+    assert len(kernels) == 13, f"{len(kernels)} kernel records"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
-// K1 and K2: the Gaussian blur ladders of the scale-space pyramid.
+// K1, K2 and K9: the Gaussian blurs of the scale-space pyramid.
 //
 // Replaces sift_pyocl_tpu/ops/pallas/ladder0.py::octave0_ladder (K1, octave
-// 0: pre-blur to init_sigma, then scales+2 incremental blurs and the DoGs)
-// and sift_pyocl_tpu/ops/pallas/ladder.py::small_octaves_ladder (K2, every
+// 0: pre-blur to init_sigma, then scales+2 incremental blurs and the DoGs),
+// sift_pyocl_tpu/ops/pallas/ladder.py::small_octaves_ladder (K2, every
 // octave >= 1: the same ladder on each octave, and the next octave's base
-// by shrink or 2x2 bin of level `scales`, ceil-sized).
+// by shrink or 2x2 bin of level `scales`, ceil-sized) and
+// sift_pyocl_tpu/ops/pallas/conv.py::separable_blur_pallas (K9, one plane
+// blurred by one sigma: the per-level octave 0 of configs whose taps the
+// TPU's K1 strips cannot hold, e.g. SiftConfig(scales=2)).
 //
 // What bounds them on the card: bytes.  Octave 0 at 1080x1920 reads the
 // 8.3 MB image and writes 11 planes of 8.3 MB (6 blurs, 5 DoGs); its
@@ -20,11 +23,13 @@
 // the vertical pass needs, into shared memory.  The vertical pass sums
 // those rows, writes the blur level, and writes the DoG (this level minus
 // the previous one).  Taps come from the caller's device buffer, any
-// length: no strip margins, so no sigma needs another route (the TPU's K9
-// fallback).  Each sum runs over the taps in ascending order, one rounding
-// per operation (the library is built with --fmad=false).
+// length: no strip margins, so K1 takes any sigma; the pyramid still routes
+// octave 0 per level wherever the JAX package does (ops/pyramid.py), and
+// K9 is then one launch of the same level kernel with no DoG, so its levels
+// are bit-equal to K1's.  Each sum runs over the taps in ascending order,
+// one rounding per operation (the library is built with --fmad=false).
 // One C call runs a whole ladder: 6 launches for K1, and for K2 5 per octave
-// plus one downsample between octaves.
+// plus one downsample between octaves; K9 is one launch a call.
 #include "common.cuh"
 
 namespace {
@@ -138,23 +143,27 @@ cudaError_t octave_levels(float* blurs, float* dogs, int H, int W, const float* 
 // K1.  img: (H, W) f32, the normalized (and doubled, if asked) image.
 // blurs: (n_levels + 1, H, W) f32; dogs: (n_levels, H, W) f32.
 // taps: device f32, every level's taps back to back, entry l at offsets[l]
-// with sizes[l] taps.  With pre_blur != 0, entry 0 is the pre-blur (level 0
-// = blur of img) and entries 1..n_levels the increments; with pre_blur == 0
-// blurs[0] must already hold img and entries 0..n_levels-1 are the
-// increments.
+// with sizes[l] taps: entry 0 the pre-blur (level 0 = blur of img), entries
+// 1..n_levels the increments.
 extern "C" int sift_octave0_ladder(const void* img, void* blurs, void* dogs, int H, int W,
                                    const void* taps, const int* offsets, const int* sizes,
-                                   int n_levels, int pre_blur, void* stream) {
+                                   int n_levels, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* tp = static_cast<const float*>(taps);
   float* b = static_cast<float*>(blurs);
-  if (pre_blur) {
-    cudaError_t e = blur_level(static_cast<const float*>(img), b, nullptr, H, W,
-                               tp + offsets[0], sizes[0], s);
-    if (e != cudaSuccess) return e;
-  }
-  return octave_levels(b, static_cast<float*>(dogs), H, W, tp, offsets, sizes,
-                       pre_blur ? 1 : 0, n_levels, s);
+  cudaError_t e = blur_level(static_cast<const float*>(img), b, nullptr, H, W,
+                             tp + offsets[0], sizes[0], s);
+  if (e != cudaSuccess) return e;
+  return octave_levels(b, static_cast<float*>(dogs), H, W, tp, offsets, sizes, 1, n_levels, s);
+}
+
+// K9.  src, dst: (H, W) f32; taps: device f32, K of them (odd).  dst is src
+// correlated with the taps along rows, then along columns, each pass
+// clamping its reads to the plane's edges.
+extern "C" int sift_separable_blur(const void* src, void* dst, int H, int W, const void* taps,
+                                   int K, void* stream) {
+  return blur_level(static_cast<const float*>(src), static_cast<float*>(dst), nullptr, H, W,
+                    static_cast<const float*>(taps), K, static_cast<cudaStream_t>(stream));
 }
 
 // K2.  n_oct octaves with sizes hs[o] x ws[o] (each ceil-half of the one

@@ -1,6 +1,11 @@
-// K6: fused orientation assignment + raw 128-bin descriptors per keypoint.
+// K6: fused orientation assignment + raw 128-bin descriptors per keypoint;
+// K11a / K11b: the same histograms split in two launches.
 //
-// Replaces sift_pyocl_tpu/ops/pallas/window.py::orient_desc_fused_pallas.
+// Replaces sift_pyocl_tpu/ops/pallas/window.py::orient_desc_fused_pallas
+// (K6), ::orientation_hist_pallas (K11a: step A alone, on the orientation
+// window) and ::descriptor_hist_pallas (K11b: step C alone, one given angle
+// per slot, on the descriptor window).  The three kernels share the device
+// code of steps A and C (orientation_hist_block, descriptor_hist_block).
 // One block per keypoint slot, over a static win x win window of its
 // gradient planes with origin (rs, cs) = (round(fr) - win/2, round(fc) -
 // win/2) and subpixel offsets fro = fr - rs, fco = fc - cs (the Pallas
@@ -15,8 +20,9 @@
 //      wrapped into (-pi, pi];
 //   C. for each ok angle, the 4x4x8 descriptor in the R(+angle) frame with
 //      trilinear weights and a Gaussian of sigma = DESC_GRID / 2.
-// Samples outside the keypoint's octave contribute 0 (the TPU kernel reads
-// zero padding there).
+// Samples outside the keypoint's octave contribute 0 (the TPU kernels read
+// zero padding there), so any window size is taken (the TPU's win <= 128
+// was a lane limit).
 //
 // What bounds it on the card: per-sample arithmetic and shared-memory
 // accumulation (about 11k window samples per keypoint at the default
@@ -53,6 +59,107 @@ __device__ __forceinline__ void reduce_bins(const float* part, int nbins, float*
   }
 }
 
+// One keypoint's window over its octave's gradient planes: the octave's
+// (0, 0) sample of the mag and ori planes, their row stride, the octave's
+// size, the window origin (rs, cs) in the octave and the keypoint's
+// subpixel offsets from that origin (fro, fco).
+struct Window {
+  const float* mag;
+  const float* ori;
+  long long stride;
+  int H, W, rs, cs, win;
+  float fro, fco;
+};
+
+// 36-bin orientation histogram of the window into hist[0, 36): weight
+// exp(-d2 / (2 sw^2)) * mag with sw = 1.5 sigma, inside d2 < floor(3 sw)^2
+// + 0.5.  Every thread of the block calls it; part holds NORI * NT floats.
+__device__ void orientation_hist_block(const Window& w, float sig, float* part, float* hist) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < NORI * NT; i += NT) part[i] = 0.f;
+  __syncthreads();
+  const float sig_w = 1.5f * sig;
+  const float radius = floorf(3.0f * sig_w);
+  const float rad2 = radius * radius + 0.5f;
+  const float den = 2.0f * sig_w * sig_w;
+  const int n = w.win * w.win;
+  for (int idx = tid; idx < n; idx += NT) {
+    const int i = idx / w.win, j = idx - (idx / w.win) * w.win;
+    const float rr = static_cast<float>(i) - w.fro;
+    const float cc = static_cast<float>(j) - w.fco;
+    const float d2 = rr * rr + cc * cc;
+    if (!(d2 < rad2)) continue;
+    const int r = w.rs + i, c = w.cs + j;
+    if (r < 0 || r >= w.H || c < 0 || c >= w.W) continue;
+    const long long off = static_cast<long long>(r) * w.stride + c;
+    const float wt = expf(-d2 / den) * w.mag[off];
+    int b = static_cast<int>(floorf(36.0f * (w.ori[off] + PI_F) / TWO_PI_F));
+    b = min(max(b, 0), NORI - 1);
+    part[b * NT + tid] += wt;
+  }
+  __syncthreads();
+  reduce_bins(part, NORI, hist);
+  __syncthreads();
+}
+
+// Raw 4x4x8 descriptor of the window at `angle` into hist[0, 128): the
+// R(+angle) frame with trilinear weights and a Gaussian of sigma =
+// DESC_GRID / 2.  Every thread of the block calls it; part holds NB * NT
+// floats.
+__device__ void descriptor_hist_block(const Window& w, float sig, float angle, float* part,
+                                      float* hist) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < NB * NT; i += NT) part[i] = 0.f;
+  __syncthreads();
+  const float cos_t = cosf(angle), sin_t = sinf(angle);
+  const float spacing = 3.0f * sig;
+  const int n = w.win * w.win;
+  for (int idx = tid; idx < n; idx += NT) {
+    const int i = idx / w.win, j = idx - (idx / w.win) * w.win;
+    const float rr = static_cast<float>(i) - w.fro;
+    const float cc = static_cast<float>(j) - w.fco;
+    const float rrot = (cos_t * rr - sin_t * cc) / spacing;
+    const float crot = (sin_t * rr + cos_t * cc) / spacing;
+    const float rbin = rrot + 1.5f, cbin = crot + 1.5f;
+    if (!(rbin > -1.f && rbin < 4.f && cbin > -1.f && cbin < 4.f)) continue;
+    const int r = w.rs + i, c = w.cs + j;
+    if (r < 0 || r >= w.H || c < 0 || c >= w.W) continue;
+    const long long off = static_cast<long long>(r) * w.stride + c;
+    const float gw = expf(-(rrot * rrot + crot * crot) / 8.0f);
+    const float m = gw * w.mag[off];
+    float ob = (w.ori[off] - angle) * ORI_SCALE;
+    ob = ob - floorf(ob / 8.0f) * 8.0f;  // in [0, 8]
+    const int r0 = static_cast<int>(floorf(rbin));
+    const int c0 = static_cast<int>(floorf(cbin));
+    const int o0 = static_cast<int>(floorf(ob));
+    int oo[2];
+    float mo[2];
+    for (int q = 0; q < 2; ++q) {
+      oo[q] = (o0 + q) & 7;
+      float dd = fabsf(ob - static_cast<float>(oo[q]));
+      dd = fminf(dd, 8.0f - dd);
+      mo[q] = m * fmaxf(0.f, 1.f - dd);
+    }
+    for (int a = 0; a < 2; ++a) {
+      const int ri = r0 + a;
+      if (ri < 0 || ri > 3) continue;
+      const float wr = fmaxf(0.f, 1.f - fabsf(rbin - static_cast<float>(ri)));
+      for (int bb = 0; bb < 2; ++bb) {
+        const int cj = c0 + bb;
+        if (cj < 0 || cj > 3) continue;
+        const float wrc = wr * fmaxf(0.f, 1.f - fabsf(cbin - static_cast<float>(cj)));
+        const int cell = (ri * 4 + cj) * 8;
+        part[(cell + oo[0]) * NT + tid] += wrc * mo[0];
+        part[(cell + oo[1]) * NT + tid] += wrc * mo[1];
+      }
+    }
+  }
+  __syncthreads();
+  reduce_bins(part, NB, hist);
+  __syncthreads();
+}
+
+// K6: one block per keypoint slot of the atlas.
 __global__ void __launch_bounds__(NT) orient_desc_kernel(
     const float* __restrict__ mag, const float* __restrict__ ori, int rows, int wmax,
     const int* __restrict__ s_idx, const int* __restrict__ rs_in,
@@ -76,36 +183,12 @@ __global__ void __launch_bounds__(NT) orient_desc_kernel(
     return;
   }
   const long long plane0 = (static_cast<long long>(s_idx[k]) * rows + row_off[k]) * wmax;
-  const float* magp = mag + plane0;
-  const float* orip = ori + plane0;
-  const int rs = rs_in[k], cs = cs_in[k], H = oct_h[k], W = oct_w[k];
-  const float fro = fro_in[k], fco = fco_in[k], sig = sigma_in[k];
-  const int n = win * win;
+  const Window w{mag + plane0, ori + plane0, wmax, oct_h[k], oct_w[k], rs_in[k], cs_in[k],
+                 win, fro_in[k], fco_in[k]};
+  const float sig = sigma_in[k];
 
   // A. orientation histogram
-  for (int i = tid; i < NORI * NT; i += NT) part[i] = 0.f;
-  __syncthreads();
-  const float sig_w = 1.5f * sig;
-  const float radius = floorf(3.0f * sig_w);
-  const float rad2 = radius * radius + 0.5f;
-  const float den = 2.0f * sig_w * sig_w;
-  for (int idx = tid; idx < n; idx += NT) {
-    const int i = idx / win, j = idx - (idx / win) * win;
-    const float rr = static_cast<float>(i) - fro;
-    const float cc = static_cast<float>(j) - fco;
-    const float d2 = rr * rr + cc * cc;
-    if (!(d2 < rad2)) continue;
-    const int r = rs + i, c = cs + j;
-    if (r < 0 || r >= H || c < 0 || c >= W) continue;
-    const long long off = static_cast<long long>(r) * wmax + c;
-    const float w = expf(-d2 / den) * magp[off];
-    int b = static_cast<int>(floorf(36.0f * (orip[off] + PI_F) / TWO_PI_F));
-    b = min(max(b, 0), NORI - 1);
-    part[b * NT + tid] += w;
-  }
-  __syncthreads();
-  reduce_bins(part, NORI, hist);
-  __syncthreads();
+  orientation_hist_block(w, sig, part, hist);
 
   // B. smoothing, peaks, parabolic interpolation (one thread; 36 bins)
   if (tid == 0) {
@@ -152,57 +235,69 @@ __global__ void __launch_bounds__(NT) orient_desc_kernel(
       dst[tid] = 0.f;
       continue;
     }
-    for (int i = tid; i < NB * NT; i += NT) part[i] = 0.f;
-    __syncthreads();
-    const float angle = ang_s[o];
-    const float cos_t = cosf(angle), sin_t = sinf(angle);
-    const float spacing = 3.0f * sig;
-    for (int idx = tid; idx < n; idx += NT) {
-      const int i = idx / win, j = idx - (idx / win) * win;
-      const float rr = static_cast<float>(i) - fro;
-      const float cc = static_cast<float>(j) - fco;
-      const float rrot = (cos_t * rr - sin_t * cc) / spacing;
-      const float crot = (sin_t * rr + cos_t * cc) / spacing;
-      const float rbin = rrot + 1.5f, cbin = crot + 1.5f;
-      if (!(rbin > -1.f && rbin < 4.f && cbin > -1.f && cbin < 4.f)) continue;
-      const int r = rs + i, c = cs + j;
-      if (r < 0 || r >= H || c < 0 || c >= W) continue;
-      const long long off = static_cast<long long>(r) * wmax + c;
-      const float gw = expf(-(rrot * rrot + crot * crot) / 8.0f);
-      const float m = gw * magp[off];
-      float ob = (orip[off] - angle) * ORI_SCALE;
-      ob = ob - floorf(ob / 8.0f) * 8.0f;  // in [0, 8]
-      const int r0 = static_cast<int>(floorf(rbin));
-      const int c0 = static_cast<int>(floorf(cbin));
-      const int o0 = static_cast<int>(floorf(ob));
-      int oo[2];
-      float mo[2];
-      for (int q = 0; q < 2; ++q) {
-        oo[q] = (o0 + q) & 7;
-        float dd = fabsf(ob - static_cast<float>(oo[q]));
-        dd = fminf(dd, 8.0f - dd);
-        mo[q] = m * fmaxf(0.f, 1.f - dd);
-      }
-      for (int a = 0; a < 2; ++a) {
-        const int ri = r0 + a;
-        if (ri < 0 || ri > 3) continue;
-        const float wr = fmaxf(0.f, 1.f - fabsf(rbin - static_cast<float>(ri)));
-        for (int bb = 0; bb < 2; ++bb) {
-          const int cj = c0 + bb;
-          if (cj < 0 || cj > 3) continue;
-          const float wrc = wr * fmaxf(0.f, 1.f - fabsf(cbin - static_cast<float>(cj)));
-          const int cell = (ri * 4 + cj) * 8;
-          part[(cell + oo[0]) * NT + tid] += wrc * mo[0];
-          part[(cell + oo[1]) * NT + tid] += wrc * mo[1];
-        }
-      }
-    }
-    __syncthreads();
-    reduce_bins(part, NB, hist);
-    __syncthreads();
+    descriptor_hist_block(w, sig, ang_s[o], part, hist);
     dst[tid] = hist[tid];
     __syncthreads();
   }
+}
+
+// The window of keypoint slot k of one octave (K11a, K11b): origin
+// (rint(fr) - win/2, rint(fc) - win/2), rint rounding half to even as
+// torch.round and jnp.round do, and the subpixel offsets from it (exact in
+// f32), as window_origin computes them for K6.
+__device__ __forceinline__ Window slot_window(const float* mag, const float* ori,
+                                              long long plane_stride, long long row_stride,
+                                              int H, int W, int s_int, float fr, float fc,
+                                              int win) {
+  const long long plane0 = static_cast<long long>(s_int - 1) * plane_stride;
+  const int rs = static_cast<int>(rintf(fr)) - win / 2;
+  const int cs = static_cast<int>(rintf(fc)) - win / 2;
+  return Window{mag + plane0, ori + plane0, row_stride, H, W, rs, cs, win,
+                fr - static_cast<float>(rs), fc - static_cast<float>(cs)};
+}
+
+// K11a: one block per keypoint slot of one octave's gradient planes (`mag`
+// / `ori` point at the octave's (0, 0) sample of plane 0): its raw 36-bin
+// orientation histogram, zeros for an invalid slot.
+__global__ void __launch_bounds__(NT) orientation_hist_kernel(
+    const float* __restrict__ mag, const float* __restrict__ ori, long long plane_stride,
+    long long row_stride, int H, int W, const int* __restrict__ s_int,
+    const float* __restrict__ fr, const float* __restrict__ fc,
+    const float* __restrict__ sigma, const unsigned char* __restrict__ valid, int win,
+    float* out) {
+  extern __shared__ float part[];  // NORI * NT per-thread partial sums
+  __shared__ float hist[NB];
+  const int k = blockIdx.x, tid = threadIdx.x;
+  float* dst = out + static_cast<long long>(k) * NORI;
+  if (!valid[k]) {
+    if (tid < NORI) dst[tid] = 0.f;
+    return;
+  }
+  const Window w = slot_window(mag, ori, plane_stride, row_stride, H, W, s_int[k], fr[k], fc[k],
+                               win);
+  orientation_hist_block(w, sigma[k], part, hist);
+  if (tid < NORI) dst[tid] = hist[tid];
+}
+
+// K11b: as K11a, the raw 128-bin descriptor of each slot at its angle.
+__global__ void __launch_bounds__(NT) descriptor_hist_kernel(
+    const float* __restrict__ mag, const float* __restrict__ ori, long long plane_stride,
+    long long row_stride, int H, int W, const int* __restrict__ s_int,
+    const float* __restrict__ fr, const float* __restrict__ fc,
+    const float* __restrict__ sigma, const float* __restrict__ angle,
+    const unsigned char* __restrict__ valid, int win, float* out) {
+  extern __shared__ float part[];  // NB * NT per-thread partial sums
+  __shared__ float hist[NB];
+  const int k = blockIdx.x, tid = threadIdx.x;
+  float* dst = out + static_cast<long long>(k) * NB;
+  if (!valid[k]) {
+    dst[tid] = 0.f;
+    return;
+  }
+  const Window w = slot_window(mag, ori, plane_stride, row_stride, H, W, s_int[k], fr[k], fc[k],
+                               win);
+  descriptor_hist_block(w, sigma[k], angle[k], part, hist);
+  dst[tid] = hist[tid];
 }
 
 }  // namespace
@@ -234,6 +329,51 @@ extern "C" int sift_orient_desc(const void* mag, const void* ori, int rows, int 
         static_cast<const int*>(oct_h), static_cast<const int*>(oct_w), win, max_ori,
         static_cast<float*>(ang), static_cast<unsigned char*>(ok),
         static_cast<float*>(desc));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11a and K11b.  mag, ori: the (0, 0) sample of one octave in plane 0 of
+// its (S, rows, cols) f32 gradient planes, with plane and row strides in
+// elements; the octave is H x W.  Per keypoint slot (n of them): s_int
+// (1-based scale index, int32), fr/fc (octave-local), sigma and, for K11b,
+// angle (f32), valid (uint8).  out: (n, 36) f32 histograms (K11a) or
+// (n, 128) f32 raw descriptors (K11b).
+extern "C" int sift_orientation_hist(const void* mag, const void* ori, long long plane_stride,
+                                     long long row_stride, int H, int W, int n,
+                                     const void* s_int, const void* fr, const void* fc,
+                                     const void* sigma, const void* valid, int win, void* out,
+                                     void* stream) {
+  if (win < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
+  if (n > 0) {
+    orientation_hist_kernel<<<n, NT, sizeof(float) * NORI * NT,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(mag), static_cast<const float*>(ori), plane_stride,
+        row_stride, H, W, static_cast<const int*>(s_int), static_cast<const float*>(fr),
+        static_cast<const float*>(fc), static_cast<const float*>(sigma),
+        static_cast<const unsigned char*>(valid), win, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sift_descriptor_hist(const void* mag, const void* ori, long long plane_stride,
+                                    long long row_stride, int H, int W, int n,
+                                    const void* s_int, const void* fr, const void* fc,
+                                    const void* sigma, const void* angle, const void* valid,
+                                    int win, void* out, void* stream) {
+  if (win < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * NB * NT;
+  cudaError_t e = cudaFuncSetAttribute(descriptor_hist_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n > 0) {
+    descriptor_hist_kernel<<<n, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(mag), static_cast<const float*>(ori), plane_stride,
+        row_stride, H, W, static_cast<const int*>(s_int), static_cast<const float*>(fr),
+        static_cast<const float*>(fc), static_cast<const float*>(sigma),
+        static_cast<const float*>(angle), static_cast<const unsigned char*>(valid), win,
+        static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

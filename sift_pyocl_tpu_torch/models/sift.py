@@ -1,18 +1,27 @@
 """End-to-end SIFT frontend and the ``SiftPlan`` public API, in PyTorch.
 
-Port of ``sift_pyocl_tpu/models/sift.py`` on its kernel keypoint paths.
-The pyramid (ladder kernels K1/K2, or plain PyTorch with
-``conv_backend="xla"``), then either
-* ``kp_multi_launch=True`` (``_describe_octaves_multi``, the JAX package's
+Port of ``sift_pyocl_tpu/models/sift.py``.  The pyramid (``ops/pyramid.py``:
+the blur kernels K1/K2, or K9 level by level where the JAX package takes its
+per-level route, or plain PyTorch with ``conv_backend="xla"``), then by
+``kp_backend``:
+
+* ``"pallas"`` / ``"auto"``, the kernel path, by ``kp_multi_launch``:
+  ``True`` (``_describe_octaves_multi``, the JAX package's
   ``_describe_octaves_pallas``): the extrema masks (plain stencil, or K8
   with ``mask_backend="pallas"``) and one launch each over all octaves of
   K3 compaction, K4 refinement, K5 gradient atlas and K6 orientation +
   descriptor (two K6 launches split by sigma with ``desc_buckets >= 2``);
-* ``kp_multi_launch=False`` (``_describe_octaves_per_octave``): per
-  octave, the plain stencil, K10a, K10b, the plain gradient planes and one
-  K6 launch;
-then ``quantize_descriptors``.  On a CPU device every kernel wrapper runs
-its plain PyTorch version.
+  ``False`` (``_describe_octaves_per_octave``): per octave, the plain
+  stencil, K10a, K10b, the plain gradient planes and one K6 launch;
+* ``"xla"`` (``_describe_octaves_xla``): the JAX package's plain XLA path,
+  per octave the plain gradients, ``detect_octave``,
+  ``assign_orientations`` and ``compute_descriptors``, all plain PyTorch;
+
+then ``quantize_descriptors``.  The JAX package sends configurations whose
+window exceeds 128 (e.g. ``init_sigma=1.8, scales=2``) from its kernel path
+to the XLA path, since its window kernels hold at most 128 lanes; the port
+does not, since K6 takes any window.  On a CPU device every kernel wrapper
+runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -29,10 +38,11 @@ import torch
 from ..config import SiftConfig
 from ..oracle import KP_DTYPE
 from ..ops import resolve_device
-from ..ops.detect import detect_all_octaves, detect_octave
+from ..ops.detect import detect_all_octaves, detect_octave, detect_octave_pallas
 from ..ops.kernels.gradpad import grad_atlas, grad_atlas_ref
 from ..ops.kernels.window import orient_desc_fused, orient_desc_fused_ref, slot_octave_geometry
 from ..ops.orient_desc import (_desc_window_for_sigma, _desc_window_size,
+                               assign_orientations, compute_descriptors, gradient_planes,
                                orient_and_describe_fused, quantize_descriptors)
 from ..ops.pyramid import FUSED_MASK_TODO, build_scale_space, resolve_conv_backend
 
@@ -69,12 +79,9 @@ def octave_capacities(shape: Tuple[int, int], cfg: SiftConfig) -> List[Tuple[int
 
 
 def _check_kp_path(cfg: SiftConfig) -> None:
-    """Raise for keypoint-stage settings that are not ported yet."""
-    if cfg.kp_backend not in ("pallas", "auto"):
-        raise NotImplementedError(
-            f"kp_backend={cfg.kp_backend!r}: only the kernel path "
-            "('pallas' or 'auto') is ported (ROADMAP.md, Queue 1: the "
-            "kp_backend='xla' path is still to come)")
+    """Raise for keypoint-stage settings that are unknown or not ported yet."""
+    if cfg.kp_backend not in ("pallas", "auto", "xla"):
+        raise ValueError(f"unknown kp_backend {cfg.kp_backend!r}")
     if cfg.grad_backend not in ("pallas", "xla"):
         raise ValueError(f"unknown grad_backend {cfg.grad_backend!r}")
     if cfg.mask_backend == "fused":
@@ -93,9 +100,13 @@ def detect_and_describe(img: torch.Tensor, cfg: SiftConfig, plain: bool = False)
 def describe_octaves(octaves, shape: Tuple[int, int], cfg: SiftConfig,
                      plain: bool = False) -> KeypointBuffer:
     """Detection + orientation + descriptors over a prebuilt scale space,
-    by ``cfg.kp_multi_launch``.  Duplicate orientation slots are
-    keypoint-major (slot i*max_ori + o), octave after octave."""
+    by ``cfg.kp_backend`` and ``cfg.kp_multi_launch``.  On the kernel paths
+    duplicate orientation slots are keypoint-major (slot i*max_ori + o),
+    octave after octave; on the XLA path each octave's oriented keypoints
+    are compacted to its descriptor capacity."""
     _check_kp_path(cfg)
+    if cfg.kp_backend == "xla":
+        return _describe_octaves_xla(octaves, octave_capacities(shape, cfg), cfg)
     caps = [c for c, _ in octave_capacities(shape, cfg)]
     if cfg.kp_multi_launch:
         return _describe_octaves_multi(octaves, caps, cfg, plain)
@@ -177,19 +188,13 @@ def _describe_octaves_multi(octaves, caps: List[int], cfg: SiftConfig,
     )
 
 
-def _describe_octaves_per_octave(octaves, caps: List[int], cfg: SiftConfig,
-                                 plain: bool) -> KeypointBuffer:
-    """Per-octave launches (``kp_multi_launch=False``): per octave one
-    detection (plain stencil, K10a, K10b) and one fused
-    orientation+descriptor launch (K6) over the octave's plain gradient
-    planes, as the JAX package's per-octave path, which takes neither
-    ``mask_backend``, ``grad_backend`` nor ``desc_buckets``."""
+def _per_octave_buffer(octaves, cfg: SiftConfig, describe) -> KeypointBuffer:
+    """Octave after octave, ``describe(o, blurs, dogs)`` -> (RefinedKeypoints,
+    OrientedKeypoints, u8 descriptors), laid out in input-image coordinates."""
     fields = {f: [] for f in ("x", "y", "scale", "angle", "desc", "valid", "counts")}
     octsize = 0.5 if cfg.double_im_size else 1.0
     for o, (blurs, dogs) in enumerate(octaves):
-        kps, _ = detect_octave(dogs, cfg, o, caps[o], plain=plain)
-        mag, ori, _ = grad_atlas_ref([blurs], cfg.scales)
-        okps, desc = orient_and_describe_fused(mag, ori, kps, cfg, cfg.max_ori, plain=plain)
+        kps, okps, desc = describe(o, blurs, dogs)
         sigma = cfg.init_sigma * 2.0 ** (okps.fs / cfg.scales)
         fields["x"].append(okps.fc * octsize)
         fields["y"].append(okps.fr * octsize)
@@ -201,6 +206,40 @@ def _describe_octaves_per_octave(octaves, caps: List[int], cfg: SiftConfig,
         octsize *= 2.0
     return KeypointBuffer(
         **{f: (torch.stack(v) if f == "counts" else torch.cat(v)) for f, v in fields.items()})
+
+
+def _describe_octaves_per_octave(octaves, caps: List[int], cfg: SiftConfig,
+                                 plain: bool) -> KeypointBuffer:
+    """Per-octave launches (``kp_multi_launch=False``): per octave one
+    detection (plain stencil, K10a, K10b) and one fused
+    orientation+descriptor launch (K6) over the octave's plain gradient
+    planes, as the JAX package's per-octave path, which takes neither
+    ``mask_backend``, ``grad_backend`` nor ``desc_buckets``."""
+
+    def describe(o, blurs, dogs):
+        kps, _ = detect_octave_pallas(dogs, cfg, o, caps[o], plain=plain)
+        mag, ori, _ = grad_atlas_ref([blurs], cfg.scales)
+        return (kps, *orient_and_describe_fused(mag, ori, kps, cfg, cfg.max_ori, plain=plain))
+
+    return _per_octave_buffer(octaves, cfg, describe)
+
+
+def _describe_octaves_xla(octaves, caps: List[Tuple[int, int]],
+                          cfg: SiftConfig) -> KeypointBuffer:
+    """The plain path (``kp_backend="xla"``, the JAX package's XLA branch):
+    per octave the gradient planes, ``detect_octave``,
+    ``assign_orientations`` compacted to the octave's descriptor capacity
+    and ``compute_descriptors``; it takes neither ``mask_backend``,
+    ``grad_backend``, ``kp_multi_launch`` nor ``desc_buckets``."""
+
+    def describe(o, blurs, dogs):
+        cap, dcap = caps[o]
+        mags, oris = gradient_planes(blurs, cfg)
+        kps = detect_octave(dogs, cfg, o, cap)
+        okps = assign_orientations(mags, oris, kps, cfg, dcap, max_ori=cfg.max_ori)
+        return kps, okps, compute_descriptors(mags, oris, okps, cfg)
+
+    return _per_octave_buffer(octaves, cfg, describe)
 
 
 def to_keypoint_records(buf: KeypointBuffer) -> np.ndarray:

@@ -26,6 +26,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return device
 
 
+def nonzero_first(flags: torch.Tensor, size: int):
+    """The first `size` set positions of 1-D `flags`, in order, as
+    ``jnp.nonzero(flags, size=size)`` gives them, with no host
+    synchronisation.  Returns (idx (size,) int64, zeros past the count;
+    valid (size,) bool; count () int32, the number set, which may exceed
+    `size`)."""
+    f = flags.bool()
+    rank = torch.cumsum(f, 0) - 1
+    slot = torch.where(f & (rank < size), rank, size)   # the rest go to a spare slot
+    idx = torch.zeros(size + 1, dtype=torch.long, device=f.device)
+    idx.scatter_(0, slot, torch.arange(f.numel(), device=f.device))
+    count = f.sum()
+    return idx[:size], torch.arange(size, device=f.device) < count, count.to(torch.int32)
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU tensor; raises otherwise."""
     if t.device.type == "cuda":

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,31 +40,28 @@ def _check_plane(x: torch.Tensor) -> None:
         raise ValueError(f"expected an (H, W) float32 plane, got {tuple(x.shape)} {x.dtype}")
 
 
-def octave0_ladder(img: torch.Tensor, pre_sigma: Optional[float],
+def octave0_ladder(img: torch.Tensor, pre_sigma: float,
                    increments: Sequence[float]) -> Ladder:
     """Octave 0's blur stack (len(increments)+1, H, W) and DoG stack
     (len(increments), H, W) from the normalized image: level 0 is `img`
-    blurred by `pre_sigma` (or `img` itself when it is None), level l+1 is
-    level l blurred by ``increments[l]``."""
+    blurred by `pre_sigma`, level l+1 is level l blurred by
+    ``increments[l]``.  (An input that needs no pre-blur takes the
+    per-level route of ``ops.pyramid``, as in the JAX package.)"""
     _check_plane(img)
     if not on_cuda(img):
         return octave0_ladder_ref(img, pre_sigma, increments)
     H, W = img.shape
     n = len(increments)
-    pre = () if pre_sigma is None else (float(pre_sigma),)
-    taps, offsets, sizes = _taps_table(pre + tuple(map(float, increments)), img.device)
+    taps, offsets, sizes = _taps_table((float(pre_sigma),) + tuple(map(float, increments)),
+                                       img.device)
     img = img.contiguous()
     blurs = torch.empty((n + 1, H, W), dtype=torch.float32, device=img.device)
     dogs = torch.empty((n, H, W), dtype=torch.float32, device=img.device)
-    if pre_sigma is None:
-        blurs[0].copy_(img)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sift_octave0_ladder",
-                         [vp, vp, vp, ci, ci, vp, vp, vp, ci, ci, vp])
+    fn = _build.function("sift_octave0_ladder", [vp, vp, vp, ci, ci, vp, vp, vp, ci, vp])
     with torch.cuda.device(img.device):
         err = fn(_build.ptr(img), _build.ptr(blurs), _build.ptr(dogs), H, W,
-                 _build.ptr(taps), offsets, sizes, n, int(pre_sigma is not None),
-                 _build.stream_of(img))
+                 _build.ptr(taps), offsets, sizes, n, _build.stream_of(img))
     _build.check(err, "octave0_ladder")
     octave0_ladder.launches += 1
     return blurs, dogs

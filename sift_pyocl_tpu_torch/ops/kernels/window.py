@@ -1,11 +1,18 @@
-"""K6: fused orientation assignment + raw descriptors per keypoint.
+"""K6, K11a and K11b: per-keypoint orientation and descriptor histograms.
 
-Port of ``sift_pyocl_tpu/ops/pallas/window.py::orient_desc_fused_pallas``;
-the kernel is ``csrc/window.cu``.  Reads the gradient atlas of
-``ops/kernels/gradpad.py``: keypoint i's octave starts at atlas row
-``row_off[i]`` and is ``oct_h[i]`` x ``oct_w[i]``; window samples outside it
-contribute 0.  The static window ``win`` may be any size (the TPU kernel's
-``win <= 128`` was a lane limit).
+Port of ``sift_pyocl_tpu/ops/pallas/window.py``: ``orient_desc_fused_pallas``
+(K6, here ``orient_desc_fused``), ``orientation_hist_pallas`` (K11a,
+``orientation_hist``) and ``descriptor_hist_pallas`` (K11b,
+``descriptor_hist``); the kernels are ``csrc/window.cu``.  K6 reads the
+gradient atlas of ``ops/kernels/gradpad.py``: keypoint i's octave starts at
+atlas row ``row_off[i]`` and is ``oct_h[i]`` x ``oct_w[i]``.  K11a and K11b
+read one octave's planes zero-padded by ``pad_grad_planes``
+(``ops/orient_desc.py``), as the JAX kernels do, through a view of the
+octave inside them.  Window samples outside the octave contribute 0, so the
+static window ``win`` may be any size (the TPU kernels' ``win <= 128`` was a
+lane limit).  The plain versions share one body of histogram arithmetic
+(``_orientation_hists``, ``_descriptor_hists``), which the plain
+``kp_backend="xla"`` path runs too.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import _build, on_cuda
+from ..orient_desc import PAD_C, PAD_R, smooth_orientation_hist
 from ...oracle import DESC_GRID, DESC_ORI, MAG_FACTOR, N_ORI_BINS
 
 PI_F = float(np.float32(np.pi))
@@ -106,10 +114,10 @@ orient_desc_fused.launches = 0
 
 
 def _orientation_tail(hist: torch.Tensor, max_ori: int):
-    """Smoothing, peak choice and parabolic interpolation of (n, 36) histograms."""
-    h = hist
-    for _ in range(6):
-        h = (torch.roll(h, 1, dims=1) + h + torch.roll(h, -1, dims=1)) / 3.0
+    """Smoothing, peak choice and parabolic interpolation of (n, 36)
+    histograms: (angles (n, max_ori), ok (n, max_ori)), strongest peak
+    first, ties to the lowest bin (as ``lax.top_k``)."""
+    h = smooth_orientation_hist(hist)
     hmax = h.max(dim=1, keepdim=True).values
     left = torch.roll(h, 1, dims=1)
     right = torch.roll(h, -1, dims=1)
@@ -136,79 +144,250 @@ def _orientation_tail(hist: torch.Tensor, max_ori: int):
     return torch.cat(angs, dim=1), torch.cat(oks, dim=1)
 
 
+def _windows(mag, ori, plane, row0, rs, cs, oct_h, oct_w, win: int):
+    """(m, win, win) windows of mag / ori (any strides) at origin (rs, cs)
+    (m,) in octaves that start at row row0, column 0 of plane `plane` (m,)
+    and are oct_h x oct_w; row0, oct_h, oct_w are ints or (m, 1) tensors.
+    Zeros outside the octave."""
+    ar = torch.arange(win, device=mag.device)
+    r = rs.long()[:, None] + ar
+    c = cs.long()[:, None] + ar
+    in_r = (r >= 0) & (r < oct_h)
+    in_c = (c >= 0) & (c < oct_w)
+    rows = (row0 + torch.where(in_r, r, 0))[:, :, None]
+    cols = torch.where(in_c, c, 0)[:, None, :]
+    at = (plane.long()[:, None, None], rows, cols)
+    inb = in_r[:, :, None] & in_c[:, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=mag.device)
+    return torch.where(inb, mag[at], zero), torch.where(inb, ori[at], zero)
+
+
+def _offsets(fro, fco, win: int):
+    """Each window sample's row and column offset from its keypoint:
+    (m, win, 1) and (m, 1, win)."""
+    arf = torch.arange(win, dtype=torch.float32, device=fro.device)
+    return arf[None, :, None] - fro[:, None, None], arf[None, None, :] - fco[:, None, None]
+
+
+def _orientation_hists(mw, ow, rr, cc, sig) -> torch.Tensor:
+    """(m, 36) orientation histograms of (m, win, win) windows: weight
+    exp(-d2 / (2 sw^2)) * mag with sw = 1.5 sigma inside d2 < floor(3 sw)^2
+    + 0.5, as a scatter-add.  sig: (m, 1, 1)."""
+    m_ = mw.shape[0]
+    d2 = rr * rr + cc * cc
+    sig_w = 1.5 * sig
+    radius = torch.floor(3.0 * sig_w)
+    inside = d2 < radius * radius + 0.5
+    w = torch.exp(-d2 / (2.0 * sig_w * sig_w)) * mw * inside
+    b = torch.floor(N_ORI_BINS * (ow + PI_F) / TWO_PI_F).long().clamp(0, N_ORI_BINS - 1)
+    hist = torch.zeros(m_, N_ORI_BINS, dtype=torch.float32, device=mw.device)
+    return hist.scatter_add_(1, b.reshape(m_, -1), w.reshape(m_, -1))
+
+
+def _descriptor_hists(mw, ow, rr, cc, sig, angle) -> torch.Tensor:
+    """(m, 128) raw descriptors of (m, win, win) windows at `angle`
+    (m, 1, 1): the R(+angle) frame, trilinear weights and a Gaussian of
+    sigma = DESC_GRID / 2, the separable weights contracted as a batched
+    matmul (as ``compute_descriptors`` of the JAX package)."""
+    m_ = mw.shape[0]
+    grid4 = torch.arange(DESC_GRID, dtype=torch.float32, device=mw.device)
+    grid8 = torch.arange(DESC_ORI, dtype=torch.float32, device=mw.device)
+    spacing = MAG_FACTOR * sig
+    cos_t, sin_t = torch.cos(angle), torch.sin(angle)
+    rrot = (cos_t * rr - sin_t * cc) / spacing
+    crot = (sin_t * rr + cos_t * cc) / spacing
+    rbin = rrot + (DESC_GRID / 2.0 - 0.5)
+    cbin = crot + (DESC_GRID / 2.0 - 0.5)
+    inside = (rbin > -1.0) & (rbin < DESC_GRID) & (cbin > -1.0) & (cbin < DESC_GRID)
+    gw = torch.exp(-(rrot * rrot + crot * crot) / (2.0 * (0.5 * DESC_GRID) ** 2))
+    mm = gw * mw * inside
+    obin = (ow - angle) * ORI_SCALE
+    obin = obin - torch.floor(obin / DESC_ORI) * DESC_ORI
+    wr = torch.clamp(1.0 - torch.abs(rbin.reshape(m_, -1, 1) - grid4), min=0.0)
+    wc = torch.clamp(1.0 - torch.abs(cbin.reshape(m_, -1, 1) - grid4), min=0.0)
+    do = torch.abs(obin.reshape(m_, -1, 1) - grid8)
+    do = torch.minimum(do, DESC_ORI - do)
+    wo = torch.clamp(1.0 - do, min=0.0)
+    A = (wr[:, :, :, None] * wc[:, :, None, :]).reshape(m_, -1, DESC_GRID * DESC_GRID)
+    B = mm.reshape(m_, -1, 1) * wo
+    return torch.bmm(A.transpose(1, 2), B).reshape(m_, 128)
+
+
+def _valid_chunks(valid: torch.Tensor, chunk: int):
+    """The valid slots' indices, `chunk` at a time (bounds the memory of the
+    dense window tensors)."""
+    todo = torch.nonzero(valid.bool()).squeeze(1)
+    for k0 in range(0, todo.numel(), chunk):
+        yield todo[k0 : k0 + chunk]
+
+
 def orient_desc_fused_ref(mag: torch.Tensor, ori: torch.Tensor, s_int: torch.Tensor,
                           fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor,
                           valid: torch.Tensor, win: int, max_ori: int,
                           row_off: torch.Tensor, oct_h: torch.Tensor,
                           oct_w: torch.Tensor, chunk: int = 256) -> Fused:
-    """Plain PyTorch version of ``orient_desc_fused`` (dense window tensors,
-    a scatter-add histogram and the separable trilinear descriptor as a
-    batched matmul, as in ``ops/orient_desc.py::compute_descriptors`` of the
-    JAX package); sums are taken in another order than the kernel's."""
+    """Plain PyTorch version of ``orient_desc_fused``: the orientation
+    histograms, ``_orientation_tail`` and one descriptor per angle, each as
+    in the plain versions of K11a and K11b, on one window per keypoint;
+    sums are taken in another order than the kernel's."""
     _check(mag, ori, (s_int, fr, fc, sigma, valid, row_off, oct_h, oct_w), win, max_ori)
     dev = mag.device
-    S, rows, wmax = mag.shape
     n = fr.shape[0]
     ang_out = torch.zeros(n, max_ori, dtype=torch.float32, device=dev)
     ok_out = torch.zeros(n, max_ori, dtype=torch.bool, device=dev)
     desc_out = torch.zeros(n, max_ori, 128, dtype=torch.float32, device=dev)
     rs, cs, fro, fco = window_origin(fr.float(), fc.float(), win)
-    ar = torch.arange(win, device=dev)
-    arf = ar.to(torch.float32)
-    grid4 = torch.arange(DESC_GRID, dtype=torch.float32, device=dev)
-    grid8 = torch.arange(DESC_ORI, dtype=torch.float32, device=dev)
-    mag_flat, ori_flat = mag.reshape(-1), ori.reshape(-1)
-    todo = torch.nonzero(valid.bool()).squeeze(1)
-    for k0 in range(0, todo.numel(), chunk):
-        ks = todo[k0 : k0 + chunk]
-        m_ = ks.numel()
-        rows_k = rs[ks, None].long() + ar                              # (m, win)
-        cols_k = cs[ks, None].long() + ar
-        in_r = (rows_k >= 0) & (rows_k < oct_h[ks, None])
-        in_c = (cols_k >= 0) & (cols_k < oct_w[ks, None])
-        inb = in_r[:, :, None] & in_c[:, None, :]                      # (m, win, win)
-        base = ((s_int[ks].long() - 1) * rows + row_off[ks].long())[:, None, None]
-        flat = ((base + rows_k.clamp(min=0)[:, :, None]) * wmax
-                + cols_k.clamp(min=0)[:, None, :]).clamp(max=mag_flat.numel() - 1)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        mw = torch.where(inb, mag_flat[flat], zero)
-        ow = torch.where(inb, ori_flat[flat], zero)
-        rr = arf[None, :, None] - fro[ks, None, None]                  # (m, win, 1)
-        cc = arf[None, None, :] - fco[ks, None, None]                  # (m, 1, win)
+    for ks in _valid_chunks(valid, chunk):
+        mw, ow = _windows(mag, ori, s_int[ks] - 1, row_off[ks, None].long(), rs[ks], cs[ks],
+                          oct_h[ks, None], oct_w[ks, None], win)
+        rr, cc = _offsets(fro[ks], fco[ks], win)
         sig = sigma[ks].to(torch.float32)[:, None, None]
-
-        d2 = rr * rr + cc * cc
-        sig_w = 1.5 * sig
-        radius = torch.floor(3.0 * sig_w)
-        inside = d2 < radius * radius + 0.5
-        w = torch.exp(-d2 / (2.0 * sig_w * sig_w)) * mw * inside
-        b = torch.floor(N_ORI_BINS * (ow + PI_F) / TWO_PI_F).long().clamp(0, N_ORI_BINS - 1)
-        hist = torch.zeros(m_, N_ORI_BINS, dtype=torch.float32, device=dev)
-        hist.scatter_add_(1, b.reshape(m_, -1), w.reshape(m_, -1))
-        ang, ok = _orientation_tail(hist, max_ori)
+        ang, ok = _orientation_tail(_orientation_hists(mw, ow, rr, cc, sig), max_ori)
         ang_out[ks] = ang
         ok_out[ks] = ok
-
-        spacing = MAG_FACTOR * sig
         for o in range(max_ori):
-            angle = ang[:, o, None, None]
-            cos_t, sin_t = torch.cos(angle), torch.sin(angle)
-            rrot = (cos_t * rr - sin_t * cc) / spacing
-            crot = (sin_t * rr + cos_t * cc) / spacing
-            rbin = rrot + (DESC_GRID / 2.0 - 0.5)
-            cbin = crot + (DESC_GRID / 2.0 - 0.5)
-            inside_d = (rbin > -1.0) & (rbin < DESC_GRID) & (cbin > -1.0) & (cbin < DESC_GRID)
-            gw = torch.exp(-(rrot * rrot + crot * crot) / (2.0 * (0.5 * DESC_GRID) ** 2))
-            mm = gw * mw * inside_d
-            obin = (ow - angle) * ORI_SCALE
-            obin = obin - torch.floor(obin / DESC_ORI) * DESC_ORI
-            wr = torch.clamp(1.0 - torch.abs(rbin.reshape(m_, -1, 1) - grid4), min=0.0)
-            wc = torch.clamp(1.0 - torch.abs(cbin.reshape(m_, -1, 1) - grid4), min=0.0)
-            do = torch.abs(obin.reshape(m_, -1, 1) - grid8)
-            do = torch.minimum(do, DESC_ORI - do)
-            wo = torch.clamp(1.0 - do, min=0.0)
-            A = (wr[:, :, :, None] * wc[:, :, None, :]).reshape(m_, -1, DESC_GRID * DESC_GRID)
-            B = mm.reshape(m_, -1, 1) * wo
-            d = torch.bmm(A.transpose(1, 2), B).reshape(m_, 128)
+            d = _descriptor_hists(mw, ow, rr, cc, sig, ang[:, o, None, None])
             desc_out[ks, o] = torch.where(ok[:, o, None], d, torch.zeros_like(d))
     return ang_out, ok_out, desc_out
+
+
+def _octave_view(mag_p: torch.Tensor, ori_p: torch.Tensor):
+    """The octave inside zero-padded (S, H + 2 PAD_R, W + 2 PAD_C) planes:
+    (S, H, W) views of it, and (H, W)."""
+    if mag_p.shape != ori_p.shape or mag_p.ndim != 3 or mag_p.dtype != torch.float32:
+        raise ValueError("mag_p/ori_p must be matching (S, H + 160, W + 512) float32 planes")
+    H, W = mag_p.shape[1] - 2 * PAD_R, mag_p.shape[2] - 2 * PAD_C
+    if H < 1 or W < 1:
+        raise ValueError(f"planes {tuple(mag_p.shape)} are smaller than their padding")
+    return (mag_p[:, PAD_R : PAD_R + H, PAD_C : PAD_C + W],
+            ori_p[:, PAD_R : PAD_R + H, PAD_C : PAD_C + W], H, W)
+
+
+def _plane_hists(mags, oris, s_int, fr, fc, valid, win: int, nbins: int, chunk: int,
+                 hists) -> torch.Tensor:
+    """The common part of K11a's and K11b's plain versions: each valid
+    slot's window of an octave's (S, H, W) planes (any strides),
+    ``hists(ks, mw, ow, rr, cc)`` making their (m, nbins) rows; zeros for
+    invalid slots."""
+    H, W = mags.shape[1], mags.shape[2]
+    out = torch.zeros(fr.shape[0], nbins, dtype=torch.float32, device=mags.device)
+    rs, cs, fro, fco = window_origin(fr.float(), fc.float(), win)
+    for ks in _valid_chunks(valid, chunk):
+        mw, ow = _windows(mags, oris, s_int[ks] - 1, 0, rs[ks], cs[ks], H, W, win)
+        out[ks] = hists(ks, mw, ow, *_offsets(fro[ks], fco[ks], win))
+    return out
+
+
+def orientation_hist_planes(mags: torch.Tensor, oris: torch.Tensor, s_int: torch.Tensor,
+                            fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor,
+                            valid: torch.Tensor, win: int, chunk: int = 256) -> torch.Tensor:
+    """K11a's plain arithmetic on an octave's unpadded (S, H, W) gradient
+    planes: (n, 36) f32 histograms, zeros for invalid slots."""
+    return _plane_hists(mags, oris, s_int, fr, fc, valid, win, N_ORI_BINS, chunk,
+                        lambda ks, mw, ow, rr, cc: _orientation_hists(
+                            mw, ow, rr, cc, sigma[ks].float()[:, None, None]))
+
+
+def descriptor_hist_planes(mags: torch.Tensor, oris: torch.Tensor, s_int: torch.Tensor,
+                           fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor,
+                           angle: torch.Tensor, valid: torch.Tensor, win: int,
+                           chunk: int = 256) -> torch.Tensor:
+    """K11b's plain arithmetic on an octave's unpadded (S, H, W) gradient
+    planes: (n, 128) raw f32 descriptors, zeros for invalid slots."""
+    return _plane_hists(mags, oris, s_int, fr, fc, valid, win, 128, chunk,
+                        lambda ks, mw, ow, rr, cc: _descriptor_hists(
+                            mw, ow, rr, cc, sigma[ks].float()[:, None, None],
+                            angle[ks].float()[:, None, None]))
+
+
+def _check_slots(mag_p, arrays, win: int) -> None:
+    n = arrays[0].shape[0]
+    for t in arrays:
+        if t.shape != (n,) or t.device != mag_p.device:
+            raise ValueError("per-keypoint arrays must be (n,) on the planes' device")
+    if win < 1:
+        raise ValueError("need win >= 1")
+
+
+def _launch_hist(name, mag_p, ori_p, s_int, fr, fc, sigma, valid, win, angle=None):
+    """One launch of K11a (angle None) or K11b over padded planes; the
+    kernel computes each window's origin itself (``window_origin``), so a
+    call is this one launch when the slot arrays already have the kernel's
+    types."""
+    mag, ori, H, W = _octave_view(mag_p.contiguous(), ori_p.contiguous())
+    n = fr.shape[0]
+    slots = [s_int.to(torch.int32).contiguous()]
+    slots += [t.to(torch.float32).contiguous()
+              for t in (fr, fc, sigma) + (() if angle is None else (angle,))]
+    v = valid.contiguous()
+    slots.append(v.view(torch.uint8) if v.dtype == torch.bool else v.to(torch.uint8))
+    out = torch.empty(n, N_ORI_BINS if angle is None else 128, dtype=torch.float32,
+                      device=mag.device)
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = _build.function(name, [vp, vp, ll, ll, ci, ci, ci] + [vp] * len(slots) + [ci, vp, vp])
+    p = _build.ptr
+    with torch.cuda.device(mag.device):
+        err = fn(p(mag), p(ori), mag.stride(0), mag.stride(1), H, W, n, *map(p, slots),
+                 int(win), p(out), _build.stream_of(mag))
+    _build.check(err, name)
+    return out
+
+
+def orientation_hist(mag_p: torch.Tensor, ori_p: torch.Tensor, s_int: torch.Tensor,
+                     fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor,
+                     valid: torch.Tensor, win: int) -> torch.Tensor:
+    """K11a: the raw 36-bin orientation histogram of each keypoint slot, over
+    a win x win window of its octave's padded gradient planes (``mag_p`` /
+    ``ori_p``: ``pad_grad_planes`` output).  Returns (n, 36) f32, zeros for
+    invalid slots."""
+    _octave_view(mag_p, ori_p)
+    _check_slots(mag_p, (s_int, fr, fc, sigma, valid), win)
+    if not on_cuda(mag_p):
+        return orientation_hist_ref(mag_p, ori_p, s_int, fr, fc, sigma, valid, win)
+    out = _launch_hist("sift_orientation_hist", mag_p, ori_p, s_int, fr, fc, sigma, valid, win)
+    orientation_hist.launches += 1
+    return out
+
+
+orientation_hist.launches = 0
+
+
+def orientation_hist_ref(mag_p: torch.Tensor, ori_p: torch.Tensor, s_int: torch.Tensor,
+                         fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor,
+                         valid: torch.Tensor, win: int, chunk: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of ``orientation_hist`` (a scatter-add
+    histogram per keypoint; sums in another order than the kernel's)."""
+    _check_slots(mag_p, (s_int, fr, fc, sigma, valid), win)
+    mags, oris, _, _ = _octave_view(mag_p, ori_p)
+    return orientation_hist_planes(mags, oris, s_int, fr, fc, sigma, valid, win, chunk)
+
+
+def descriptor_hist(mag_p: torch.Tensor, ori_p: torch.Tensor, s_int: torch.Tensor,
+                    fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor,
+                    angle: torch.Tensor, valid: torch.Tensor, win: int) -> torch.Tensor:
+    """K11b: the raw (unnormalized) 128-bin descriptor of each keypoint slot
+    at its ``angle``, over a win x win window of its octave's padded
+    gradient planes.  Returns (n, 128) f32, zeros for invalid slots;
+    ``ops.orient_desc.quantize_descriptors`` makes them u8."""
+    _octave_view(mag_p, ori_p)
+    _check_slots(mag_p, (s_int, fr, fc, sigma, angle, valid), win)
+    if not on_cuda(mag_p):
+        return descriptor_hist_ref(mag_p, ori_p, s_int, fr, fc, sigma, angle, valid, win)
+    out = _launch_hist("sift_descriptor_hist", mag_p, ori_p, s_int, fr, fc, sigma, valid, win,
+                       angle)
+    descriptor_hist.launches += 1
+    return out
+
+
+descriptor_hist.launches = 0
+
+
+def descriptor_hist_ref(mag_p: torch.Tensor, ori_p: torch.Tensor, s_int: torch.Tensor,
+                        fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor,
+                        angle: torch.Tensor, valid: torch.Tensor, win: int,
+                        chunk: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of ``descriptor_hist`` (the separable trilinear
+    weights as a batched matmul; sums in another order than the kernel's)."""
+    _check_slots(mag_p, (s_int, fr, fc, sigma, angle, valid), win)
+    mags, oris, _, _ = _octave_view(mag_p, ori_p)
+    return descriptor_hist_planes(mags, oris, s_int, fr, fc, sigma, angle, valid, win, chunk)

@@ -1,9 +1,12 @@
-"""Gradients, window sizes, descriptor quantization and the per-octave
-orientation + descriptor call.
+"""Gradients, window sizes, orientation assignment, descriptors and their
+quantization.
 
-Port of the parts of ``sift_pyocl_tpu/ops/orient_desc.py`` that the kernel
-keypoint paths use; the per-keypoint histograms themselves are the K6
-kernel (``ops/kernels/window.py``).
+Port of ``sift_pyocl_tpu/ops/orient_desc.py``.  The per-keypoint
+histograms are the kernels of ``ops/kernels/window.py``: K6 for
+``orient_and_describe_fused``, K11a for ``assign_orientations_pallas`` and
+K11b for ``compute_descriptors_pallas``; the plain ``assign_orientations``
+and ``compute_descriptors`` (the ``kp_backend="xla"`` path) run the same
+histogram arithmetic as those kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -12,9 +15,13 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from . import nonzero_first
 from ..config import SiftConfig
 from ..oracle import DESC_GRID, MAG_FACTOR
+
+PAD_R, PAD_C = 80, 256  # pad_grad_planes' zero padding a side: rows, columns
 
 
 class OrientedKeypoints(NamedTuple):
@@ -106,3 +113,110 @@ def orient_and_describe_fused(mag: torch.Tensor, ori: torch.Tensor, kps, cfg: Si
                              fc=rep(kps.fc), angle=ang.reshape(-1), valid=ok.reshape(-1),
                              count=ok.sum().to(torch.int32))
     return okps, quantize_descriptors(raw.reshape(cap * max_ori, 128))
+
+
+def pad_grad_planes(mags: torch.Tensor, oris: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad (S, H, W) gradient planes by PAD_R rows and PAD_C columns a
+    side: the planes ``assign_orientations_pallas`` and
+    ``compute_descriptors_pallas`` take, as in the JAX package."""
+    pad = (PAD_C, PAD_C, PAD_R, PAD_R)
+    return F.pad(mags, pad), F.pad(oris, pad)
+
+
+def smooth_orientation_hist(hist: torch.Tensor) -> torch.Tensor:
+    """Six rounds of circular 3-tap box smoothing along the last axis."""
+    for _ in range(6):
+        hist = (torch.roll(hist, 1, dims=-1) + hist + torch.roll(hist, -1, dims=-1)) / 3.0
+    return hist
+
+
+def _oriented_slots(kps, angle: torch.Tensor, ok: torch.Tensor, kp_idx: torch.Tensor,
+                    count: torch.Tensor) -> OrientedKeypoints:
+    """OrientedKeypoints of slots that take keypoint kp_idx[j]'s fields."""
+    return OrientedKeypoints(s_int=kps.s_int[kp_idx], fs=kps.fs[kp_idx], fr=kps.fr[kp_idx],
+                             fc=kps.fc[kp_idx], angle=angle, valid=ok, count=count)
+
+
+def _peaks(hist: torch.Tensor, kps, max_ori: int):
+    """(angles, ok) (cap, max_ori) of (cap, 36) raw histograms: smoothing,
+    peaks >= 0.8 max, parabolic refinement, strongest first."""
+    from .kernels.window import _orientation_tail   # the kernel modules import this one
+
+    ang, ok = _orientation_tail(hist, max_ori)
+    return ang, ok & kps.valid[:, None]
+
+
+def orientation_peaks_from_hist(hist: torch.Tensor, kps, cfg: SiftConfig, dcap: int,
+                                max_ori: int = 2) -> OrientedKeypoints:
+    """Up to `max_ori` orientations per keypoint from (cap, 36) histograms,
+    compacted to `dcap` slots in ``jnp.nonzero`` order over the (cap,
+    max_ori) matrix (keypoint-major); ``count`` is the true number, which
+    may exceed dcap."""
+    ang, ok = _peaks(hist, kps, max_ori)
+    sel, valid, count = nonzero_first(ok.reshape(-1), dcap)
+    return _oriented_slots(kps, ang.reshape(-1)[sel], valid, sel // max_ori, count)
+
+
+def orientation_peaks_dense(hist: torch.Tensor, kps, cfg: SiftConfig,
+                            max_ori: int = 2) -> OrientedKeypoints:
+    """As ``orientation_peaks_from_hist`` with no compaction: cap*max_ori
+    dense slots, slot cap*o + i holding keypoint i's o-th orientation."""
+    ang, ok = _peaks(hist, kps, max_ori)
+    cap = hist.shape[0]
+    kp_idx = torch.arange(cap, device=hist.device).repeat(max_ori)
+    return _oriented_slots(kps, ang.T.reshape(-1), ok.T.reshape(-1), kp_idx,
+                           ok.sum().to(torch.int32))
+
+
+def _sigma(cfg: SiftConfig, fs: torch.Tensor) -> torch.Tensor:
+    return cfg.init_sigma * 2.0 ** (fs / cfg.scales)
+
+
+def assign_orientations_pallas(mag_p: torch.Tensor, ori_p: torch.Tensor, kps, cfg: SiftConfig,
+                               dcap: int = 0, max_ori: int = 2) -> OrientedKeypoints:
+    """Orientations of one octave's RefinedKeypoints through K11a, on the
+    ``pad_grad_planes`` planes, over the ``_ori_window_size`` window.
+    Returns dense slots (``orientation_peaks_dense``; `dcap` is ignored, as
+    in the JAX package)."""
+    from .kernels.window import orientation_hist
+
+    hist = orientation_hist(mag_p, ori_p, kps.s_int, kps.fr, kps.fc, _sigma(cfg, kps.fs),
+                            kps.valid, _ori_window_size(cfg))
+    return orientation_peaks_dense(hist, kps, cfg, max_ori)
+
+
+def compute_descriptors_pallas(mag_p: torch.Tensor, ori_p: torch.Tensor,
+                               okps: OrientedKeypoints, cfg: SiftConfig) -> torch.Tensor:
+    """u8 descriptors (n, 128) of oriented keypoints through K11b, on the
+    ``pad_grad_planes`` planes, over the ``_desc_window_size`` window;
+    zeros for invalid slots."""
+    from .kernels.window import descriptor_hist
+
+    raw = descriptor_hist(mag_p, ori_p, okps.s_int, okps.fr, okps.fc, _sigma(cfg, okps.fs),
+                          okps.angle, okps.valid, _desc_window_size(cfg))
+    return quantize_descriptors(raw)
+
+
+def assign_orientations(mags: torch.Tensor, oris: torch.Tensor, kps, cfg: SiftConfig,
+                        dcap: int, max_ori: int = 2) -> OrientedKeypoints:
+    """Plain orientation assignment of the ``kp_backend="xla"`` path, on an
+    octave's (scales, H, W) gradient planes: K11a's plain arithmetic on the
+    unpadded planes, then ``orientation_peaks_from_hist`` (compaction to
+    `dcap`)."""
+    from .kernels.window import orientation_hist_planes
+
+    hist = orientation_hist_planes(mags, oris, kps.s_int, kps.fr, kps.fc, _sigma(cfg, kps.fs),
+                                   kps.valid, _ori_window_size(cfg))
+    return orientation_peaks_from_hist(hist, kps, cfg, dcap, max_ori)
+
+
+def compute_descriptors(mags: torch.Tensor, oris: torch.Tensor, okps: OrientedKeypoints,
+                        cfg: SiftConfig) -> torch.Tensor:
+    """Plain u8 descriptors of the ``kp_backend="xla"`` path: K11b's plain
+    arithmetic on an octave's unpadded (scales, H, W) gradient planes,
+    quantized."""
+    from .kernels.window import descriptor_hist_planes
+
+    raw = descriptor_hist_planes(mags, oris, okps.s_int, okps.fr, okps.fc, _sigma(cfg, okps.fs),
+                                 okps.angle, okps.valid, _desc_window_size(cfg))
+    return quantize_descriptors(raw)

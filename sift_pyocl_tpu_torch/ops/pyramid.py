@@ -3,9 +3,11 @@
 Port of ``sift_pyocl_tpu/ops/pyramid.py``: separable Gaussian blurs with
 clamp-to-edge borders, the blur ladder of each octave, DoGs, and ceil-sized
 octave downsampling.  ``conv_backend="pallas"`` or ``"auto"`` runs octave 0
-through the ladder kernel K1 and every octave >= 1 through one call of K2
-(``ops/kernels/ladder.py``; on a CPU tensor their plain versions);
-``"xla"`` is the plain PyTorch path on any device.
+through the ladder kernel K1 where the JAX package does (a pre-blur, and
+taps its strip kernel holds: ``octave0_ladder_supported``), else level by
+level through the blur kernel K9 (``SiftConfig(scales=2)``), and every
+octave >= 1 through one call of K2 (``ops/kernels/``; on a CPU tensor their
+plain versions); ``"xla"`` is the plain PyTorch path on any device.
 """
 
 from __future__ import annotations
@@ -25,6 +27,11 @@ FUSED_MASK_TODO = ("mask_backend='fused' needs the in-ladder extrema mask of K1/
                    "ported yet; use mask_backend='xla' or 'pallas'")
 
 Ladder = Tuple[torch.Tensor, torch.Tensor]
+
+# The JAX package's strip-ladder margins (ops/pallas/ladder0.py:42-44): row
+# margin and column margin, in pixels, each side.
+MR = 16
+SM = 128
 
 
 def resolve_conv_backend(cfg: SiftConfig) -> str:
@@ -70,10 +77,24 @@ def conv1d_clamp(img: torch.Tensor, taps: torch.Tensor, axis: int) -> torch.Tens
     return F.conv2d(x, k)[0, 0]
 
 
-def blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Separable Gaussian blur with clamped borders (oracle.blur)."""
-    taps = _taps(float(sigma), img.device)
+def separable_blur_ref(img: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9 (``ops.kernels.conv.separable_blur``): two
+    replicate-padded ``conv2d`` passes, rows then columns."""
     return conv1d_clamp(conv1d_clamp(img, taps, axis=1), taps, axis=0)
+
+
+def blur(img: torch.Tensor, sigma: float, backend: str = "auto") -> torch.Tensor:
+    """Separable Gaussian blur with clamped borders (oracle.blur): K9 for
+    backend "pallas" or "auto" (its plain version on a CPU tensor), the
+    plain passes for "xla"."""
+    if backend not in ("xla", "auto", "pallas"):
+        raise ValueError(f"unknown blur backend {backend!r}")
+    taps = _taps(float(sigma), img.device)
+    if backend == "xla":
+        return separable_blur_ref(img, taps)
+    from .kernels.conv import separable_blur   # the kernel module imports this one
+
+    return separable_blur(img, taps)
 
 
 def upscale2(img: torch.Tensor) -> torch.Tensor:
@@ -89,13 +110,36 @@ def upscale2(img: torch.Tensor) -> torch.Tensor:
     return up(up(img, 0), 1)
 
 
-def build_octave(base: torch.Tensor,
-                 increments: Sequence[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+def normalized_input(img: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
+    """The normalized image, doubled for ``double_im_size``: octave 0's
+    input before the pre-blur."""
+    data = normalize_image(img)
+    return upscale2(data) if cfg.double_im_size else data
+
+
+def pre_blur_sigma(cfg: SiftConfig) -> Optional[float]:
+    """The blur that takes the input from ``orig_sigma`` (doubled with the
+    image) to ``init_sigma``, or None when it is already there."""
+    cur = cfg.orig_sigma * (2.0 if cfg.double_im_size else 1.0)
+    return float(np.sqrt(cfg.init_sigma**2 - cur**2)) if cfg.init_sigma > cur else None
+
+
+def prepare_input(img: torch.Tensor, cfg: SiftConfig, backend: str = "auto") -> torch.Tensor:
+    """Normalize, optionally double, pre-blur to init_sigma through
+    ``blur(backend=...)`` (oracle.prepare_input): octave 0's level 0."""
+    data = normalized_input(img, cfg)
+    pre = pre_blur_sigma(cfg)
+    return data if pre is None else blur(data, pre, backend)
+
+
+def build_octave(base: torch.Tensor, increments: Sequence[float],
+                 backend: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
     """One octave's blur stack (len(increments)+1, H, W), level l+1 being
-    level l blurred by ``increments[l]``, and its DoG stack."""
+    level l blurred by ``increments[l]`` through ``blur(backend=...)``, and
+    its DoG stack."""
     blurs = [base]
     for inc in increments:
-        blurs.append(blur(blurs[-1], inc))
+        blurs.append(blur(blurs[-1], inc, backend))
     stack = torch.stack(blurs)
     return stack, stack[1:] - stack[:-1]
 
@@ -123,11 +167,11 @@ def downsample_octave(img: torch.Tensor, mode: str) -> torch.Tensor:
     return downsample2_bin(img) if mode == "bin" else downsample2(img)
 
 
-def octave0_ladder_ref(img: torch.Tensor, pre_sigma: Optional[float],
+def octave0_ladder_ref(img: torch.Tensor, pre_sigma: float,
                        increments: Sequence[float]) -> Ladder:
     """Plain version of K1 (``ops.kernels.ladder.octave0_ladder``): octave
-    0 from the normalized image, pre-blurred by `pre_sigma` unless None."""
-    return build_octave(img if pre_sigma is None else blur(img, pre_sigma), increments)
+    0 from the normalized image, pre-blurred by `pre_sigma`."""
+    return build_octave(blur(img, pre_sigma, "xla"), increments)
 
 
 def small_octaves_ladder_ref(base1: torch.Tensor, increments: Sequence[float], n_oct: int,
@@ -142,27 +186,39 @@ def small_octaves_ladder_ref(base1: torch.Tensor, increments: Sequence[float], n
     return out
 
 
+def octave0_ladder_supported(pre_sigma: float, increments: Sequence[float]) -> bool:
+    """True iff the TPU's strip ladder covers these sigmas: every tap
+    half-width within the row margin, their sum within the column margin.
+    A carried copy of ``sift_pyocl_tpu/ops/pallas/ladder0.py``'s (held equal
+    by ``tests/test_torch_config.py``): the port's K1 takes any sigma, but
+    octave 0 takes the same kernels as in the JAX package."""
+    halves = [(len(gaussian_kernel(s)) - 1) // 2 for s in [pre_sigma, *increments]]
+    return max(halves) <= MR and sum(halves) <= SM
+
+
 def build_scale_space(img: torch.Tensor, cfg: SiftConfig,
                       plain: bool = False) -> List[Ladder]:
-    """All octaves as a list of (blurs (S+3, H, W), dogs (S+2, H, W)):
-    octave 0 through K1, the others through one call of K2, or their plain
-    versions for ``conv_backend="xla"`` or ``plain=True``."""
+    """All octaves as a list of (blurs (S+3, H, W), dogs (S+2, H, W)).
+    Octave 0 through K1 where ``octave0_ladder_supported`` holds for a
+    pre-blurred input, else level by level through K9; the other octaves
+    through one call of K2; or their plain versions for
+    ``conv_backend="xla"`` or ``plain=True``."""
+    backend = resolve_conv_backend(cfg)
+    if plain:
+        backend = "xla"
     n_oct = cfg.n_octaves(tuple(img.shape[:2]))
-    if resolve_conv_backend(cfg) == "xla" or plain:
-        k1, k2 = octave0_ladder_ref, small_octaves_ladder_ref
-    else:
+    pre = pre_blur_sigma(cfg)
+    incs = cfg.sigma_increments()
+    if backend == "pallas":
         # imported here, as the JAX package imports its Pallas ladders: the
         # kernel module takes its plain versions from this one
-        from .kernels.ladder import octave0_ladder as k1, small_octaves_ladder as k2
-    data = normalize_image(img)
-    cur_sigma = cfg.orig_sigma
-    if cfg.double_im_size:
-        data = upscale2(data)
-        cur_sigma *= 2.0
-    pre = (float(np.sqrt(cfg.init_sigma**2 - cur_sigma**2))
-           if cfg.init_sigma > cur_sigma else None)
-    incs = cfg.sigma_increments()
-    octaves = [k1(data, pre, incs)]
+        from .kernels.ladder import octave0_ladder, small_octaves_ladder as k2
+    else:
+        k2 = small_octaves_ladder_ref
+    if backend == "pallas" and pre is not None and octave0_ladder_supported(pre, incs):
+        octaves = [octave0_ladder(normalized_input(img, cfg), pre, incs)]
+    else:
+        octaves = [build_octave(prepare_input(img, cfg, backend), incs, backend)]
     if n_oct > 1:
         octaves += k2(downsample_octave(octaves[0][0][cfg.scales], cfg.downsample_mode),
                       incs, n_oct - 1, cfg.scales, cfg.downsample_mode)

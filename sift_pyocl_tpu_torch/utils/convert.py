@@ -68,6 +68,20 @@ def keypoint_buffer_from_jax(buf, device: Union[str, torch.device] = "cpu"):
     return _named_from_jax(KeypointBuffer, buf, device)
 
 
+def refined_keypoints_from_jax(kps, device: Union[str, torch.device] = "cpu"):
+    """``ops.detect.RefinedKeypoints`` from the JAX package's."""
+    from ..ops.detect import RefinedKeypoints
+
+    return _named_from_jax(RefinedKeypoints, kps, device)
+
+
+def oriented_keypoints_from_jax(okps, device: Union[str, torch.device] = "cpu"):
+    """``ops.orient_desc.OrientedKeypoints`` from the JAX package's."""
+    from ..ops.orient_desc import OrientedKeypoints
+
+    return _named_from_jax(OrientedKeypoints, okps, device)
+
+
 def ba_params_from_jax(params, device: Union[str, torch.device] = "cpu"):
     """``sfm.ba.BAParams`` from the JAX package's."""
     from ..sfm.ba import BAParams

@@ -73,6 +73,20 @@ def test_synthetic_scene_copy_is_identical(shape, n_blobs, seed):
                                   j_scene(shape, n_blobs=n_blobs, seed=seed))
 
 
+@pytest.mark.parametrize("kw", [{}, {"scales": 2}, {"init_sigma": 1.8, "scales": 2},
+                                {"init_sigma": 2.1}, {"double_im_size": True}, {"scales": 5}])
+def test_octave0_ladder_supported_copy_matches(kw):
+    """The port routes octave 0 (K1, or K9 per level) by a carried copy of
+    the JAX package's strip-ladder test and margins."""
+    from sift_pyocl_tpu.ops.pallas import ladder0
+    from sift_pyocl_tpu_torch.ops import pyramid as tp
+
+    assert (tp.MR, tp.SM) == (ladder0.MR, ladder0.SM)
+    cfg = tcfg.SiftConfig(**kw)
+    pre, incs = tp.pre_blur_sigma(cfg), cfg.sigma_increments()
+    assert tp.octave0_ladder_supported(pre, incs) == ladder0.octave0_ladder_supported(pre, incs)
+
+
 def test_match_keypoint_sets_copy_agrees_with_suite():
     from conftest import match_keypoint_sets as suite_match
 
@@ -101,7 +115,8 @@ def test_port_sources_never_import_jax():
     files = sorted(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent / "chip_smoke.py"]
     names = {p.relative_to(PORT_DIR).as_posix() for p in files[:-1]}
     assert {"models/vo.py", "ops/match.py", "ops/kernels/ladder.py", "ops/kernels/matchk.py",
-            "ops/kernels/maskk.py", "sfm/geometry.py", "sfm/pnp.py", "sfm/ba.py"} <= names
+            "ops/kernels/maskk.py", "ops/kernels/conv.py", "sfm/geometry.py", "sfm/pnp.py",
+            "sfm/ba.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]

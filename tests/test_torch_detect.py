@@ -1,7 +1,8 @@
 """Detection parity: extrema masks (the plain stencil and K8), K3 and K10a
 compaction, K4 and K10b refinement (plain versions, as the wrappers run
-them on the CPU) against the JAX package, its Pallas kernels in interpret
-mode, on the same DoGs and candidates."""
+them on the CPU) and the plain detection of kp_backend="xla" against the
+JAX package, its Pallas kernels in interpret mode, on the same DoGs and
+candidates."""
 
 import dataclasses
 
@@ -255,3 +256,56 @@ def test_wrappers_refuse_other_devices():
     m = torch.zeros(4, 4, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="device"):
         compact_masks_multi([m], [64])
+
+
+def test_plain_compaction_matches_jax(dogs160):
+    """compact_extrema (the kp_backend="xla" path) against the JAX
+    function: exact (s, r, c, valid, count), also when the octave overflows
+    its capacity (no per-tile limit on this path)."""
+    cfg, _ = dogs160
+    tcfg = SiftConfig(**dataclasses.asdict(cfg))
+    rng = np.random.default_rng(13)
+    mask = rng.random((3, 60, 90)) < 0.02
+    mask[1, :4, :] = True                  # 360 bits in a row
+    for cap in (64, 2048):
+        want = jd.compact_extrema(jnp.asarray(mask), cfg, cap)
+        got = td.compact_extrema(torch.from_numpy(mask), tcfg, cap)
+        for f in want._fields:
+            np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                          err_msg=f"cap {cap}: {f}")
+
+
+def test_plain_detect_octave_matches_jax(dogs160):
+    """The XLA detect_octave, octave by octave: accepts exact, floats within
+    1e-5 (the adjugate solve in the JAX XLA function's order;
+    tests/test_pallas.py:78-84)."""
+    cfg, dogs = dogs160
+    tcfg = SiftConfig(**dataclasses.asdict(cfg))
+    n_acc = 0
+    for o, d in enumerate(dogs):
+        want = jd.detect_octave(jnp.asarray(d), cfg, o, 128)
+        got = td.detect_octave(to_torch(d), tcfg, o, 128)
+        acc = np.asarray(want.valid)
+        np.testing.assert_array_equal(got.valid.numpy(), acc, err_msg=f"octave {o}")
+        np.testing.assert_array_equal(got.s_int.numpy(), np.asarray(want.s_int))
+        for f in ("fs", "fr", "fc", "peak"):
+            np.testing.assert_allclose(getattr(got, f).numpy()[acc], np.asarray(getattr(want, f))[acc],
+                                       atol=1e-5, rtol=0, err_msg=f"octave {o}: {f}")
+        n_acc += int(acc.sum())
+    assert n_acc > 5
+
+
+def test_plain_and_kernel_detection_agree(dogs160):
+    """detect_octave (plain, adjugate solve) and detect_octave_pallas (K10a,
+    K10b; plain versions here) accept the same keypoints where no octave
+    overflows a tile, at floats within 1e-5."""
+    cfg, dogs = dogs160
+    tcfg = SiftConfig(**dataclasses.asdict(cfg))
+    for o, d in enumerate(dogs):
+        a = td.detect_octave(to_torch(d), tcfg, o, 128)
+        b, total = td.detect_octave_pallas(to_torch(d), tcfg, o, 128)
+        assert int(total) == int(td.extrema_mask(to_torch(d), tcfg, o).sum())
+        assert torch.equal(a.valid, b.valid) and torch.equal(a.s_int[a.valid], b.s_int[b.valid])
+        for f in ("fs", "fr", "fc", "peak"):
+            np.testing.assert_allclose(getattr(a, f)[a.valid].numpy(), getattr(b, f)[b.valid].numpy(),
+                                       atol=1e-5, rtol=0)

@@ -15,8 +15,8 @@ import torch
 from sift_pyocl_tpu_torch import SLICE_CONFIG, detect_and_describe
 from sift_pyocl_tpu_torch.models.sift import octave_capacities, to_keypoint_records
 from sift_pyocl_tpu_torch.ops.detect import decode_compacted, extrema_mask
-from sift_pyocl_tpu_torch.ops.kernels import (compact, gradpad, ladder, launch_counts, maskk,
-                                              matchk, refine, reset_launch_counts, window)
+from sift_pyocl_tpu_torch.ops.kernels import (compact, conv, gradpad, ladder, launch_counts,
+                                              maskk, matchk, refine, reset_launch_counts, window)
 from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
 from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, synthetic_scene
 
@@ -89,7 +89,8 @@ def test_slice_kernel_path_matches_plain_path(stage_inputs):
     counts = launch_counts()
     assert counts.pop("best2_l2") == 0, counts
     assert counts.pop("octave0_ladder") == counts.pop("small_octaves_ladder") == 0, counts
-    for name in ("extrema_masks", "compact_mask", "refine_octave"):
+    for name in ("extrema_masks", "compact_mask", "refine_octave", "separable_blur",
+                 "orientation_hist", "descriptor_hist"):
         assert counts.pop(name) == 0, counts
     assert all(n == 1 for n in counts.values()), counts
 
@@ -152,11 +153,10 @@ def test_ladder_kernels_match_plain(cuda, mode):
     pre = float((cfg.init_sigma**2 - cfg.orig_sigma**2) ** 0.5)
     for shape in (SHAPE, (135, 241)):
         x = normalize_image(torch.from_numpy(synthetic_scene(shape, n_blobs=20, seed=4)).to(cuda))
-        for p in (pre, None):
-            got = ladder.octave0_ladder(x, p, incs)
-            want = ladder.octave0_ladder_ref(x, p, incs)
-            for g, w in zip(got, want):
-                assert g.shape == w.shape and float((g - w).abs().max()) <= 1e-3
+        got = ladder.octave0_ladder(x, pre, incs)
+        want = ladder.octave0_ladder_ref(x, pre, incs)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and float((g - w).abs().max()) <= 1e-3
         base = downsample_octave(want[0][cfg.scales], mode)
         n_oct = cfg.n_octaves(shape) - 1
         got = ladder.small_octaves_ladder(base, incs, n_oct, cfg.scales, mode)
@@ -194,3 +194,84 @@ def test_best2_l2_kernel_is_exact(cuda, n1, n2):
             assert int(got[2][0]) == 3 and float(got[1][0]) == float(got[0][0]) == 0.0
     with pytest.raises(TypeError):
         matchk.best2_l2(d1.float(), d2.float(), v2, v1)
+
+
+def test_blur_kernel_matches_plain_and_k1(cuda):
+    """K9 within 1e-3 of its plain version at SiftConfig(scales=2)'s five
+    octave-0 sigmas (up to 39 taps), and the per-level octave 0 bit-equal
+    to K1's on the same frame and sigmas (one level kernel)."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops import pyramid as tp
+
+    cfg = SiftConfig(scales=2)
+    pre, incs = tp.pre_blur_sigma(cfg), cfg.sigma_increments()
+    img = torch.from_numpy(synthetic_scene(SHAPE, n_blobs=20, seed=4)).to(cuda)
+    reset_launch_counts()
+    blurs, dogs = tp.build_octave(tp.prepare_input(img, cfg, "pallas"), incs, "pallas")
+    assert conv.separable_blur.launches == 5
+    k1_blurs, k1_dogs = ladder.octave0_ladder(tp.normalized_input(img, cfg), pre, incs)
+    assert torch.equal(blurs, k1_blurs) and torch.equal(dogs, k1_dogs)
+    for x, s in zip([tp.normalized_input(img, cfg)] + list(blurs[:-1]), (pre,) + incs):
+        t = tp._taps(s, cuda)
+        got, want = conv.separable_blur(x, t), tp.separable_blur_ref(x, t)
+        assert float((got - want).abs().max()) <= 1e-3
+    odd = torch.rand(135, 241, device=cuda) * 255
+    t = tp._taps(3.09, cuda)
+    assert float((conv.separable_blur(odd, t) - tp.separable_blur_ref(odd, t)).abs().max()) <= 1e-3
+    reset_launch_counts()
+    octaves = tp.build_scale_space(img, cfg)
+    assert launch_counts()["separable_blur"] == 5 and launch_counts()["octave0_ladder"] == 0
+    for (a, b), (c, d) in zip(octaves, tp.build_scale_space(img, cfg, plain=True)):
+        assert float((a - c).abs().max()) <= 1e-3 and float((b - d).abs().max()) <= 1e-3
+    # no pre-blur (init_sigma below the doubled input's sigma): octave 0
+    # level by level, one K9 launch per increment and no K1
+    cfg = SiftConfig(double_im_size=True, init_sigma=0.9)
+    assert tp.pre_blur_sigma(cfg) is None
+    reset_launch_counts()
+    octaves = tp.build_scale_space(img, cfg)
+    assert launch_counts()["separable_blur"] == len(cfg.sigma_increments())
+    assert launch_counts()["octave0_ladder"] == 0
+    for (a, b), (c, d) in zip(octaves, tp.build_scale_space(img, cfg, plain=True)):
+        assert float((a - c).abs().max()) <= 1e-3 and float((b - d).abs().max()) <= 1e-3
+
+
+def test_split_window_kernels_match_plain(stage_inputs):
+    """K11a and K11b against their plain versions on every octave's
+    keypoints: histograms within 1e-3 of the largest bin, the same oriented
+    slots, u8 descriptors within 1 count."""
+    from sift_pyocl_tpu_torch.ops import orient_desc as od
+    from sift_pyocl_tpu_torch.ops.detect import detect_octave_pallas
+
+    _, octaves, _, _, caps = stage_inputs
+    n_ok = 0
+    for o, (blurs, dogs) in enumerate(octaves):
+        kps, _ = detect_octave_pallas(dogs, CFG, o, caps[o])
+        mag_p, ori_p = od.pad_grad_planes(*od.gradient_planes(blurs, CFG))
+        sig = od._sigma(CFG, kps.fs)
+        args = (mag_p, ori_p, kps.s_int, kps.fr, kps.fc, sig, kps.valid, od._ori_window_size(CFG))
+        h, hp = window.orientation_hist(*args), window.orientation_hist_ref(*args)
+        assert float((h - hp).abs().max()) <= 1e-3 * max(1.0, float(hp.abs().max()))
+        okps = od.orientation_peaks_dense(h, kps, CFG, CFG.max_ori)
+        assert torch.equal(okps.valid, od.orientation_peaks_dense(hp, kps, CFG, CFG.max_ori).valid)
+        dargs = (mag_p, ori_p, okps.s_int, okps.fr, okps.fc, od._sigma(CFG, okps.fs), okps.angle,
+                 okps.valid, od._desc_window_size(CFG))
+        dq = (od.quantize_descriptors(window.descriptor_hist(*dargs)).int()
+              - od.quantize_descriptors(window.descriptor_hist_ref(*dargs)).int()).abs()
+        assert int(dq.max()) <= 1
+        n_ok += int(okps.valid.sum())
+    assert n_ok > 10
+
+
+def test_plain_keypoint_path_matches_kernel_path(stage_inputs):
+    """kp_backend="xla" on the card launches no keypoint kernel and finds
+    the kernel path's keypoints."""
+    img = stage_inputs[0]
+    reset_launch_counts()
+    plain = to_keypoint_records(detect_and_describe(img, dataclasses.replace(CFG, kp_backend="xla")))
+    assert sum(launch_counts().values()) == 0       # SLICE_CONFIG: plain pyramid too
+    kern = to_keypoint_records(detect_and_describe(img, CFG))
+    # the two paths' orientation windows (48 and 104) sum the histograms
+    # in other orders: a peak at the 0.8 max threshold may flip
+    assert abs(len(plain) - len(kern)) <= max(2, len(kern) // 50) and len(kern) > 10
+    hits, l1 = match_keypoint_sets(kern, plain)
+    assert hits >= 0.98 * len(kern) and l1 < 0.1

@@ -69,8 +69,9 @@ def test_ladder_plain_versions_match_jax_on_odd_sizes():
 
 
 def test_ladder_without_pre_blur_and_double_size():
-    """init_sigma <= the doubled input's blur: level 0 is the image itself;
-    the ladder route equals the plain route exactly (same plain ops)."""
+    """init_sigma <= the doubled input's blur: level 0 is the image itself,
+    and octave 0 takes the per-level route (K9), which on a CPU tensor
+    equals the plain route exactly (same plain ops)."""
     img = synthetic_scene((40, 52), n_blobs=6, seed=1)
     kw = dict(double_im_size=True, init_sigma=0.9)
     got = tp.build_scale_space(torch.from_numpy(img), SiftConfig(**kw))

@@ -1,7 +1,8 @@
-"""The frontend end to end: the port's SiftPlan.keypoints under SLICE_CONFIG
-and under the kernel configurations K8 (mask_backend="pallas"), per-octave
-launches (kp_multi_launch=False) and bucketed K6 (desc_buckets=2) -- the
-kernel wrappers take their plain versions on the CPU -- against the JAX
+"""The frontend end to end: the port's SiftPlan.keypoints under SLICE_CONFIG,
+under the kernel configurations K8 (mask_backend="pallas"), per-octave
+launches (kp_multi_launch=False), bucketed K6 (desc_buckets=2) and the
+per-level K9 pyramid (scales=2), and on the plain path kp_backend="xla" --
+the kernel wrappers take their plain versions on the CPU -- against the JAX
 package's detect_and_describe with the same config, its Pallas kernels in
 interpret mode."""
 
@@ -56,10 +57,14 @@ def test_slice_matches_jax(scene, request):
 
 
 @pytest.mark.parametrize("kw", [{"kp_multi_launch": False}, {"mask_backend": "pallas"},
-                                {"desc_buckets": 2}], ids=["per_octave", "mask_k8", "buckets"])
+                                {"desc_buckets": 2}, {"scales": 2, "conv_backend": "auto"}],
+                         ids=["per_octave", "mask_k8", "buckets", "scales2_k9"])
 def test_kernel_configurations_match_jax(kw, scene160, monkeypatch):
     """Each kernel configuration end to end on scene160, held as the default
-    is above.  desc_buckets=2 must make its two K6 calls at this config."""
+    is above.  desc_buckets=2 must make its two K6 calls at this config.
+    scales=2 takes the per-level K9 octave 0 here; on the JAX side "auto"
+    is its XLA pyramid on the CPU, since its small-octaves ladder is wrong
+    at scales=2 (tests/test_torch_conv.py)."""
     cfg = dataclasses.replace(CFG, **kw)
     want, want_counts = _jax_keypoints(scene160, cfg)
     calls = []
@@ -104,13 +109,36 @@ def test_octave_capacities_match_jax(shape, kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"kp_backend": "xla"}, "kp_backend"),
+    ({"kp_backend": "xla", "mask_backend": "fused"}, "mask_cfg"),
     ({"mask_backend": "fused"}, "mask_cfg"),
     ({"mask_backend": "fused", "conv_backend": "xla"}, "mask_cfg"),
 ])
 def test_paths_not_ported_yet_raise(kw, match):
+    """Only mask_backend="fused" (the in-ladder masks of K1/K2) is still to
+    come; an unknown kp_backend is an error."""
     with pytest.raises(NotImplementedError, match=match):
         SiftPlan((64, 64), config=SiftConfig(**kw), device="cpu")
+    with pytest.raises(ValueError, match="kp_backend"):
+        SiftPlan((64, 64), config=SiftConfig(kp_backend="numpy"), device="cpu")
+
+
+@pytest.mark.parametrize("scene", ["scene128", "scene160"])
+def test_plain_keypoint_path_matches_jax(scene, request):
+    """kp_backend="xla" (plain detection, orientations compacted to each
+    octave's descriptor capacity, plain descriptors) against the JAX
+    package's XLA path with the same config: the same counts and buffer
+    layout, every keypoint matched, descriptor L1 < 0.01."""
+    img = request.getfixturevalue(scene)
+    cfg = dataclasses.replace(CFG, kp_backend="xla")
+    want, want_counts = _jax_keypoints(img, cfg)
+    plan = SiftPlan(img.shape, config=cfg, device="cpu")
+    got = plan.keypoints(img)
+    assert len(got) == len(want) > 10
+    hits, desc_l1 = match_keypoint_sets(want, got)
+    assert hits == len(want) and desc_l1 < 0.01
+    buf = plan.keypoints_raw(img)
+    np.testing.assert_array_equal(buf.counts.numpy(), want_counts)
+    assert buf.valid.shape == (sum(d for _, d in tsift.octave_capacities(img.shape, cfg)),)
 
 
 def test_plan_api(scene128):
