@@ -43,8 +43,30 @@
    keypoints.
 11. P6: SiftPlan.keypoints with kp_backend="xla" (plain PyTorch after the
    K1/K2 pyramid), held to the kernel path's keypoints.
-12. Prints a JSON line of per-kernel results (launches from the path that
-   runs each kernel), then, as its last line, {"ok": true, "device": {...}}.
+12. K1m/K2m (the mask forms of K1/K2, SiftConfig(mask_backend="fused")) on
+   the 1080x1920 frame: blurs and DoGs bit-equal to K1's and K2's, masks
+   bit-equal to K8's and to the plain stencil's on those DoGs, all 7
+   octaves; against their plain versions (plain ladder + stencil) the
+   stacks within 1e-3 and no mask pixel different away from a decision;
+   timed beside K1 + K8, K2 + K8 and the plain versions.
+13. P7: the main path with SiftConfig(mask_backend="fused"): K1m and K2m
+   once a step, K1, K2 and K8 never, the plain stencil never called, K3-K6
+   once and K7 twice a step, every frame's keypoint buffer equal to the
+   default run's, final pose within 1e-6; ms per step in turns (default,
+   fused, fused, default), stage split and device time beside P1's and the
+   default's.
+14. SiftPlan.keypoints with SiftConfig(mask_backend="fused", scales=2):
+   octave 0 through K9 and the stencil (the fused mask's None fallback),
+   octaves >= 1 through K2m; buffer equal to scales=2 without fusion,
+   keypoints held to its plain=True run.
+15. P8: K7f (f32 operands) through match_descriptors_dense at the VO map
+   call's shapes (one frame's 8320 slots against a 2048-slot map from
+   another frame): descriptors /512 (exact sums) and /255 (rounded sums),
+   d1/d2 within a stated tolerance of the plain version, i1 equal outside
+   near-ties (counted); timed beside torch.mm + torch.topk.
+16. Prints a JSON line of per-kernel results (16 rows, launches from the
+   path that runs each kernel), then, as its last line, {"ok": true,
+   "device": {...}}.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -483,7 +505,7 @@ def check_slice_frontend(img, x, dev) -> dict:
         assert counts[name] == FRAMES, f"{name} launched {counts[name]} times in {FRAMES} frames"
     for name in ("octave0_ladder", "small_octaves_ladder", "best2_l2", "extrema_masks",
                  "separable_blur", "compact_mask", "refine_octave", "orientation_hist",
-                 "descriptor_hist"):
+                 "descriptor_hist") + FUSED_LADDERS + ("best2_l2_f32",):
         assert counts[name] == 0, f"{name} launched {counts[name]} times"
     assert len(kp) >= MIN_KEYPOINTS, f"only {len(kp)} keypoints"
     for f in ("x", "y", "scale", "angle"):
@@ -567,10 +589,13 @@ VO_KERNELS = ("octave0_ladder", "small_octaves_ladder", "compact_masks_multi", "
               "grad_atlas", "orient_desc_fused", "best2_l2")
 
 
-def check_vo_counts(init_counts, counts, extra=()):
-    """K1-K6 (and `extra`) once in vo_init and once a step, K7 twice a step,
-    every other kernel never."""
-    on_path = VO_KERNELS + tuple(extra)
+FUSED_LADDERS = ("octave0_ladder_mask", "small_octaves_ladder_mask")
+
+
+def check_vo_counts(init_counts, counts, extra=(), ladders=VO_KERNELS[:2]):
+    """The ladders (K1/K2, or `ladders`), K3-K6 (and `extra`) once in
+    vo_init and once a step, K7 twice a step, every other kernel never."""
+    on_path = tuple(ladders) + VO_KERNELS[2:] + tuple(extra)
     for name, n in init_counts.items():
         want = 1 if name in on_path and name != "best2_l2" else 0
         assert n == want, f"vo_init: {name} launched {n} times (want {want})"
@@ -709,7 +734,7 @@ def check_vo_k8(base: dict) -> dict:
               f"{dev_prof['kernel_launches_per_frame']:.0f}, busy share "
               f"{dev_prof['busy_share']:.3f}",
               flush=True)
-    return counts
+    return {"counts": counts, "step_ms": step_ms, "stages": stages, "profile": prof}
 
 
 def check_per_octave(img, dev) -> dict:
@@ -994,6 +1019,304 @@ def check_plain_keypoints(img, dev) -> None:
     assert hits >= 0.98 * len(ref) and l1 < 0.1
 
 
+def near_decision(dogs: torch.Tensor, peak: float, eth: float, bd: int,
+                  tol: float) -> torch.Tensor:
+    """Per element of the stencil's (S-2, H-2bd, W-2bd) mask on `dogs`,
+    whether moving every DoG value by at most `tol` can flip its outcome:
+    the element passes under some such move but not under every one.  A
+    neighbour compare moves by at most 2 tol, |v| by tol, hxx and hyy by
+    4 tol, hxy by tol; det and eth tr^2 are bounded by interval products
+    (a superset of the flips)."""
+    S, H, W = dogs.shape
+
+    def at(ds, dr, dc):
+        return dogs[1 + ds:S - 1 + ds, bd + dr:H - bd + dr, bd + dc:W - bd + dc]
+
+    def mul(a, b):
+        p = torch.stack([a[0] * b[0], a[0] * b[1], a[1] * b[0], a[1] * b[1]])
+        return p.amin(0), p.amax(0)
+
+    v = at(0, 0, 0)
+    strong = v.abs() - 0.8 * peak
+    max_sure = max_can = min_sure = min_can = torch.ones_like(v, dtype=torch.bool)
+    for ds in (-1, 0, 1):
+        for dr in (-1, 0, 1):
+            for dc in (-1, 0, 1):
+                if ds or dr or dc:
+                    g = v - at(ds, dr, dc)
+                    max_sure, max_can = max_sure & (g > 2 * tol), max_can & (g > -2 * tol)
+                    min_sure, min_can = min_sure & (g < -2 * tol), min_can & (g < 2 * tol)
+    hxx = at(0, 0, -1) + at(0, 0, 1) - 2 * v
+    hyy = at(0, -1, 0) + at(0, 1, 0) - 2 * v
+    hxy = 0.25 * (at(0, 1, 1) - at(0, 1, -1) - at(0, -1, 1) + at(0, -1, -1))
+    hxx_i, hyy_i = (hxx - 4 * tol, hxx + 4 * tol), (hyy - 4 * tol, hyy + 4 * tol)
+    hxy_i = (hxy - tol, hxy + tol)
+    a, b = mul(hxx_i, hyy_i), mul(hxy_i, hxy_i)
+    det = (a[0] - b[1], a[1] - b[0])
+    tr = (hxx_i[0] + hyy_i[0], hxx_i[1] + hyy_i[1])
+    t = mul(tr, tr)
+    edge = (det[0] - eth * t[1], det[1] - eth * t[0])
+    sure = (strong > tol) & (max_sure | min_sure) & (det[0] > 0) & (edge[0] >= 0)
+    can = (strong > -tol) & (max_can | min_can) & (det[1] > 0) & (edge[1] >= 0)
+    return can & ~sure
+
+
+def check_fused_masks(x: torch.Tensor, rec: Kernels) -> None:
+    """K1m and K2m (the mask forms of K1/K2, SiftConfig(mask_backend=
+    "fused")) on the main path's frame: blurs and DoGs bit-equal to K1's and
+    K2's, every octave's mask bit-equal to K8's and to the plain stencil on
+    those DoGs; against their plain versions (plain ladder + stencil) the
+    stacks within check_ladders' 1e-3 and the masks equal except at pixels
+    whose plain test lies within that of a decision (counted); times beside
+    K1 + K8, K2 + K8 and the plain versions."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops.kernels import ladder, maskk
+    from sift_pyocl_tpu_torch.ops.pyramid import (_taps, downsample_octave, normalized_input,
+                                                  pre_blur_sigma)
+
+    cfg = SiftConfig(mask_backend="fused")
+    bd, peak = cfg.border_dist, cfg.peak_thresh
+    data = normalized_input(x, cfg)
+    pre, incs = pre_blur_sigma(cfg), cfg.sigma_increments()
+    n_oct = cfg.n_octaves(SHAPE)
+    mc0 = (peak, maskk.octave_edge_thresh(cfg, 0), bd)
+    eths = tuple(maskk.octave_edge_thresh(cfg, o) for o in range(1, n_oct))
+    mc = (peak, eths, bd)
+    b0, d0 = ladder.octave0_ladder(data, pre, incs)
+    mb0, md0, m0 = ladder.octave0_ladder_mask(data, pre, incs, mc0)
+    base = downsample_octave(b0[cfg.scales], cfg.downsample_mode)
+    args2 = (base, incs, n_oct - 1, cfg.scales, cfg.downsample_mode)
+    small = ladder.small_octaves_ladder(*args2)
+    msmall = ladder.small_octaves_ladder_mask(*args2, mc)
+    torch.cuda.synchronize()
+    assert torch.equal(b0, mb0) and torch.equal(d0, md0), "K1m's stacks differ from K1's"
+    for o, ((b, d), (mb, md, _)) in enumerate(zip(small, msmall)):
+        assert torch.equal(b, mb) and torch.equal(d, md), f"K2m's octave {o + 1} differs from K2's"
+    dogs = [d0] + [d for _, d in small]
+    masks = [m0] + [m for _, _, m in msmall]
+    k8 = maskk.extrema_masks(dogs, cfg)
+    stencil = maskk.extrema_masks_ref(dogs, cfg)
+    torch.cuda.synchronize()
+    for o, (m, k, st) in enumerate(zip(masks, k8, stencil)):
+        assert m.dtype == torch.bool and torch.equal(m, k) and torch.equal(m, st), \
+            f"octave {o}: the in-ladder mask differs from K8 / the stencil"
+    n_cand = [int(m.sum()) for m in masks]
+    print(f"K1m/K2m: stacks bit-equal to K1/K2, masks bit-equal to K8 and the stencil on all "
+          f"{len(masks)} octaves, candidates {n_cand}", flush=True)
+
+    # against the plain versions on the same inputs
+    tol = 1e-3
+    rb0, rd0, rm0 = ladder.octave0_ladder_mask_ref(data, pre, incs, mc0)
+    rsmall = ladder.small_octaves_ladder_mask_ref(*args2, mc)
+    torch.cuda.synchronize()
+    err1m = max(float((mb0 - rb0).abs().max()), float((md0 - rd0).abs().max()))
+    err2m = max(max(float((b - rb).abs().max()), float((d - rd).abs().max()))
+                for (b, d, _), (rb, rd, _) in zip(msmall, rsmall))
+    assert err1m <= tol and err2m <= tol, f"vs plain: K1m {err1m}, K2m {err2m}"
+    n_diff, n_near = [], []
+    for o, (m, (_, rd, rm), eth) in enumerate(zip(masks, [(rb0, rd0, rm0)] + rsmall,
+                                                 (mc0[1],) + eths)):
+        differ = m != rm
+        near = near_decision(rd, peak, eth, bd, tol)
+        assert not (differ & ~near).any(), \
+            f"octave {o}: {int((differ & ~near).sum())} mask pixels differ from the plain " \
+            f"version away from every decision"
+        n_diff.append(int(differ.sum()))
+        n_near.append(int(near.sum()))
+    print(f"K1m/K2m vs plain (plain ladder + stencil): stacks max_abs_err K1m {err1m:.3g}, "
+          f"K2m {err2m:.3g} (limit {tol}); mask pixels that differ per octave {n_diff}, all "
+          f"within {tol} of a decision (such pixels per octave {n_near})", flush=True)
+
+    def k1_k8():
+        maskk.extrema_masks([ladder.octave0_ladder(data, pre, incs)[1]], cfg)
+
+    def k2_k8():
+        # K8 takes an octave's edge threshold by its index in the list, so
+        # the first small octave is tested here at octave 0's threshold: the
+        # same work, another threshold
+        maskk.extrema_masks([d for _, d in ladder.small_octaves_ladder(*args2)], cfg)
+
+    ms_k1_k8, ms_k2_k8 = cuda_ms(k1_k8, 20), cuda_ms(k2_k8, 20)
+    print(f"unfused route of the same masks (CUDA events): K1 + K8 on octave 0 {ms_k1_k8:.4f} "
+          f"ms; K2 + K8 on octaves 1-{n_oct - 1} {ms_k2_k8:.4f} ms", flush=True)
+
+    h, w = SHAPE
+    n_lv = len(incs)
+    all_taps = [_taps(float(s), x.device) for s in (pre,) + incs]
+    # K1's and K2's bytes and operations, plus each mask byte written once
+    # and about 70 operations a mask element (as K8's row)
+    rec.record("octave0_ladder_mask", "sift_pyocl_tpu_torch/csrc/ladder.cu",
+               f"{ROOT}/ops/pallas/ladder0.py:256", err1m,
+               lambda: ladder.octave0_ladder_mask(data, pre, incs, mc0),
+               lambda: ladder.octave0_ladder_mask_ref(data, pre, incs, mc0), 20,
+               n_bytes=4 * h * w * (1 + (n_lv + 1) + n_lv) + m0.numel(),
+               ops=2 * 2 * sum(t.numel() for t in all_taps) * h * w + 70 * m0.numel())
+    px = sum(b.shape[1] * b.shape[2] for b, _ in small)
+    mask_px = sum(m.numel() for m in masks[1:])
+    rec.record("small_octaves_ladder_mask", "sift_pyocl_tpu_torch/csrc/ladder.cu",
+               f"{ROOT}/ops/pallas/ladder.py:421", err2m,
+               lambda: ladder.small_octaves_ladder_mask(*args2, mc),
+               lambda: ladder.small_octaves_ladder_mask_ref(*args2, mc), 20,
+               n_bytes=4 * (base.numel() + px * (2 * n_lv + 1)) + mask_px,
+               ops=2 * 2 * sum(t.numel() for t in all_taps[1:]) * px + 70 * mask_px)
+
+
+def check_vo_fused(base: dict, p1: dict) -> dict:
+    """P7: the main path with SiftConfig(mask_backend="fused"), against the
+    default mask's run of check_vo on the same frames, beside P1."""
+    from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_step
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts
+    from sift_pyocl_tpu_torch.ops.kernels.maskk import stencil_mask
+    from sift_pyocl_tpu_torch.utils import profiling
+
+    cfg, vo = SiftConfig(mask_backend="fused"), VOConfig()
+    imgs, K = base["imgs"], base["K"]
+    run_vo(imgs[:3], K, cfg, vo, plain=False)      # warm-up
+    bufs = []
+    stencil_mask.calls = 0
+    state, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False, bufs=bufs)
+    counts = launch_counts()
+    stencil_calls = stencil_mask.calls
+    print(f"P7 (mask_backend='fused') launch counts over {VO_STEPS} vo_step:", counts,
+          f"plain stencil calls (vo_init and the steps): {stencil_calls}", flush=True)
+    check_vo_counts(init_counts, counts, ladders=FUSED_LADDERS)
+    assert stencil_calls == 0, f"the plain stencil ran {stencil_calls} times on the fused path"
+    check_tracked(outs, vo)
+    assert len(bufs) == len(base["bufs"]) == VO_STEPS + 1
+    for i, (a, b) in enumerate(zip(bufs, base["bufs"])):
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f"P7 frame {i}: {f} differs"
+    gap = max(float((outs[-1].R - base["outs"][-1].R).abs().max()),
+              float((outs[-1].t - base["outs"][-1].t).abs().max()))
+    assert gap <= 1e-6, f"P7: final pose {gap} from the default mask's run"
+    rest = iter(imgs[VO_STEPS + 1:])
+    state, stages = profiling.vo_stage_ms(state, [next(rest) for _ in range(3)], K, cfg, vo)
+    box = [state]
+
+    def one():
+        box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
+
+    prof = profiling.device_profile(one, 2)
+    print(f"P7: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
+          f"mask's, final pose {gap:.3g} apart", flush=True)
+    for tag, turn_cfg in (("default", SiftConfig()), ("fused", cfg), ("fused", cfg),
+                          ("default", SiftConfig())):
+        gc.collect()
+        wall, cpu = timed_vo_steps(imgs, K, turn_cfg, vo)
+        print(f"  turn {tag}: warm ms/step {np.mean(wall[1:]):.3f} (range {min(wall[1:]):.3f}-"
+              f"{max(wall[1:]):.3f}), host thread CPU ms/step {np.mean(cpu[1:]):.3f}", flush=True)
+    for tag, run in (("default mask", base), ("K8 mask (P1)", p1),
+                     ("fused mask (P7)", {"step_ms": step_ms, "stages": stages,
+                                          "profile": prof})):
+        ms, dev_prof = run["step_ms"], run["profile"]
+        print(f"  {tag}: ms/step warm mean {np.mean(ms[1:]):.3f} (range {min(ms[1:]):.3f}-"
+              f"{max(ms[1:]):.3f}); stage split "
+              f"{({k: round(v, 3) for k, v in run['stages'].items()})}; device ms/step "
+              f"{dev_prof['kernel_ms_per_frame']:.3f}, launches/step "
+              f"{dev_prof['kernel_launches_per_frame']:.0f}, busy share "
+              f"{dev_prof['busy_share']:.3f}", flush=True)
+    return counts
+
+
+def check_fused_scales2(img, x, dev) -> None:
+    """SiftPlan.keypoints with SiftConfig(mask_backend="fused", scales=2):
+    octave 0 through K9 and the plain stencil (its fused mask entry is
+    None), octaves >= 1 through K2m; its buffer equal to scales=2 without
+    fusion, its keypoints held to its plain=True run."""
+    from sift_pyocl_tpu_torch import SiftConfig, SiftPlan, detect_and_describe
+    from sift_pyocl_tpu_torch.models.sift import to_keypoint_records
+    from sift_pyocl_tpu_torch.ops.kernels.maskk import stencil_mask
+    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
+
+    cfg = SiftConfig(mask_backend="fused", scales=2)
+    plan = SiftPlan(SHAPE, config=cfg, device=dev)
+    stencil_mask.calls = 0
+    kp, frame_ms, counts = plan_frames(plan, img)
+    stencil_calls = stencil_mask.calls
+    print(f"fused scales=2 launch counts over {FRAMES} frames:", counts,
+          f"plain stencil calls (with the warm-up frame): {stencil_calls}", flush=True)
+    for name, n in counts.items():
+        want = {"separable_blur": 5, "small_octaves_ladder_mask": 1}.get(
+            name, 1 if name in VO_KERNELS[2:6] else 0) * FRAMES
+        assert n == want, f"fused scales=2: {name} launched {n} times (want {want})"
+    assert stencil_calls == FRAMES + 1, f"the stencil ran {stencil_calls} times for octave 0"
+    got = plan.keypoints_raw(img)
+    want = SiftPlan(SHAPE, config=SiftConfig(scales=2), device=dev).keypoints_raw(img)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f"fused scales=2: {f} differs"
+    ref = to_keypoint_records(detect_and_describe(x, cfg, plain=True))
+    hits, l1 = match_keypoint_sets(ref, kp)
+    print(f"fused scales=2: {len(kp)} keypoints, buffer equal to scales=2 unfused; plain path "
+          f"{len(ref)}, matched {hits}, desc L1 {l1:.4f}; ms/frame "
+          f"{[round(m, 3) for m in frame_ms]}", flush=True)
+    assert len(kp) >= MIN_KEYPOINTS
+    assert abs(len(kp) - len(ref)) <= max(2, len(ref) // 50)
+    assert hits >= 0.98 * len(ref) and l1 < 0.1
+
+
+# K7f tolerance: |d - d_plain| <= F32_RTOL * (|a|^2 + max_j |b_j|^2), the
+# magnitude the distance is computed from: the kernel sums each dot product
+# over k = 0..127 in order, the plain version's matmul in blocks, each
+# within about 128 f32 roundings of 6e-8 of that magnitude.
+F32_RTOL = 1e-5
+
+
+def check_matcher_f32(bufs, rec: Kernels) -> dict:
+    """P8: K7f (f32 operands) through match_descriptors_dense at the VO map
+    call's shapes: frame 1's 8320 keypoint slots against a 2048-slot map
+    of frame 0 (its valid keypoints first, then invalid slots; no slot
+    twice, so ties are real ones), both as f32.  Scaled by 1/512 the sums
+    stay exact (every partial sum an integer times 2^-18 below 2^24);
+    scaled by 1/255 they round.  Returns the launch counts of the path."""
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, matchk, reset_launch_counts
+    from sift_pyocl_tpu_torch.ops.match import match_descriptors_dense
+
+    f0, f1 = bufs[0], bufs[1]
+    map_ids = torch.sort((~f0.valid).to(torch.uint8), stable=True).indices[:2048]
+    v2 = f0.valid[map_ids].clone()
+    v1 = f1.valid
+    n_valid = int(v1.sum())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for scale in (512.0, 255.0):
+        match_descriptors_dense(f1.desc.float() / scale, v1, f0.desc[map_ids].float() / scale, v2)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print("P8 (f32 match_descriptors_dense, 2 calls) launch counts:", counts, flush=True)
+    for name, n in counts.items():
+        assert n == (2 if name == "best2_l2_f32" else 0), f"P8: {name} launched {n} times"
+    worst = 0.0
+    for scale in (512.0, 255.0):
+        a, b = f1.desc.float() / scale, f0.desc[map_ids].float() / scale
+        got = matchk.best2_l2(a, b, v2, v1)
+        want = matchk.best2_l2_ref(a, b, v2)
+        torch.cuda.synchronize()
+        mag = (a * a).sum(1) + float((b * b).sum(1).max())
+        err = max(float(((g - w).abs() / mag)[v1].max()) for g, w in zip(got[:2], want[:2]))
+        near = (want[1] - want[0]) <= F32_RTOL * mag
+        diff_i = v1 & (got[2] != want[2])
+        assert err <= F32_RTOL, f"K7f (1/{scale:g}) d1/d2 differ by {err} of their magnitude"
+        assert not bool((diff_i & ~near).any()), f"K7f (1/{scale:g}): i1 differs off a near-tie"
+        print(f"best2_l2_f32 (1/{scale:g}, {a.shape[0]} x {b.shape[0]}, {n_valid} valid rows): "
+              f"d1/d2 within {err:.3g} of their magnitude (limit {F32_RTOL:g}); i1 differs "
+              f"on {int(diff_i.sum())} rows, {int((near & v1).sum())} valid rows are near-ties",
+              flush=True)
+        worst = max(worst, err)
+    a, b = f1.desc.float() / 512.0, f0.desc[map_ids].float() / 512.0
+
+    def library():
+        torch.topk(torch.mm(a, b.T), 2, dim=1, largest=False)
+
+    # least work: 2 x 128 f32 operations a (valid row, column) pair at the
+    # f32 rate outside the tensor cores; each input read once
+    rec.record("best2_l2_f32", "sift_pyocl_tpu_torch/csrc/matchk.cu",
+               f"{ROOT}/ops/pallas/matchk.py:113", worst,
+               lambda: matchk.best2_l2(a, b, v2, v1), lambda: matchk.best2_l2_ref(a, b, v2), 50,
+               n_bytes=4 * (a.numel() + b.numel()) + v1.numel() + v2.numel() + 12 * a.shape[0],
+               ops=2 * 128 * n_valid * b.shape[0], library=library)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)",
@@ -1031,21 +1354,29 @@ def main() -> int:
     p4 = check_scales2(img, x, dev)
     p5 = check_split_windows(x, rec)
     check_plain_keypoints(img, dev)
+    check_fused_masks(x, rec)
+    p7 = check_vo_fused(base, p1)
+    check_fused_scales2(img, x, dev)
+    p8 = check_matcher_f32(base["bufs"], rec)
 
     # each kernel's launches on its path: the main path (10 vo_step) for
     # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b, P4
-    # (FRAMES frames) for K9, P5 (one frame) for K11a/K11b
-    counts = {**base["counts"], "extrema_masks": p1["extrema_masks"],
+    # (FRAMES frames) for K9, P5 (one frame) for K11a/K11b, P7 (10 vo_step)
+    # for K1m/K2m, P8 (two f32 matches) for K7f
+    counts = {**base["counts"], "extrema_masks": p1["counts"]["extrema_masks"],
               "compact_mask": p2["compact_mask"], "refine_octave": p2["refine_octave"],
               "separable_blur": p4["separable_blur"],
               "orientation_hist": p5["orientation_hist"],
-              "descriptor_hist": p5["descriptor_hist"]}
+              "descriptor_hist": p5["descriptor_hist"],
+              "octave0_ladder_mask": p7["octave0_ladder_mask"],
+              "small_octaves_ladder_mask": p7["small_octaves_ladder_mask"],
+              "best2_l2_f32": p8["best2_l2_f32"]}
     kernels = []
     for name, row in rec.rows.items():
         row["launches"] = counts[name]
         assert row["launches"] > 0, f"{name} was not launched on its path"
         kernels.append(row)
-    assert len(kernels) == 13, f"{len(kernels)} kernel records"
+    assert len(kernels) == 16, f"{len(kernels)} kernel records"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,42 @@
 // value in the kernel's parameter block.
 #define SIFT_MAX_OCT 32
 
+// The strong DoG extremum test of oracle.local_maxmin, shared by K8
+// (maskk.cu) and the in-ladder masks of K1/K2 (ladder.cu), so that both run
+// one arithmetic.  n[p][y][x] holds DoG planes s-1..s+1, rows r-1..r+1 and
+// columns c-1..c+1 around the tested value v = n[1][1][1].  True iff |v| >
+// strong_thresh (0.8 peak_thresh), v is strictly greater (or strictly
+// smaller) than all 26 neighbours, and the 2x2 spatial Hessian of plane s
+// passes det > 0 and det >= (eth*tr)*tr.  Every sum follows the plain
+// PyTorch stencil (ops/kernels/maskk.py) operation by operation; the library
+// is built with --fmad=false, so the two agree bit for bit.
+__device__ __forceinline__ bool sift_is_extremum(const float (&n)[3][3][3],
+                                                 float strong_thresh, float eth) {
+  const float v = n[1][1][1];
+  bool is_max = true, is_min = true;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int y = 0; y < 3; ++y) {
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+        if (p == 1 && y == 1 && x == 1) continue;
+        is_max = is_max && v > n[p][y][x];
+        is_min = is_min && v < n[p][y][x];
+      }
+    }
+  }
+  const bool strong = fabsf(v) > strong_thresh;
+  const float (&m)[3][3] = n[1];
+  const float hxx = (m[1][0] + m[1][2]) - 2.0f * v;
+  const float hyy = (m[0][1] + m[2][1]) - 2.0f * v;
+  const float hxy = 0.25f * (((m[2][2] - m[2][0]) - m[0][2]) + m[0][0]);
+  const float det = hxx * hyy - hxy * hxy;
+  const float tr = hxx + hyy;
+  const bool not_edge = det > 0.0f && det >= (eth * tr) * tr;
+  return strong && (is_max || is_min) && not_edge;
+}
+
 // Exclusive prefix sum of `v` over the block; *total receives the block's
 // sum.  blockDim.x must be a multiple of 32 and at most 1024, and every
 // thread of the block must call it (it synchronises).

@@ -6,10 +6,11 @@
 // v is strictly greater (or strictly smaller) than all 26 neighbours in
 // planes s-1..s+1, and the 2x2 spatial Hessian passes det > 0 and
 // det >= (eth*tr)*tr.  Octave o's border-stripped (S-2, H-2bd, W-2bd) mask
-// is written as uint8 0/1 at out + outoff[o].  The arithmetic follows the
-// plain PyTorch stencil (ops/kernels/maskk.py::extrema_mask) operation by
-// operation, and the library is built with --fmad=false, so the masks are
-// equal bit for bit.
+// is written as uint8 0/1 at out + outoff[o].  The per-pixel test is
+// common.cuh's sift_is_extremum, which the in-ladder masks of K1/K2
+// (ladder.cu) run too; it follows the plain PyTorch stencil
+// (ops/kernels/maskk.py::extrema_mask) operation by operation, and the
+// library is built with --fmad=false, so the masks are equal bit for bit.
 //
 // What bounds it on the card: bytes.  Every DoG value is read once (about
 // 55 MB at 1080x1920 over 7 octaves) and every mask byte written once
@@ -83,33 +84,18 @@ __global__ void __launch_bounds__(NT) mask_kernel(MaskMeta m, int S, int bd,
     for (int y = threadIdx.x / TW + 1; y <= TH; y += ROW_STEP) {
       const int i = i0 + y - 1;
       if (i >= Hm || j >= Wm) continue;
-      const float v = mid[y][x];
-      bool is_max = true, is_min = true;
+      float n[3][3][3];
 #pragma unroll
-      for (int dy = -1; dy <= 1; ++dy) {
+      for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
-        for (int dx = -1; dx <= 1; ++dx) {
-          const float a = lo[y + dy][x + dx];
-          const float c = hi[y + dy][x + dx];
-          is_max = is_max && v > a && v > c;
-          is_min = is_min && v < a && v < c;
-          if (dy != 0 || dx != 0) {
-            const float b = mid[y + dy][x + dx];
-            is_max = is_max && v > b;
-            is_min = is_min && v < b;
-          }
+        for (int dx = 0; dx < 3; ++dx) {
+          n[0][dy][dx] = lo[y + dy - 1][x + dx - 1];
+          n[1][dy][dx] = mid[y + dy - 1][x + dx - 1];
+          n[2][dy][dx] = hi[y + dy - 1][x + dx - 1];
         }
       }
-      const bool strong = fabsf(v) > strong_thresh;
-      const float hxx = (mid[y][x - 1] + mid[y][x + 1]) - 2.0f * v;
-      const float hyy = (mid[y - 1][x] + mid[y + 1][x]) - 2.0f * v;
-      const float hxy = 0.25f * (((mid[y + 1][x + 1] - mid[y + 1][x - 1]) - mid[y - 1][x + 1])
-                                 + mid[y - 1][x - 1]);
-      const float det = hxx * hyy - hxy * hxy;
-      const float tr = hxx + hyy;
-      const bool not_edge = det > 0.0f && det >= (eth * tr) * tr;
       mo[(static_cast<long long>(p) * Hm + i) * Wm + j] =
-          (strong && (is_max || is_min) && not_edge) ? 1 : 0;
+          sift_is_extremum(n, strong_thresh, eth) ? 1 : 0;
     }
     __syncthreads();  // every thread is done with slot p % 3
     if (p + 3 < S) {

@@ -30,6 +30,20 @@
 // which keeps "second excludes only the argmin column" exact.  With few
 // query rows (the VO step's 256 spawn rows) the grid is small: every block
 // walks all of desc2.
+//
+// K7f, the f32-operand form of the same TPU kernel (matchk.py:73-78,
+// 136-141): the same function with f32 descriptors (or mixed u8/f32, which
+// the wrapper casts to f32, as the JAX wrapper does), distances
+// max((|a|^2 + |b|^2) - 2 a.b, 0) in f32.  Plain CUDA-core f32, no tensor
+// cores (so no TF32), each sum over k = 0..127 in ascending order with one
+// rounding per operation: the results differ from the plain version's
+// matmul only by its summation order.  Bound by f32 operations (2 x 128 a
+// pair: 0.01 ms for 1390 valid rows x 2048 columns at 67 TFLOP/s).  Design
+// as the u8 kernel: 8 query rows a block, one a warp, skipped when valid1
+// is false; the rows sit in shared memory and every lane reads the same
+// word (a broadcast); desc2 is staged in tiles of CTF columns with a
+// 129-float row pitch, so lane l reads bank (l + k) % 32; lane l takes
+// columns l and l + 32 of each tile, and the lanes merge as above.
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -132,6 +146,84 @@ best2_l2_kernel(const unsigned* __restrict__ d1w, const unsigned* __restrict__ d
   }
 }
 
+constexpr int CTF = 64;     // desc2 columns per f32 tile
+constexpr int DIM = 128;
+constexpr int LDF = DIM + 1;
+
+__global__ void __launch_bounds__(ROWS * 32)
+best2_l2_f32_kernel(const float* __restrict__ d1f, const float* __restrict__ d2f,
+                    const unsigned char* __restrict__ valid1,
+                    const unsigned char* __restrict__ valid2, int n1, int n2,
+                    float* __restrict__ out_d1, float* __restrict__ out_d2,
+                    int* __restrict__ out_i1) {
+  __shared__ float tile[CTF * LDF];
+  __shared__ float arow[ROWS][DIM];
+  __shared__ float tnorm[CTF];
+  __shared__ int any_active;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * ROWS + warp;
+  const bool active = row < n1 && (valid1 == nullptr || valid1[row] != 0);
+  if (threadIdx.x == 0) any_active = 0;
+  __syncthreads();
+  if (active && lane == 0) any_active = 1;
+  __syncthreads();
+  if (!active) {
+    if (row < n1 && lane == 0) {
+      out_d1[row] = 0.0f;
+      out_d2[row] = 0.0f;
+      out_i1[row] = 0;
+    }
+    if (!any_active) return;
+  }
+  for (int k = lane; k < DIM; k += 32)
+    arow[warp][k] = active ? __ldg(d1f + static_cast<size_t>(row) * DIM + k) : 0.0f;
+  __syncwarp();
+  float na = 0.0f;
+  for (int k = 0; k < DIM; ++k) na += arow[warp][k] * arow[warp][k];
+  Best2 st = {CUDART_INF_F, 0x7fffffff, CUDART_INF_F};
+  for (int t0 = 0; t0 < n2; t0 += CTF) {
+    const int nt = min(CTF, n2 - t0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nt * DIM; i += ROWS * 32) {
+      const int col = i / DIM, k = i % DIM;
+      tile[col * LDF + k] = __ldg(d2f + static_cast<size_t>(t0 + col) * DIM + k);
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < nt; col += ROWS * 32) {
+      const float* b = tile + col * LDF;
+      float nb = 0.0f;
+      for (int k = 0; k < DIM; ++k) nb += b[k] * b[k];
+      tnorm[col] = valid2[t0 + col] ? nb : -1.0f;
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int col = lane; col < nt; col += 32) {
+      const float* b = tile + col * LDF;
+      const float* a = arow[warp];
+      float ab = 0.0f;
+#pragma unroll 8
+      for (int k = 0; k < DIM; ++k) ab += a[k] * b[k];
+      const float nb = tnorm[col];
+      const float v = nb < 0.0f ? CUDART_INF_F : fmaxf((na + nb) - 2.0f * ab, 0.0f);
+      merge(st, v, t0 + col, CUDART_INF_F);
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, st.best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, st.idx, off);
+    const float os = __shfl_xor_sync(0xffffffffu, st.second, off);
+    merge(st, ob, oi, os);
+  }
+  if (lane == 0) {
+    out_d1[row] = st.best;
+    out_d2[row] = st.second;
+    out_i1[row] = st.idx;
+  }
+}
+
 }  // namespace
 
 // desc1: (n1, 128) u8, desc2: (n2, 128) u8, both 16-byte aligned rows;
@@ -144,6 +236,21 @@ extern "C" int sift_best2_l2(const void* desc1, const void* desc2, const void* v
   if (n1 == 0) return cudaSuccess;
   best2_l2_kernel<<<(n1 + ROWS - 1) / ROWS, ROWS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(desc1), static_cast<const unsigned*>(desc2),
+      static_cast<const unsigned char*>(valid1), static_cast<const unsigned char*>(valid2), n1,
+      n2, static_cast<float*>(d1), static_cast<float*>(d2), static_cast<int*>(i1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7f.  desc1: (n1, 128) f32, desc2: (n2, 128) f32, contiguous; the rest as
+// sift_best2_l2.
+extern "C" int sift_best2_l2_f32(const void* desc1, const void* desc2, const void* valid1,
+                                 const void* valid2, int n1, int n2, void* d1, void* d2,
+                                 void* i1, void* stream) {
+  if (n1 < 0 || n2 < 1) return cudaErrorInvalidValue;
+  if (n1 == 0) return cudaSuccess;
+  best2_l2_f32_kernel<<<(n1 + ROWS - 1) / ROWS, ROWS * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(desc1), static_cast<const float*>(desc2),
       static_cast<const unsigned char*>(valid1), static_cast<const unsigned char*>(valid2), n1,
       n2, static_cast<float*>(d1), static_cast<float*>(d2), static_cast<int*>(i1));
   return static_cast<int>(cudaGetLastError());

@@ -7,8 +7,9 @@ per-level route, or plain PyTorch with ``conv_backend="xla"``), then by
 
 * ``"pallas"`` / ``"auto"``, the kernel path, by ``kp_multi_launch``:
   ``True`` (``_describe_octaves_multi``, the JAX package's
-  ``_describe_octaves_pallas``): the extrema masks (plain stencil, or K8
-  with ``mask_backend="pallas"``) and one launch each over all octaves of
+  ``_describe_octaves_pallas``): the extrema masks (plain stencil, K8
+  with ``mask_backend="pallas"``, or with ``"fused"`` those of the ladder
+  kernels' mask forms K1m/K2m) and one launch each over all octaves of
   K3 compaction, K4 refinement, K5 gradient atlas and K6 orientation +
   descriptor (two K6 launches split by sigma with ``desc_buckets >= 2``);
   ``False`` (``_describe_octaves_per_octave``): per octave, the plain
@@ -44,7 +45,7 @@ from ..ops.kernels.window import orient_desc_fused, orient_desc_fused_ref, slot_
 from ..ops.orient_desc import (_desc_window_for_sigma, _desc_window_size,
                                assign_orientations, compute_descriptors, gradient_planes,
                                orient_and_describe_fused, quantize_descriptors)
-from ..ops.pyramid import FUSED_MASK_TODO, build_scale_space, resolve_conv_backend
+from ..ops.pyramid import build_scale_space_and_masks, resolve_conv_backend
 
 logger = logging.getLogger(__name__)
 
@@ -79,37 +80,37 @@ def octave_capacities(shape: Tuple[int, int], cfg: SiftConfig) -> List[Tuple[int
 
 
 def _check_kp_path(cfg: SiftConfig) -> None:
-    """Raise for keypoint-stage settings that are unknown or not ported yet."""
+    """Raise for keypoint-stage settings that are unknown."""
     if cfg.kp_backend not in ("pallas", "auto", "xla"):
         raise ValueError(f"unknown kp_backend {cfg.kp_backend!r}")
     if cfg.grad_backend not in ("pallas", "xla"):
         raise ValueError(f"unknown grad_backend {cfg.grad_backend!r}")
-    if cfg.mask_backend == "fused":
-        raise NotImplementedError(FUSED_MASK_TODO)
-    if cfg.mask_backend not in ("xla", "pallas"):
+    if cfg.mask_backend not in ("xla", "pallas", "fused"):
         raise ValueError(f"unknown mask_backend {cfg.mask_backend!r}")
 
 
 def detect_and_describe(img: torch.Tensor, cfg: SiftConfig, plain: bool = False) -> KeypointBuffer:
     """The full forward pass on the device of `img`.  ``plain=True`` runs
     each kernel's plain PyTorch version instead (parity runs on the card)."""
-    octaves = build_scale_space(img, cfg, plain=plain)
-    return describe_octaves(octaves, tuple(img.shape[:2]), cfg, plain=plain)
+    octaves, masks = build_scale_space_and_masks(img, cfg, plain=plain)
+    return describe_octaves(octaves, tuple(img.shape[:2]), cfg, plain=plain, masks=masks)
 
 
 def describe_octaves(octaves, shape: Tuple[int, int], cfg: SiftConfig,
-                     plain: bool = False) -> KeypointBuffer:
+                     plain: bool = False, masks=None) -> KeypointBuffer:
     """Detection + orientation + descriptors over a prebuilt scale space,
     by ``cfg.kp_backend`` and ``cfg.kp_multi_launch``.  On the kernel paths
     duplicate orientation slots are keypoint-major (slot i*max_ori + o),
     octave after octave; on the XLA path each octave's oriented keypoints
-    are compacted to its descriptor capacity."""
+    are compacted to its descriptor capacity.  `masks`: the fused in-ladder
+    extrema masks (``build_scale_space_and_masks``), which only the
+    multi-launch kernel path takes, as in the JAX package."""
     _check_kp_path(cfg)
     if cfg.kp_backend == "xla":
         return _describe_octaves_xla(octaves, octave_capacities(shape, cfg), cfg)
     caps = [c for c, _ in octave_capacities(shape, cfg)]
     if cfg.kp_multi_launch:
-        return _describe_octaves_multi(octaves, caps, cfg, plain)
+        return _describe_octaves_multi(octaves, caps, cfg, plain, masks)
     return _describe_octaves_per_octave(octaves, caps, cfg, plain)
 
 
@@ -129,13 +130,13 @@ def _desc_buckets(cfg: SiftConfig):
 
 
 def _describe_octaves_multi(octaves, caps: List[int], cfg: SiftConfig,
-                            plain: bool) -> KeypointBuffer:
+                            plain: bool, masks=None) -> KeypointBuffer:
     """One compaction, one refinement, one gradient atlas and one fused
     orientation+descriptor launch (two with ``desc_buckets``) over every
-    octave."""
+    octave; the extrema masks are `masks` where given (fused)."""
     max_ori = cfg.max_ori
     blurs = [b for b, _ in octaves]
-    detected = detect_all_octaves([d for _, d in octaves], cfg, caps, plain=plain)
+    detected = detect_all_octaves([d for _, d in octaves], cfg, caps, plain=plain, masks=masks)
     atlas = grad_atlas_ref if (plain or cfg.grad_backend == "xla") else grad_atlas
     mag_a, ori_a, row_starts = atlas(blurs, cfg.scales)
 

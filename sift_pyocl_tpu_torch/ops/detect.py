@@ -2,8 +2,10 @@
 
 Port of ``sift_pyocl_tpu/ops/detect.py``.  ``detect_all_octaves`` (the
 multi-launch path) takes the extrema masks of every octave from the plain
-stencil (``mask_backend="xla"``) or from one launch of K8 (``"pallas"``),
-then ONE compaction (K3) and ONE refinement (K4) over every octave.
+stencil (``mask_backend="xla"``), from one launch of K8 (``"pallas"``) or
+from the ladder kernels' mask forms K1m/K2m (``"fused"``, handed in by
+the caller), then ONE compaction (K3) and ONE refinement (K4) over every
+octave.
 ``detect_octave_pallas`` (the per-octave path of ``kp_multi_launch=False``)
 runs one octave through the plain stencil, K10a and K10b.
 ``detect_octave`` is the plain path of ``kp_backend="xla"``: the stencil,
@@ -13,7 +15,7 @@ arithmetic.  The kernels live in ``ops/kernels/``.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,7 +26,6 @@ from .kernels.compact import (compact_mask, compact_mask_ref, compact_masks_mult
 from .kernels.maskk import (extrema_mask, extrema_masks, extrema_masks_ref,  # noqa: F401
                             octave_edge_thresh)
 from .kernels.refine import refine_multi, refine_multi_ref, refine_octave, refine_octave_ref
-from .pyramid import FUSED_MASK_TODO
 
 
 class Candidates(NamedTuple):
@@ -52,13 +53,13 @@ def octave_masks(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
                  plain: bool = False) -> List[torch.Tensor]:
     """Every octave's extrema mask by ``cfg.mask_backend``: the plain
     stencil for "xla", K8 for "pallas" (its plain version with
-    ``plain=True``).  "fused" (the in-ladder masks of K1/K2) raises."""
-    if cfg.mask_backend == "xla":
+    ``plain=True``).  For "fused" the masks come from the ladders
+    (``detect_all_octaves(masks=...)``); without them "fused" is the
+    stencil, as in the JAX package where its ladder kernels did not run."""
+    if cfg.mask_backend in ("xla", "fused"):
         return extrema_masks_ref(octave_dogs, cfg)
     if cfg.mask_backend == "pallas":
         return (extrema_masks_ref if plain else extrema_masks)(octave_dogs, cfg)
-    if cfg.mask_backend == "fused":
-        raise NotImplementedError(FUSED_MASK_TODO)
     raise ValueError(f"unknown mask_backend {cfg.mask_backend!r}")
 
 
@@ -88,17 +89,23 @@ def decode_compacted(octave_dogs: Sequence[torch.Tensor], masks: Sequence[torch.
 
 
 def detect_all_octaves(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
-                       caps: Sequence[int],
-                       plain: bool = False) -> List[Tuple[RefinedKeypoints, torch.Tensor]]:
-    """Detection for all octaves: extrema masks (``octave_masks``), then ONE
-    compaction (K3) and ONE refinement (K4) over every octave.
-    ``plain=True`` runs the kernels' plain PyTorch versions instead (parity
-    runs on the card).  Returns a list of (RefinedKeypoints, true extrema
-    count) per octave."""
+                       caps: Sequence[int], plain: bool = False,
+                       masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+                       ) -> List[Tuple[RefinedKeypoints, torch.Tensor]]:
+    """Detection for all octaves: extrema masks (``octave_masks``, or the
+    fused in-ladder `masks` of ``build_scale_space_and_masks``, whose None
+    entries take the stencil), then ONE compaction (K3) and ONE refinement
+    (K4) over every octave.  ``plain=True`` runs the kernels' plain PyTorch
+    versions instead (parity runs on the card).  Returns a list of
+    (RefinedKeypoints, true extrema count) per octave."""
     compact = compact_masks_multi_ref if plain else compact_masks_multi
     refine = refine_multi_ref if plain else refine_multi
     bd = cfg.border_dist
-    masks = octave_masks(octave_dogs, cfg, plain=plain)
+    if masks is None:
+        masks = octave_masks(octave_dogs, cfg, plain=plain)
+    else:
+        masks = [m if m is not None else extrema_mask(d, cfg, o)
+                 for o, (m, d) in enumerate(zip(masks, octave_dogs))]
     idx_all, written, total = compact(masks, list(caps))
     s, r, c, valid = decode_compacted(octave_dogs, masks, caps, idx_all, written, bd)
     fs, fr, fc, peak, acc = refine(octave_dogs, s, r, c, valid, caps, bd,

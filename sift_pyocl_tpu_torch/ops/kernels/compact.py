@@ -6,7 +6,9 @@ mask, here ``compact_mask``); both launch the kernels of
 ``csrc/compact.cu``.  Octave o's set mask elements come out as flat
 row-major indices in exactly ``np.nonzero`` order, at most
 ``MAX_PER_TILE`` per ``TILE``-element tile (the rest are dropped but still
-counted in ``total``), cut at ``caps[o]``.
+counted in ``total``), cut at ``caps[o]``.  K3's ``extract_mode`` ("sum" or
+"rowmm") chooses how the TPU kernel pulls a tile's indices out of VMEM;
+both give this one result, which the port's kernel computes for either.
 """
 
 from __future__ import annotations
@@ -65,13 +67,20 @@ def _launch(masks: Sequence[torch.Tensor], caps: Sequence[int]
     return idx, written, total
 
 
-def compact_masks_multi(masks: Sequence[torch.Tensor], caps: Sequence[int]
+EXTRACT_MODES = ("sum", "rowmm")
+
+
+def compact_masks_multi(masks: Sequence[torch.Tensor], caps: Sequence[int],
+                        extract_mode: str = "sum"
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3: compact every octave's mask (any shapes, flattened row-major).
+    ``extract_mode`` takes the TPU kernel's values, each the same function.
 
     Returns (idx (sum(caps),) int32 -- octave o's indices at
     [sum(caps[:o]), sum(caps[:o]) + written[o]), zeros after --,
     written (n_oct,) int32, total (n_oct,) int32)."""
+    if extract_mode not in EXTRACT_MODES:
+        raise ValueError(f"extract_mode must be one of {EXTRACT_MODES}, got {extract_mode!r}")
     _check_masks(masks, caps)
     if not on_cuda(masks[0]):
         return compact_masks_multi_ref(masks, caps)

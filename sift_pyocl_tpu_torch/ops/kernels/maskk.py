@@ -8,7 +8,9 @@ border-stripped masks straight into one allocation, each octave's part
 16-byte aligned, which K3 (``compact.py``) takes as it is.
 
 The plain version is the stencil of ``sift_pyocl_tpu/ops/detect.py``
-(``extrema_mask``), which ``mask_backend="xla"`` runs on any device.
+(``extrema_mask``, at explicit thresholds ``stencil_mask``), which
+``mask_backend="xla"`` runs on any device, and which the in-ladder masks of
+K1/K2 (``ladder.py``) equal bit for bit.
 """
 
 from __future__ import annotations
@@ -33,11 +35,18 @@ def extrema_mask(dogs: torch.Tensor, cfg: SiftConfig, octave: int) -> torch.Tens
     """Bool mask (scales, H-2bd, W-2bd) of extrema candidates: strict
     26-neighbour max or min, |v| > 0.8 peak_thresh, 2x2 spatial-Hessian edge
     test, border excluded (the "stencil" semantics of the JAX package)."""
+    return stencil_mask(dogs, cfg.peak_thresh, octave_edge_thresh(cfg, octave),
+                        cfg.border_dist)
+
+
+def stencil_mask(dogs: torch.Tensor, peak_thresh: float, eth: float, bd: int) -> torch.Tensor:
+    """The plain stencil of ``extrema_mask`` at explicit thresholds (the
+    mask_cfg form of the ladder kernels' plain versions).  Counts its calls
+    in ``stencil_mask.calls``, so that a run can show it never ran."""
+    stencil_mask.calls += 1
     S, H, W = dogs.shape
-    bd = cfg.border_dist
-    eth = octave_edge_thresh(cfg, octave)
     v = dogs[1 : S - 1, bd : H - bd, bd : W - bd]
-    strong = v.abs() > 0.8 * cfg.peak_thresh
+    strong = v.abs() > 0.8 * peak_thresh
     is_max = torch.ones_like(strong)
     is_min = torch.ones_like(strong)
     for ds in (-1, 0, 1):
@@ -63,6 +72,9 @@ def extrema_mask(dogs: torch.Tensor, cfg: SiftConfig, octave: int) -> torch.Tens
     tr = hxx + hyy
     not_edge = (det > 0) & (det >= eth * tr * tr)
     return cand & not_edge
+
+
+stencil_mask.calls = 0
 
 
 def _check(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> None:

@@ -70,16 +70,24 @@ def _check(mag, ori, arrays, win, max_ori) -> None:
         raise ValueError(f"need 1 <= max_ori <= {MAX_ORI} and win >= 1")
 
 
+REDUCE_MODES = ("scalar", "colsum")
+
+
 def orient_desc_fused(mag: torch.Tensor, ori: torch.Tensor, s_int: torch.Tensor,
                       fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor,
                       valid: torch.Tensor, win: int, max_ori: int,
                       row_off: torch.Tensor, oct_h: torch.Tensor,
-                      oct_w: torch.Tensor) -> Fused:
+                      oct_w: torch.Tensor, reduce_mode: str = "scalar") -> Fused:
     """Orientations and raw descriptors of every keypoint slot in one launch.
 
     fr/fc are octave-local.  Returns (angles (cap, max_ori) f32,
     ok (cap, max_ori) bool, desc_raw (cap, max_ori, 128) f32); slot (i, o)
-    is keypoint i's o-th orientation, zeros where not ok."""
+    is keypoint i's o-th orientation, zeros where not ok.  ``reduce_mode``
+    ("scalar" or "colsum") chooses how the TPU kernel sums a window's bins;
+    both compute this function, which the one kernel here computes for
+    either."""
+    if reduce_mode not in REDUCE_MODES:
+        raise ValueError(f"reduce_mode must be one of {REDUCE_MODES}, got {reduce_mode!r}")
     _check(mag, ori, (s_int, fr, fc, sigma, valid, row_off, oct_h, oct_w), win, max_ori)
     if not on_cuda(mag):
         return orient_desc_fused_ref(mag, ori, s_int, fr, fc, sigma, valid, win,

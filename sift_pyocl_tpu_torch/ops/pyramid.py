@@ -22,10 +22,6 @@ import torch.nn.functional as F
 from ..config import SiftConfig
 from ..oracle import gaussian_kernel
 
-FUSED_MASK_TODO = ("mask_backend='fused' needs the in-ladder extrema mask of K1/K2 "
-                   "(ROADMAP.md, Queue 2: the mask_cfg variants), which is not "
-                   "ported yet; use mask_backend='xla' or 'pallas'")
-
 Ladder = Tuple[torch.Tensor, torch.Tensor]
 
 # The JAX package's strip-ladder margins (ops/pallas/ladder0.py:42-44): row
@@ -40,10 +36,7 @@ def resolve_conv_backend(cfg: SiftConfig) -> str:
     PyTorch on any device) for "xla"."""
     if cfg.conv_backend not in ("xla", "auto", "pallas"):
         raise ValueError(f"unknown conv_backend {cfg.conv_backend!r}")
-    backend = "xla" if cfg.conv_backend == "xla" else "pallas"
-    if backend == "pallas" and cfg.mask_backend == "fused":
-        raise NotImplementedError(FUSED_MASK_TODO)
-    return backend
+    return "xla" if cfg.conv_backend == "xla" else "pallas"
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
@@ -203,23 +196,50 @@ def build_scale_space(img: torch.Tensor, cfg: SiftConfig,
     pre-blurred input, else level by level through K9; the other octaves
     through one call of K2; or their plain versions for
     ``conv_backend="xla"`` or ``plain=True``."""
-    backend = resolve_conv_backend(cfg)
-    if plain:
-        backend = "xla"
+    return build_scale_space_and_masks(img, cfg, plain)[0]
+
+
+def build_scale_space_and_masks(img: torch.Tensor, cfg: SiftConfig, plain: bool = False
+                                ) -> Tuple[List[Ladder], Optional[List[Optional[torch.Tensor]]]]:
+    """``build_scale_space``'s octaves and, for ``mask_backend="fused"``
+    where the ladder kernels run, their in-ladder extrema masks (port of
+    ``build_scale_space_and_masks_jax``).  Returns (octaves, masks): masks
+    is None unless the masks were fused, else one border-stripped (S,
+    H-2bd, W-2bd) bool mask per octave from K1m / K2m, equal to the
+    stencil's; octave 0's entry is None where it went level by level
+    through K9 (the caller takes the stencil there)."""
+    backend = "xla" if plain else resolve_conv_backend(cfg)
+    fuse = cfg.mask_backend == "fused" and backend == "pallas"
     n_oct = cfg.n_octaves(tuple(img.shape[:2]))
     pre = pre_blur_sigma(cfg)
     incs = cfg.sigma_increments()
+    bd = cfg.border_dist
     if backend == "pallas":
         # imported here, as the JAX package imports its Pallas ladders: the
-        # kernel module takes its plain versions from this one
+        # kernel modules take their plain versions from this one
         from .kernels.ladder import octave0_ladder, small_octaves_ladder as k2
+        from .kernels.maskk import octave_edge_thresh
     else:
         k2 = small_octaves_ladder_ref
+    masks: List[Optional[torch.Tensor]] = [None]
     if backend == "pallas" and pre is not None and octave0_ladder_supported(pre, incs):
-        octaves = [octave0_ladder(normalized_input(img, cfg), pre, incs)]
+        if fuse:
+            blurs, dogs, mask = octave0_ladder(
+                normalized_input(img, cfg), pre, incs,
+                mask_cfg=(cfg.peak_thresh, octave_edge_thresh(cfg, 0), bd))
+            octaves, masks = [(blurs, dogs)], [mask]
+        else:
+            octaves = [octave0_ladder(normalized_input(img, cfg), pre, incs)]
     else:
         octaves = [build_octave(prepare_input(img, cfg, backend), incs, backend)]
     if n_oct > 1:
-        octaves += k2(downsample_octave(octaves[0][0][cfg.scales], cfg.downsample_mode),
-                      incs, n_oct - 1, cfg.scales, cfg.downsample_mode)
-    return octaves
+        base = downsample_octave(octaves[0][0][cfg.scales], cfg.downsample_mode)
+        if fuse:
+            eths = tuple(octave_edge_thresh(cfg, o) for o in range(1, n_oct))
+            for blurs, dogs, mask in k2(base, incs, n_oct - 1, cfg.scales, cfg.downsample_mode,
+                                        mask_cfg=(cfg.peak_thresh, eths, bd)):
+                octaves.append((blurs, dogs))
+                masks.append(mask)
+        else:
+            octaves += k2(base, incs, n_oct - 1, cfg.scales, cfg.downsample_mode)
+    return octaves, (masks if fuse else None)

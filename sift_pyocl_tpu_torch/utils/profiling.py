@@ -4,9 +4,11 @@
 
 prints one JSON object:
   * ``stage_ms``: host-clock time of each stage of the frontend
-    (``SLICE_CONFIG``; and ``stage_ms_mask_pallas``, the same with
+    (``SLICE_CONFIG``; ``stage_ms_mask_pallas``, the same with
     ``mask_backend="pallas"``, whose mask stage is "K8 extrema_masks" in
-    place of the plain "extrema_mask"), from the upload of the host frame
+    place of the plain "extrema_mask"; and ``stage_ms_mask_fused``,
+    ``SiftConfig(mask_backend="fused")``, whose pyramid stage runs K1m/K2m
+    and so holds the mask, and whose mask stage reads 0), from the upload of the host frame
     on, run one after another with a device synchronisation after each (so
     each figure includes the stage's own launch overhead; the frame's
     remainder is output assembly and the copy back to the host);
@@ -15,7 +17,8 @@ prints one JSON object:
     time, the device's busy share of the wall time, the number of kernel
     launches per frame and the kernels that take the most time;
   * ``vo``: the VO step at the default ``VOConfig``, under
-    ``mask_backend`` "xla" (the default ``SiftConfig``) and "pallas" (K8):
+    ``mask_backend`` "xla" (the default ``SiftConfig``), "pallas" (K8) and
+    "fused" (K1m/K2m):
     ``vo_stage_ms`` (CUDA events at each stage boundary of ``vo_step``:
     frontend, match, pnp, roll_spawn, ba -- device time from one boundary
     to the next, so a stage's figure includes any wait of the device on the
@@ -43,7 +46,7 @@ from ..ops.kernels import compact_masks_multi, grad_atlas, orient_desc_fused, re
 from ..ops.kernels.maskk import extrema_masks, extrema_masks_ref
 from ..ops.kernels.window import slot_octave_geometry
 from ..ops.orient_desc import _desc_window_size, quantize_descriptors
-from ..ops.pyramid import build_scale_space
+from ..ops.pyramid import build_scale_space_and_masks
 from .testimage import synthetic_scene
 
 
@@ -60,10 +63,15 @@ def _stage_frame(host_img, cfg: SiftConfig, caps, dev, t: dict) -> None:
     """One frame, stage by stage; every tensor dies when it returns, as in
     a plan's frame."""
     img = _timed(lambda: torch.from_numpy(host_img).to(dev), t, "upload")
-    octaves = _timed(lambda: build_scale_space(img, cfg), t, "pyramid")
+    octaves, fused = _timed(lambda: build_scale_space_and_masks(img, cfg), t, "pyramid")
     dogs = [d for _, d in octaves]
     blurs = [b for b, _ in octaves]
-    if cfg.mask_backend == "pallas":
+    if fused is not None:
+        # the ladders' mask forms made the masks inside the pyramid stage
+        # (an octave 0 that went through K9 takes the stencil here)
+        masks = _timed(lambda: [m if m is not None else extrema_masks_ref([d], cfg)[0]
+                                for m, d in zip(fused, dogs)], t, "fused mask")
+    elif cfg.mask_backend == "pallas":
         masks = _timed(lambda: extrema_masks(dogs, cfg), t, "K8 extrema_masks")
     else:
         masks = _timed(lambda: extrema_masks_ref(dogs, cfg), t, "extrema_mask")
@@ -162,7 +170,7 @@ def vo_frames(shape, n: int, step_px: int = 2):
 
 def vo_report(shape, frames: int, dev: torch.device) -> dict:
     """The VO step at the default ``VOConfig`` on `frames` + 4 frames, under
-    each mask backend: {"xla": ..., "pallas": ...}."""
+    each mask backend: {"xla": ..., "pallas": ..., "fused": ...}."""
     from ..models.vo import VOConfig, vo_init, vo_step
 
     vo = VOConfig()
@@ -171,7 +179,7 @@ def vo_report(shape, frames: int, dev: torch.device) -> dict:
     host = vo_frames(shape, 2 * frames + 4)
     imgs = [torch.from_numpy(f).to(dev) for f in host]
     report = {}
-    for mask_backend in ("xla", "pallas"):
+    for mask_backend in ("xla", "pallas", "fused"):
         cfg = SiftConfig(mask_backend=mask_backend)
         state = vo_init(imgs[0], K, cfg, vo)
         state, _ = vo_step(state, imgs[1], K, cfg, vo)
@@ -218,6 +226,8 @@ def main() -> int:
         "stage_ms": stage_times(img, SLICE_CONFIG, dev, args.frames),
         "stage_ms_mask_pallas": stage_times(
             img, dataclasses.replace(SLICE_CONFIG, mask_backend="pallas"), dev, args.frames),
+        "stage_ms_mask_fused": stage_times(img, SiftConfig(mask_backend="fused"), dev,
+                                           args.frames),
         "profile": device_profile(lambda: plan.keypoints(img), args.frames),
         "vo": vo_report(shape, args.frames, dev),
     }

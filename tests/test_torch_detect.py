@@ -150,14 +150,33 @@ def test_decode_and_detect_all_octaves(dogs160, scene160):
     assert sum(int(k.valid.sum()) for k, _ in out) > 5
 
 
-def test_mask_kernel_backends_are_not_ported_yet(dogs160):
-    """K8 is ported; the in-ladder masks of K1/K2 (mask_backend="fused")
-    still raise, naming their ROADMAP item, and an unknown backend is an
-    error."""
-    _, dogs = dogs160
-    with pytest.raises(NotImplementedError, match="mask_cfg"):
-        td.detect_all_octaves(to_torch(dogs), SiftConfig(mask_backend="fused"),
-                              [64] * len(dogs))
+def test_mask_kernel_backends_are_not_ported_yet(dogs160, scene160):
+    """Every mask backend is ported: with mask_backend="fused",
+    detect_all_octaves takes the ladders' masks as given, the stencil for a
+    None entry and for no masks at all (as the JAX package does when its
+    ladders did not run), and counts the JAX package's extrema and accepts
+    (detect_all_octaves_pallas with the same masks, interpret mode); an
+    unknown backend is an error."""
+    cfg, dogs = dogs160
+    caps = [c for c, _ in j_caps(scene160.shape, cfg)]
+    tdogs = to_torch(dogs)
+    fused = SiftConfig(**{**dataclasses.asdict(cfg), "mask_backend": "fused"})
+    masks = [td.extrema_mask(d, fused, o) for o, d in enumerate(tdogs)]
+    plain = td.detect_all_octaves(tdogs, SiftConfig(**dataclasses.asdict(cfg)), caps)
+    for given in (None, masks, [None] + masks[1:]):
+        out = td.detect_all_octaves(tdogs, fused, caps, masks=given)
+        for (k, t), (pk, pt) in zip(out, plain):
+            assert int(t) == int(pt)
+            for a, b in zip(k, pk):
+                assert torch.equal(a, b)
+    jcfg = JaxConfig(**{**dataclasses.asdict(cfg), "mask_backend": "fused"})
+    jout = jd.detect_all_octaves_pallas(
+        [jnp.asarray(d) for d in dogs], jcfg, caps, interpret=True,
+        masks=[None] + [jnp.asarray(m.numpy()) for m in masks[1:]])
+    assert [int(t) for _, t in jout] == [int(t) for _, t in plain]
+    assert [int(np.asarray(k.valid).sum()) for k, _ in jout] == \
+        [int(k.valid.sum()) for k, _ in plain]
+    assert sum(int(t) for _, t in plain) > 5
     with pytest.raises(ValueError, match="mask_backend"):
         td.octave_masks(to_torch(dogs), SiftConfig(mask_backend="stencil"))
 

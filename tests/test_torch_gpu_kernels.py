@@ -90,7 +90,8 @@ def test_slice_kernel_path_matches_plain_path(stage_inputs):
     assert counts.pop("best2_l2") == 0, counts
     assert counts.pop("octave0_ladder") == counts.pop("small_octaves_ladder") == 0, counts
     for name in ("extrema_masks", "compact_mask", "refine_octave", "separable_blur",
-                 "orientation_hist", "descriptor_hist"):
+                 "orientation_hist", "descriptor_hist", "octave0_ladder_mask",
+                 "small_octaves_ladder_mask", "best2_l2_f32"):
         assert counts.pop(name) == 0, counts
     assert all(n == 1 for n in counts.values()), counts
 
@@ -192,8 +193,35 @@ def test_best2_l2_kernel_is_exact(cuda, n1, n2):
             assert not a[~v1].any()
         if n2 > 8 and valid2 is v2:
             assert int(got[2][0]) == 3 and float(got[1][0]) == float(got[0][0]) == 0.0
-    with pytest.raises(TypeError):
-        matchk.best2_l2(d1.float(), d2.float(), v2, v1)
+    # K7f on the same values as f32 (and mixed): integer sums below 2^24
+    # are exact in f32, so it equals K7 bit for bit here
+    reset_launch_counts()
+    for a, b in ((d1.float(), d2.float()), (d1, d2.float())):
+        for g, w in zip(matchk.best2_l2(a, b, v2, v1), matchk.best2_l2(d1, d2, v2, v1)):
+            assert torch.equal(g, w)
+    assert matchk.best2_l2_f32.launches == 2 and matchk.best2_l2.launches == 2
+
+
+@pytest.mark.parametrize("n1,n2", [(8320, 2048), (256, 8320), (37, 1)])
+def test_best2_l2_f32_kernel_matches_plain(cuda, n1, n2):
+    """K7f against its plain version on f32 descriptors whose sums round:
+    d1/d2 within 1e-5 of |a|^2 + max |b|^2 (the dot products are summed in
+    other orders), i1 equal except at near-ties; invalid rows (0, 0, 0)."""
+    rng = np.random.default_rng(n1 + 7 * n2)
+    a = torch.from_numpy(rng.random((n1, 128), dtype=np.float32)).to(cuda)
+    b = torch.from_numpy(rng.random((n2, 128), dtype=np.float32)).to(cuda)
+    v1 = torch.from_numpy(rng.uniform(size=n1) < 0.6).to(cuda)
+    v2 = torch.from_numpy(rng.uniform(size=n2) < 0.8).to(cuda)
+    got = matchk.best2_l2(a, b, v2, v1)
+    want = matchk.best2_l2_ref(a, b, v2)
+    mag = (a * a).sum(1) + (b * b).sum(1).max()
+    for g, w in zip(got[:2], want[:2]):
+        fin = torch.isfinite(w)
+        assert torch.equal(fin[v1], torch.isfinite(g)[v1])
+        assert bool((((g - w).abs() / mag)[v1 & fin] <= 1e-5).all())
+    near = (want[1] - want[0]) <= 1e-5 * mag
+    assert not bool((v1 & ~near & (got[2] != want[2])).any())
+    assert not any(t[~v1].any() for t in got)
 
 
 def test_blur_kernel_matches_plain_and_k1(cuda):
@@ -275,3 +303,96 @@ def test_plain_keypoint_path_matches_kernel_path(stage_inputs):
     assert abs(len(plain) - len(kern)) <= max(2, len(kern) // 50) and len(kern) > 10
     hits, l1 = match_keypoint_sets(kern, plain)
     assert hits >= 0.98 * len(kern) and l1 < 0.1
+
+
+@pytest.mark.parametrize("mode", ["shrink", "bin"])
+def test_fused_ladder_masks_are_exact(cuda, mode):
+    """K1m and K2m: blurs and DoGs bit-equal to K1's and K2's, every
+    octave's mask bit-equal to K8's and to the plain stencil on those DoGs,
+    at 240x320 and an odd size."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops.pyramid import downsample_octave, normalize_image
+
+    cfg = SiftConfig(downsample_mode=mode, mask_backend="fused")
+    incs = cfg.sigma_increments()
+    pre = float((cfg.init_sigma**2 - cfg.orig_sigma**2) ** 0.5)
+    bd = cfg.border_dist
+    for shape in (SHAPE, (135, 241)):
+        x = normalize_image(torch.from_numpy(synthetic_scene(shape, n_blobs=20, seed=4)).to(cuda))
+        n_oct = cfg.n_octaves(shape)
+        b0, d0, m0 = ladder.octave0_ladder(
+            x, pre, incs, mask_cfg=(cfg.peak_thresh, maskk.octave_edge_thresh(cfg, 0), bd))
+        kb0, kd0 = ladder.octave0_ladder(x, pre, incs)
+        assert torch.equal(b0, kb0) and torch.equal(d0, kd0)
+        base = downsample_octave(b0[cfg.scales], mode)
+        eths = tuple(maskk.octave_edge_thresh(cfg, o) for o in range(1, n_oct))
+        small = ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, mode,
+                                            mask_cfg=(cfg.peak_thresh, eths, bd))
+        ksmall = ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, mode)
+        for (b, d, _), (kb, kd) in zip(small, ksmall):
+            assert torch.equal(b, kb) and torch.equal(d, kd)
+        dogs = [d0] + [d for _, d, _ in small]
+        masks = [m0] + [m for _, _, m in small]
+        for m, k, st in zip(masks, maskk.extrema_masks(dogs, cfg), maskk.extrema_masks_ref(dogs, cfg)):
+            assert m.dtype == torch.bool and torch.equal(m, k) and torch.equal(m, st)
+        assert sum(int(m.sum()) for m in masks) > 10
+
+
+def test_fused_frontend_equals_default(cuda):
+    """detect_and_describe with mask_backend="fused": K1m and K2m once, no
+    K1, K2, K8 and no stencil, buffer equal to the default's; with
+    scales=2, octave 0 through K9 and the stencil (its mask entry None) and
+    the buffer equal to scales=2 without fusion."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops.kernels.maskk import stencil_mask
+
+    img = torch.from_numpy(synthetic_scene(SHAPE, n_blobs=30, seed=2)).to(cuda)
+    for kw, stencils in (({}, 0), ({"scales": 2}, 1)):
+        cfg = SiftConfig(kp_per_octave_cap=256, **kw)
+        want = detect_and_describe(img, cfg)
+        reset_launch_counts()
+        stencil_mask.calls = 0
+        got = detect_and_describe(img, dataclasses.replace(cfg, mask_backend="fused"))
+        counts = launch_counts()
+        assert stencil_mask.calls == stencils
+        assert counts["small_octaves_ladder_mask"] == 1 and counts["small_octaves_ladder"] == 0
+        assert counts["octave0_ladder_mask"] == (0 if kw else 1)
+        assert counts["octave0_ladder"] == counts["extrema_masks"] == 0
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (kw, f)
+        assert int(got.valid.sum()) > 10
+
+
+def test_mode_arguments_compute_one_function(stage_inputs):
+    """K3's extract_mode, K6's reduce_mode and K7's two_pass take the TPU
+    kernels' values and give the same results on the card; other values
+    raise ValueError."""
+    from sift_pyocl_tpu_torch.ops.orient_desc import _desc_window_size
+
+    _, octaves, dogs, masks, caps = stage_inputs
+    want = compact.compact_masks_multi(masks, caps)
+    for g, w in zip(compact.compact_masks_multi(masks, caps, extract_mode="rowmm"), want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="extract_mode"):
+        compact.compact_masks_multi(masks, caps, extract_mode="scan")
+    blurs = [b for b, _ in octaves]
+    mag, ori, row_starts = gradpad.grad_atlas(blurs, CFG.scales)
+    s, r, c, valid = decode_compacted(dogs, masks, caps, want[0], want[1], CFG.border_dist)
+    fs, fr, fc, _, acc = refine.refine_multi(dogs, s, r, c, valid, caps, CFG.border_dist,
+                                             CFG.peak_thresh, CFG.max_interp_moves)
+    args = (mag, ori, s, fr, fc, CFG.init_sigma * 2.0 ** (fs / CFG.scales), (acc > 0) & valid,
+            _desc_window_size(CFG), CFG.max_ori,
+            *window.slot_octave_geometry(caps, row_starts, blurs))
+    for g, w in zip(window.orient_desc_fused(*args, reduce_mode="colsum"),
+                    window.orient_desc_fused(*args)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="reduce_mode"):
+        window.orient_desc_fused(*args, reduce_mode="rows")
+    rng = np.random.default_rng(9)
+    d1 = torch.from_numpy(rng.integers(0, 256, (300, 128), dtype=np.uint8)).to(mag.device)
+    d2 = torch.from_numpy(rng.integers(0, 256, (500, 128), dtype=np.uint8)).to(mag.device)
+    v2 = torch.ones(500, dtype=torch.bool, device=mag.device)
+    for g, w in zip(matchk.best2_l2(d1, d2, v2, two_pass=True), matchk.best2_l2(d1, d2, v2)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="two_pass"):
+        matchk.best2_l2(d1, d2, v2, two_pass="yes")

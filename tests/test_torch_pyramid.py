@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from sift_pyocl_tpu.config import SiftConfig as JaxConfig
+from sift_pyocl_tpu.ops import detect as jd
 from sift_pyocl_tpu.ops import pyramid as jp
 
 from sift_pyocl_tpu_torch import SiftConfig
@@ -62,10 +63,24 @@ def test_normalize_matches_jax(rgb):
 
 
 def test_pallas_conv_backend_is_not_ported_yet():
-    """The ladder kernels K1/K2 are ported ("pallas" and "auto" take them);
-    their in-ladder extrema mask (mask_backend="fused") is not yet."""
-    img = torch.zeros(64, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.build_scale_space(img, SiftConfig(conv_backend="pallas", mask_backend="fused"))
+    """The ladder kernels K1/K2 are ported ("pallas" and "auto" take them),
+    and so are their in-ladder extrema masks: with mask_backend="fused"
+    build_scale_space gives the unfused octaves and
+    build_scale_space_and_masks adds one border-stripped mask an octave,
+    equal to the JAX package's extrema_mask on those DoGs."""
+    img = torch.from_numpy(synthetic_scene((96, 80), n_blobs=12, seed=5))
+    cfg = SiftConfig(conv_backend="pallas", mask_backend="fused")
+    octs = tp.build_scale_space(img, cfg)
+    for (a, b), (c, d) in zip(octs, tp.build_scale_space(img, SiftConfig(conv_backend="pallas"))):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    _, masks = tp.build_scale_space_and_masks(img, cfg)
+    bd = cfg.border_dist
+    assert len(masks) == len(octs)
+    for o, ((_, d), m) in enumerate(zip(octs, masks)):
+        assert m.shape == (cfg.scales, d.shape[1] - 2 * bd, d.shape[2] - 2 * bd)
+        want = np.asarray(jd.extrema_mask(jnp.asarray(d.numpy()), JaxConfig(), o))
+        np.testing.assert_array_equal(m.numpy(), want)
+    assert tp.build_scale_space_and_masks(img, SiftConfig(conv_backend="xla",
+                                                          mask_backend="fused"))[1] is None
     assert tp.resolve_conv_backend(SiftConfig()) == "pallas"
     assert tp.resolve_conv_backend(SiftConfig(conv_backend="xla")) == "xla"

@@ -1,12 +1,14 @@
 """The frontend end to end: the port's SiftPlan.keypoints under SLICE_CONFIG,
 under the kernel configurations K8 (mask_backend="pallas"), per-octave
-launches (kp_multi_launch=False), bucketed K6 (desc_buckets=2) and the
-per-level K9 pyramid (scales=2), and on the plain path kp_backend="xla" --
+launches (kp_multi_launch=False), bucketed K6 (desc_buckets=2), the
+per-level K9 pyramid (scales=2) and the fused masks (mask_backend="fused"),
+and on the plain path kp_backend="xla" --
 the kernel wrappers take their plain versions on the CPU -- against the JAX
 package's detect_and_describe with the same config, its Pallas kernels in
 interpret mode."""
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -113,11 +115,28 @@ def test_octave_capacities_match_jax(shape, kw):
     ({"mask_backend": "fused"}, "mask_cfg"),
     ({"mask_backend": "fused", "conv_backend": "xla"}, "mask_cfg"),
 ])
-def test_paths_not_ported_yet_raise(kw, match):
-    """Only mask_backend="fused" (the in-ladder masks of K1/K2) is still to
-    come; an unknown kp_backend is an error."""
-    with pytest.raises(NotImplementedError, match=match):
-        SiftPlan((64, 64), config=SiftConfig(**kw), device="cpu")
+def test_paths_not_ported_yet_raise(kw, match, scene128):
+    """Every mask_backend="fused" configuration, once the last to raise, now
+    runs: the ladder wrappers take `match` (mask_cfg), and SiftPlan on
+    scene128 matches the JAX package with the same config, held as the
+    kernel configurations are above.  On the CPU the JAX package's "auto"
+    pyramid is its XLA one, which fuses no mask; the port's "auto" runs
+    K1/K2's mask forms (their plain versions here), equal to the stencil,
+    and the JAX side takes its keypoint kernels (interpret mode) where the
+    port takes its kernel path.  An unknown kp_backend is an error."""
+    from sift_pyocl_tpu_torch.ops.kernels import ladder
+
+    assert match in inspect.signature(ladder.octave0_ladder).parameters
+    assert match in inspect.signature(ladder.small_octaves_ladder).parameters
+    cfg = SiftConfig(kp_per_octave_cap=256, **kw)
+    jkw = {} if cfg.kp_backend == "xla" else {"kp_backend": "pallas"}
+    want, want_counts = _jax_keypoints(scene128, dataclasses.replace(cfg, **jkw))
+    plan = SiftPlan(scene128.shape, config=cfg, device="cpu")
+    got = plan.keypoints(scene128)
+    assert len(got) == len(want) > 10
+    hits, desc_l1 = match_keypoint_sets(want, got)
+    assert hits == len(want) and desc_l1 < 0.01
+    np.testing.assert_array_equal(plan.keypoints_raw(scene128).counts.numpy(), want_counts)
     with pytest.raises(ValueError, match="kp_backend"):
         SiftPlan((64, 64), config=SiftConfig(kp_backend="numpy"), device="cpu")
 
