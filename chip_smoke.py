@@ -14,7 +14,13 @@
    exactly, K4/K10b (refinement) with the same accepts and floats within
    1e-5, K5, K6, K11a and K11b as in their tests.  Times each with CUDA
    events, beside the plain version, a PyTorch library call where one
-   computes the same function, and the least time the card could take.
+   computes the same function, and the least time the card could take, and
+   counts its CUDA launches and device time a call with torch.profiler.  K2 (one
+   cooperative launch, at most 2 allowed) is held bit for bit to K2m's
+   stacks (per-level launches) on every small octave; K3 and K10a make one
+   launch a call; K10a is also checked and timed beside torch.nonzero on a
+   full-capacity mask (octave 0's shape, density 1e-3, cap 2048, one tile
+   past MAX_PER_TILE).
 4. Runs SiftPlan((1080, 1920), config=SLICE_CONFIG).keypoints for a few
    frames (the first slice's path, plain pyramid) with every launch counter
    reset just before, and holds its keypoints to the plain-version path.
@@ -23,7 +29,9 @@
    tracked with enough matches and a finite pose, K1-K6 launched once and K7
    twice a frame; the same run with plain=True agrees (keypoint counts,
    tracking, final camera centre, rotation).  Prints ms per step, the stage
-   split, device time and launches per step, and host syncs per step.
+   split, device time and launches per step, and host syncs per step; gates
+   the per-step CUDA launches of K2's and K3's kernels (STEP_LAUNCHES, from
+   torch.profiler; P1 and P7 likewise).
 6. P1: the same VO run with SiftConfig(mask_backend="pallas"): K8 once,
    K1-K6 once and K7 twice a step, every frame's keypoint buffer equal to
    the default run's and the final pose within 1e-6 of it; ms per step,
@@ -65,8 +73,8 @@
    d1/d2 within a stated tolerance of the plain version, i1 equal outside
    near-ties (counted); timed beside torch.mm + torch.topk.
 16. Prints a JSON line of per-kernel results (16 rows, launches from the
-   path that runs each kernel), then, as its last line, {"ok": true,
-   "device": {...}}.
+   path that runs each kernel, cuda_launches and device_ms a wrapper call
+   from the profiler), then, as its last line, {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -134,6 +142,25 @@ def device_ms(fn, name: str, calls: int = 5) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name) / 1e3 / calls
 
 
+def profile_calls(fn, wrapper_calls: int = 1, calls: int = 5):
+    """(CUDA launches, device ms) per wrapper call in fn(): the kernels,
+    memsets and copies on the card that torch.profiler records over `calls`
+    calls after one more, and the sum of their durations (the device's own
+    time, apart from the host's time between launches); fn() makes
+    `wrapper_calls` wrapper calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = calls * wrapper_calls
+    return len(events) / n, sum(e.device_time_total for e in events) / 1e3 / n
+
+
 def bound(n_bytes: float, ops: float, peak_ops: float):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and ops over
     the peak rate of their type."""
@@ -148,18 +175,22 @@ class Kernels:
         self.rows = {}
 
     def record(self, name, source, replaces, err, fn, ref, iters, n_bytes, ops,
-               peak_ops=F32_OPS, library=None):
+               peak_ops=F32_OPS, library=None, wrapper_calls=1):
         ms = cuda_ms(fn, iters)
         plain_ms = cuda_ms(ref, max(2, iters // 4))
         library_ms = cuda_ms(library, iters) if library is not None else None
         bound_ms, bound_by = bound(n_bytes, ops, peak_ops)
+        launches, dev_ms = profile_calls(fn, wrapper_calls)
         self.rows[name] = {"name": name, "route": "cuda", "source": source,
                            "replaces": replaces, "max_abs_err": float(err), "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                           "library_ms": library_ms}
+                           "library_ms": library_ms, "cuda_launches": launches,
+                           "device_ms": dev_ms * wrapper_calls}
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"{name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"library {lib} ms  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        print(f"{name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms (device {dev_ms * wrapper_calls:.4f})"
+              f"  plain {plain_ms:.4f} ms  library {lib} ms  bound {bound_ms:.4f} ms ({bound_by})"
+              f"  CUDA launches a call {launches:g}", flush=True)
+        return self.rows[name]
 
 
 def window_samples(fr, fc, sigma, valid, win: int, oct_h, oct_w, angles=None, ok=None):
@@ -218,7 +249,7 @@ def _conv_calls(octaves, taps_of):
 
 def check_ladders(x: torch.Tensor, cfg, rec: Kernels) -> None:
     """K1 and K2 against their plain versions on the main path's pyramid."""
-    from sift_pyocl_tpu_torch.ops.kernels import ladder
+    from sift_pyocl_tpu_torch.ops.kernels import ladder, maskk
     from sift_pyocl_tpu_torch.ops.pyramid import _taps, downsample_octave, normalize_image
 
     data = normalize_image(x)
@@ -231,7 +262,15 @@ def check_ladders(x: torch.Tensor, cfg, rec: Kernels) -> None:
     small = ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, cfg.downsample_mode)
     rsmall = ladder.small_octaves_ladder_ref(base, incs, n_oct - 1, cfg.scales,
                                              cfg.downsample_mode)
+    # K2 (one launch) against K2m (the per-level launches), bit for bit
+    eths = tuple(maskk.octave_edge_thresh(cfg, o) for o in range(1, n_oct))
+    k2m = ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, cfg.downsample_mode,
+                                      mask_cfg=(cfg.peak_thresh, eths, cfg.border_dist))
     torch.cuda.synchronize()
+    for o, ((b, d), (mb, md, _)) in enumerate(zip(small, k2m)):
+        assert torch.equal(b, mb) and torch.equal(d, md), f"K2's octave {o + 1} differs from K2m's"
+    print(f"small_octaves_ladder: blurs and DoGs bit-equal to K2m's on octaves 1-{n_oct - 1}",
+          flush=True)
     err1 = max(float((b0 - rb0).abs().max()), float((d0 - rd0).abs().max()))
     err2 = max(max(float((a - b).abs().max()), float((c - d).abs().max()))
                for (a, c), (b, d) in zip(small, rsmall))
@@ -250,15 +289,27 @@ def check_ladders(x: torch.Tensor, cfg, rec: Kernels) -> None:
                library=_conv_calls([[data] + list(rb0[:-1])], [all_taps]))
     k_inc = sum(t.numel() for t in all_taps[1:])
     px = sum(b.shape[1] * b.shape[2] for b, _ in rsmall)
-    rec.record("small_octaves_ladder", "sift_pyocl_tpu_torch/csrc/ladder.cu",
-               f"{ROOT}/ops/pallas/ladder.py:421", err2,
-               lambda: ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales,
-                                                   cfg.downsample_mode),
-               lambda: ladder.small_octaves_ladder_ref(base, incs, n_oct - 1, cfg.scales,
-                                                       cfg.downsample_mode), 20,
-               n_bytes=4 * (base.numel() + px * (2 * n_lv + 1)), ops=2 * 2 * k_inc * px,
-               library=_conv_calls([list(b[:-1]) for b, _ in rsmall],
-                                   [all_taps[1:]] * len(rsmall)))
+    row = rec.record("small_octaves_ladder", "sift_pyocl_tpu_torch/csrc/ladder.cu",
+                     f"{ROOT}/ops/pallas/ladder.py:421", err2,
+                     lambda: ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales,
+                                                         cfg.downsample_mode),
+                     lambda: ladder.small_octaves_ladder_ref(base, incs, n_oct - 1, cfg.scales,
+                                                             cfg.downsample_mode), 20,
+                     n_bytes=4 * (base.numel() + px * (2 * n_lv + 1)), ops=2 * 2 * k_inc * px,
+                     library=_conv_calls([list(b[:-1]) for b, _ in rsmall],
+                                         [all_taps[1:]] * len(rsmall)))
+    assert row["cuda_launches"] <= 2, f"K2 made {row['cuda_launches']} CUDA launches a call"
+    # what K2's steps cost with next to no work: the same 6 octaves and 20
+    # steps from a 64 x 64 base (one tile a pass), against the main path's
+    tiny = base[:64, :64].contiguous()
+    floor_ms = profile_calls(lambda: ladder.small_octaves_ladder(
+        tiny, incs, n_oct - 1, cfg.scales, cfg.downsample_mode))[1]
+    table, blocks = ladder._small_plan(tuple(ladder._geometry(*base.shape, n_oct - 1)),
+                                       tuple(map(float, incs)), cfg.scales, x.device)[:2]
+    print(f"small_octaves_ladder: {int(table[0])} steps on {blocks} blocks; device "
+          f"{row['device_ms']:.4f} ms at {tuple(base.shape)}, {floor_ms:.4f} ms from a 64 x 64 "
+          f"base (the steps' floor)", flush=True)
+    row["floor_device_ms"] = floor_ms
 
 
 def check_keypoint_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
@@ -289,12 +340,13 @@ def check_keypoint_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
         err = max(err, int((got[0][off:off + w] - want[0][off:off + w]).abs().max().item()) if w else 0)
         off += cap
     assert err == 0, f"compaction differs by {err}"
-    rec.record("compact_masks_multi", "sift_pyocl_tpu_torch/csrc/compact.cu",
-               f"{ROOT}/ops/pallas/compact.py:252", float(err),
-               lambda: compact.compact_masks_multi(masks, caps),
-               lambda: compact.compact_masks_multi_ref(masks, caps), 50,
-               n_bytes=sum(m.numel() for m in masks) + 4 * n_slots, ops=0,
-               library=lambda: [torch.nonzero(m) for m in masks])
+    row = rec.record("compact_masks_multi", "sift_pyocl_tpu_torch/csrc/compact.cu",
+                     f"{ROOT}/ops/pallas/compact.py:252", float(err),
+                     lambda: compact.compact_masks_multi(masks, caps),
+                     lambda: compact.compact_masks_multi_ref(masks, caps), 50,
+                     n_bytes=sum(m.numel() for m in masks) + 4 * n_slots, ops=0,
+                     library=lambda: [torch.nonzero(m) for m in masks])
+    assert row["cuda_launches"] == 1, f"K3 made {row['cuda_launches']} CUDA launches a call"
 
     # K4: same accepts, same floats (same operation order, no FMA contraction)
     idx, written, _ = got
@@ -406,12 +458,16 @@ def check_mask_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
     for g, w in zip(got, ref):
         assert g.shape == w.shape and torch.equal(g, w), "K10a differs from its plain version"
     print(f"compact_mask: exact; written {int(ref[1])}, total {int(ref[2])}", flush=True)
-    rec.record("compact_mask", "sift_pyocl_tpu_torch/csrc/compact.cu",
-               f"{ROOT}/ops/pallas/compact.py:99", 0.0,
-               lambda: compact.compact_mask(mask, cap),
-               lambda: compact.compact_mask_ref(mask, cap), 50,
-               n_bytes=mask.numel() + 4 * cap + 8, ops=0,
-               library=lambda: torch.nonzero(mask))
+    row = rec.record("compact_mask", "sift_pyocl_tpu_torch/csrc/compact.cu",
+                     f"{ROOT}/ops/pallas/compact.py:99", 0.0,
+                     lambda: compact.compact_mask(mask, cap),
+                     lambda: compact.compact_mask_ref(mask, cap), 50,
+                     n_bytes=mask.numel() + 4 * cap + 8, ops=0,
+                     library=lambda: torch.nonzero(mask))
+    assert row["cuda_launches"] == 1, f"K10a made {row['cuda_launches']} CUDA launches a call"
+    row["library_device_ms"] = profile_calls(lambda: torch.nonzero(mask))[1]
+    print(f"torch.nonzero on the same mask: device {row['library_device_ms']:.4f} ms", flush=True)
+    row.update(check_full_compaction(mask.shape, cap, x.device))
 
     s, r, c, valid = decode_compacted(dogs[:1], [mask], [cap], got[0], got[1].reshape(1),
                                       cfg.border_dist)
@@ -427,6 +483,42 @@ def check_mask_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
                f"{ROOT}/ops/pallas/refine.py:394", err,
                lambda: refine.refine_octave(*args), lambda: refine.refine_octave_ref(*args), 50,
                n_bytes=cap * (13 + 20) + n_valid * 19 * 4, ops=n_valid * 120)
+
+
+def check_full_compaction(shape, cap: int, dev) -> dict:
+    """K10a at full capacity: octave 0's mask shape under SiftConfig(), a
+    seeded mask of density 1e-3 (about 32 set bytes a tile, so the cap cuts
+    the octave), one tile holding 200 set bytes (past MAX_PER_TILE);
+    exact against its plain version, timed beside torch.nonzero.  Returns
+    the figures the compact_mask row carries as full_*."""
+    from sift_pyocl_tpu_torch.ops.kernels import compact
+
+    rng = np.random.default_rng(0)
+    host = rng.random(shape) < 1e-3
+    flat = host.reshape(-1)
+    t = 5 * compact.TILE
+    flat[t:t + compact.TILE] = False
+    flat[t + rng.choice(compact.TILE, 200, replace=False)] = True
+    mask = torch.from_numpy(host).to(dev)
+    got = compact.compact_mask(mask, cap)
+    ref = compact.compact_mask_ref(mask, cap)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref):
+        assert g.shape == w.shape and torch.equal(g, w), "K10a differs at full capacity"
+    assert int(ref[1]) == cap < int(ref[2]), (int(ref[1]), int(ref[2]))
+    ms = cuda_ms(lambda: compact.compact_mask(mask, cap), 50)
+    library_ms = cuda_ms(lambda: torch.nonzero(mask), 50)
+    bound_ms, _ = bound(mask.numel() + 4 * cap + 8, 0, F32_OPS)
+    launches, dev_ms = profile_calls(lambda: compact.compact_mask(mask, cap))
+    _, lib_dev_ms = profile_calls(lambda: torch.nonzero(mask))
+    print(f"compact_mask (full capacity, {tuple(shape)}, {int(ref[2])} set, cap {cap}): exact; "
+          f"kernel {ms:.4f} ms (device {dev_ms:.4f}), torch.nonzero {library_ms:.4f} ms (device "
+          f"{lib_dev_ms:.4f}), bound {bound_ms:.4f} ms, CUDA launches a call {launches:g}",
+          flush=True)
+    assert launches == 1
+    return {"full_ms": ms, "full_device_ms": dev_ms, "full_library_ms": library_ms,
+            "full_library_device_ms": lib_dev_ms, "full_bound_ms": bound_ms,
+            "full_set": int(ref[2])}
 
 
 def check_matcher(buf, rec: Kernels) -> None:
@@ -604,6 +696,25 @@ def check_vo_counts(init_counts, counts, extra=(), ladders=VO_KERNELS[:2]):
         assert n == want, f"{name} launched {n} times in {VO_STEPS} steps (want {want})"
 
 
+# Per-step CUDA launches of the redesigned kernels on a VO path (kernel name
+# substrings in torch.profiler's trace): K2's one cooperative launch and
+# K3's one launch, where the per-level design launched 35 level and downsample kernels
+# (and a copy) for K2 and three kernels (and a fill) for K3.
+STEP_LAUNCHES = {"small_octaves_kernel": 1, "compact_kernel": 1, "downsample_kernel": 0,
+                 "blur_level_kernel": 6}
+STEP_LAUNCHES_FUSED = {"small_octaves_kernel": 0, "compact_kernel": 1}
+
+
+def check_step_launches(tag: str, prof: dict, want: dict) -> None:
+    """Gate a VO path's per-step launches of each kernel in `want` (from the
+    device profile of its warm steps), and print the step's total."""
+    by_name = prof.pop("launches_by_name_per_frame")
+    got = {k: sum(n for name, n in by_name.items() if k in name) for k in want}
+    print(f"{tag}: CUDA launches a step {prof['kernel_launches_per_frame']:.0f}; "
+          f"of the redesigned kernels {got}", flush=True)
+    assert got == want, f"{tag}: launches a step {got}, want {want}"
+
+
 def check_tracked(outs, vo):
     for i, o in enumerate(outs):
         assert bool(o.tracked), f"frame {i + 1} not tracked"
@@ -665,6 +776,7 @@ def check_vo(dev) -> dict:
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
     prof = profiling.device_profile(one, 2)
+    check_step_launches("main path", prof, STEP_LAUNCHES)
     print("vo_step device profile:", json.dumps(prof), flush=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -716,6 +828,7 @@ def check_vo_k8(base: dict) -> dict:
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
     prof = profiling.device_profile(one, 2)
+    check_step_launches("P1", prof, STEP_LAUNCHES)
     print(f"P1: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
           f"mask's, final pose {gap:.3g} apart", flush=True)
     # the two mask backends in turns (default, K8, K8, default) in this one
@@ -816,7 +929,7 @@ def check_blur(x: torch.Tensor, rec: Kernels) -> None:
                lambda: [separable_blur_ref(i, t) for i, t in zip(inputs, taps)], 20,
                n_bytes=4 * h * w * 2 * len(taps),
                ops=2 * 2 * sum(t.numel() for t in taps) * h * w,
-               library=_conv_calls([inputs], [taps]))
+               library=_conv_calls([inputs], [taps]), wrapper_calls=len(taps))
 
 
 def check_scales2(img, x, dev) -> dict:
@@ -981,12 +1094,14 @@ def check_split_windows(x: torch.Tensor, rec: Kernels) -> dict:
                f"{ROOT}/ops/pallas/window.py:193", err_h,
                each_octave(lambda *p: window.orientation_hist(*ori_args(*p))),
                each_octave(lambda *p: window.orientation_hist_ref(*ori_args(*p))), 20,
-               n_bytes=n_slots * (17 + 36 * 4) + n_circle * 8, ops=n_circle * 10)
+               n_bytes=n_slots * (17 + 36 * 4) + n_circle * 8, ops=n_circle * 10,
+               wrapper_calls=len(per))
     rec.record("descriptor_hist", "sift_pyocl_tpu_torch/csrc/window.cu",
                f"{ROOT}/ops/pallas/window.py:321", err_d,
                each_octave(lambda *p: window.descriptor_hist(*desc_args(*p))),
                each_octave(lambda *p: window.descriptor_hist_ref(*desc_args(*p))), 20,
-               n_bytes=n_dslots * (21 + 128 * 4) + n_square * 8, ops=n_square * 20)
+               n_bytes=n_dslots * (21 + 128 * 4) + n_square * 8, ops=n_square * 20,
+               wrapper_calls=len(per))
     print(f"P5: window samples read: K11a {n_circle} ({n_circle / max(1, n_kv):.0f} a keypoint "
           f"of {win_o}^2), K11b {n_square} ({n_square / max(1, n_ok):.0f} a slot of {win_d}^2)",
           flush=True)
@@ -1197,6 +1312,7 @@ def check_vo_fused(base: dict, p1: dict) -> dict:
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
     prof = profiling.device_profile(one, 2)
+    check_step_launches("P7", prof, STEP_LAUNCHES_FUSED)
     print(f"P7: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
           f"mask's, final pose {gap:.3g} apart", flush=True)
     for tag, turn_cfg in (("default", SiftConfig()), ("fused", cfg), ("fused", cfg),

@@ -12,10 +12,9 @@
 // What bounds them on the card: bytes.  Octave 0 at 1080x1920 reads the
 // 8.3 MB image and writes 11 planes of 8.3 MB (6 blurs, 5 DoGs); its
 // arithmetic (about 106 taps a pixel, two passes) is far below the card's
-// float rate.  The small octaves hold a third of those bytes in planes too
-// small to fill the card, so K2 is bound by launch latency.
+// float rate.
 //
-// Design (simple first): ONE launch per blur level.  A block owns a tile of
+// K1, K9 (simple first): ONE launch per blur level.  A block owns a tile of
 // TW x TH output pixels.  Its horizontal pass reads the previous level
 // through the read-only cache at clamped row and column indices -- which is
 // exactly the clamp-to-edge of that level (the clamp belongs to the level
@@ -28,8 +27,45 @@
 // K9 is then one launch of the same level kernel with no DoG, so its levels
 // are bit-equal to K1's.  Each sum runs over the taps in ascending order,
 // one rounding per operation (the library is built with --fmad=false).
-// One C call runs a whole ladder: 6 launches for K1, and for K2 5 per octave
-// plus one downsample between octaves; K9 is one launch a call.
+// K1 is 6 launches a call; K9 one.
+//
+// K2, the small octaves (1..n_oct-1: 540x960 down to 17x30 at 1080x1920),
+// in ONE launch.  What the TPU kernel kept out of device memory: its launch
+// overhead -- one Pallas launch computes every level of every small octave
+// (sift_pyocl_tpu/ops/pallas/ladder.py:7-11).  What bounds it on this card:
+// not bytes (its planes are a third of octave 0's: 0.0097 ms at 3.35 TB/s)
+// but latency.  As one launch per level (the earlier design: 30 level and 5
+// downsamples, a grid of 32x64 tiles each, so octave 3 ran on 24 blocks and
+// octave 6 on one, each thread summing ~11 rows x 27 taps in order) every
+// level cost a launch gap plus one tile's serial tap loop on a nearly empty
+// card.  Design: a cooperative launch sized to the card (at most two blocks
+// an SM, all resident), whose blocks walk a work list that
+// ops/kernels/ladder.py::small_octaves_schedule builds in Python and hands
+// over as a small device table: per (octave, level) item, its geometry,
+// tile height, tile range and taps.  Items are grouped in steps; an item
+// depends only on items of earlier steps (level l+1 of an octave on level
+// l, an octave's base on the previous octave's level `scales`), so an
+// octave starts while the one before still blurs its last levels (20 steps
+// for 6 octaves of 5 levels, not 30), and cooperative_groups' grid.sync()
+// between steps takes the place of the kernel boundary.  The tile height is
+// chosen per octave (64 down to 8 rows) so that small octaves spread over
+// many blocks.  The pass that writes level `scales` also writes the next
+// octave's base (shrink or 2x2 bin from the tile, staged in shared memory),
+// and the first level's pass writes level 0 from base1, so neither a
+// downsample nor a copy is launched.  Levels written in this launch are read
+// through L2 (__ldcg: the read-only cache is not coherent with writes made
+// during a kernel), each tile's input window staged in shared memory by
+// independent loads, so that a tile waits on L2 once rather than once a row.
+// Each pixel's arithmetic is the level kernel's, operation by
+// operation, so K2's stacks are bit-equal to those of K2m, which keeps the
+// per-level launches.  The other way to the barrier, a thread-block cluster
+// holding an octave's plane pair in distributed shared memory (octave 2 is
+// 518 KB a plane, octave 3 130 KB) with cluster.sync(), fits only from
+// octave 2 or 3 on and would still need a grid-wide step for octave 1 (2 MB
+// a plane), i.e. two launch forms, where one grid barrier serves every
+// octave.  What remains on the card is the steps' latency: on an H100
+// (chip_smoke.py's K2 floor, 20 steps of one tile each) about 4 us a step,
+// a barrier plus one tile's chain of L2 loads and tap loops.
 //
 // K1m and K2m, the mask forms (mask_cfg of the TPU kernels,
 // ladder0.py:113-167 and ladder.py:225-311, SiftConfig(mask_backend=
@@ -42,19 +78,24 @@
 // level.  The launch that writes DoG l also tests plane l-3 (DoGs l-3..l-1,
 // all written by earlier launches on the stream), so planes 0..n_levels-4
 // ride on the blur launches and one tail launch per octave (mask_kernel)
-// tests the last plane.  Recomputing the DoG halo inside each block was the
+// tests the last plane; K2m keeps the per-level launches and a downsample
+// launch between octaves.  Recomputing the DoG halo inside each block was the
 // other choice; it would widen the horizontal pass past the warp's 32
 // columns and change the blur kernel, where the lag leaves the blur and DoG
 // arithmetic exactly as in K1/K2 (bit-equal by construction).  The mask
 // forms launch their own instance of the level body (blur_level_mask_kernel),
-// so the kernel of K1, K2 and K9 carries no mask argument or branch.  The mask
+// so the kernel of K1 and K9 carries no mask argument or branch.  The mask
 // reads its 27 neighbours through the read-only cache from planes written
 // one to three launches before, which at 1080x1920 (three 8.3 MB planes)
 // still sit in the 50 MB L2; the TPU kernels' reason to fuse, keeping the
 // DoG ring out of HBM, holds here only as far as L2 holds it.  Each mask
 // byte is written once: K1m moves K1's bytes plus 6.2 MB of mask at
 // 1080x1920.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -110,7 +151,7 @@ __global__ void __launch_bounds__(TW * TY) mask_kernel(MaskPlane mp, int H, int 
 }
 
 // One blur level on the TW x TH tile of this block, and with kMask the
-// lagged mask plane `mp` on the same tile.  The K1, K2 and K9 kernel is the
+// lagged mask plane `mp` on the same tile.  The K1 and K9 kernel is the
 // kMask = false instance, so the mask forms leave its code as it was.
 template <bool kMask>
 __device__ __forceinline__ void blur_level_tile(const float* __restrict__ src,
@@ -190,6 +231,178 @@ __global__ void downsample_kernel(const float* __restrict__ src, float* __restri
   dst[static_cast<size_t>(i) * Wo + j] = v;
 }
 
+// K2's work list, as ops/kernels/ladder.py::schedule_table lays it out
+// (int32): n_steps, then the first item of each step (n_steps + 1 entries),
+// then ITEM_INTS per item.  Item fields: octave, level (the pass writes
+// level + 1 from level), H, W, tile height, tiles per row, the item's tile
+// range [tile_start, tile_end) within its step, tap offset, tap count, ds
+// (1: write the next octave's base from the level written, 2: from the
+// level read -- scales == 0).  Octave 0's first pass reads base1 and writes
+// it as level 0.
+constexpr int ITEM_INTS = 11;
+constexpr int MAX_TH = 64;   // the tallest tile the schedule picks
+
+struct SmallOctaves {
+  int bin;
+  int n_taps;
+  int max_half;                     // largest tap half-width (shared-memory layout)
+  const float* base1;
+  const float* taps;                // every increment's taps back to back
+  const int* table;
+  float* blurs[SIFT_MAX_OCT];
+  float* dogs[SIFT_MAX_OCT];
+};
+
+// Shared memory of small_octaves_kernel: the taps, the tile's input window
+// ((MAX_TH + 2*max_half) x (TW + 2*max_half), clamped to the plane's
+// edges), the horizontal pass's (MAX_TH + 2*max_half) x TW sums and the
+// MAX_TH x TW output tile a downsample reads.
+size_t small_octaves_smem(int n_taps, int max_half) {
+  const size_t rows = MAX_TH + 2 * static_cast<size_t>(max_half);
+  return sizeof(float) * (((n_taps + 3) & ~3) + rows * (TW + 2 * static_cast<size_t>(max_half)) +
+                          rows * TW + static_cast<size_t>(MAX_TH) * TW);
+}
+
+// One tile (`lt`-th of its item) of one blur pass of K2, with the
+// arithmetic of blur_level_tile.  The block first stages the tile's whole
+// input window in shared memory through L2 (levels written in this launch
+// are not read through the non-coherent read-only cache), a batch of
+// independent loads a thread, so that the tile waits on L2 once and not
+// once a row; each warp then sums two rows at a time (two independent
+// chains of adds).
+__device__ __forceinline__ void small_octave_tile(const SmallOctaves& a, const int* it, int lt,
+                                                  const float* st, float* win, float* hb,
+                                                  float* otile) {
+  const int o = it[0], l = it[1], H = it[2], W = it[3], th = it[4], tiles_x = it[5];
+  const int K = it[9], ds = it[10];
+  const float* tp = st + it[8];
+  const int half = (K - 1) / 2;
+  const size_t plane = static_cast<size_t>(H) * W;
+  const bool copy = o == 0 && l == 0;       // level 0 is base1: read it, and store it
+  const float* src = copy ? a.base1 : a.blurs[o] + l * plane;
+  float* dst = a.blurs[o] + (l + 1) * plane;
+  float* dog = a.dogs[o] + l * plane;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c0 = (lt % tiles_x) * TW, r0 = (lt / tiles_x) * th;
+  const int c = c0 + tx;
+  const int b = min(c, W - 1) - c0;         // columns past W: computed, not stored
+  const int rows = th + 2 * half, span = TW + 2 * half;
+  const int ws = TW + 2 * a.max_half;       // window row stride
+  constexpr int RB = 4, CB = 3;             // rows and columns of a load batch
+  for (int i0 = ty; i0 < rows; i0 += RB * TY) {
+    float v[RB][CB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      const int i = i0 + u * TY;
+      const float* row = src + static_cast<size_t>(clampi(r0 - half + i, 0, H - 1)) * W;
+#pragma unroll
+      for (int n = 0; n < CB; ++n) {
+        const int j = tx + n * TW;
+        v[u][n] = (i < rows && j < span) ? __ldcg(row + clampi(c0 - half + j, 0, W - 1)) : 0.0f;
+      }
+      for (int j = tx + CB * TW; i < rows && j < span; j += TW)   // half-widths over TW
+        win[i * ws + j] = __ldcg(row + clampi(c0 - half + j, 0, W - 1));
+    }
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+#pragma unroll
+      for (int n = 0; n < CB; ++n) {
+        const int i = i0 + u * TY, j = tx + n * TW;
+        if (i < rows && j < span) win[i * ws + j] = v[u][n];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = ty; i < rows; i += 2 * TY) {
+    const int i2 = min(i + TY, rows - 1);   // the second row (a copy of the last when past it)
+    const float* w0 = win + i * ws + b;
+    const float* w1 = win + i2 * ws + b;
+    float acc0 = 0.0f, acc1 = 0.0f;
+    for (int k = 0; k < K; ++k) {
+      const float t = tp[k];
+      acc0 += t * w0[k];
+      acc1 += t * w1[k];
+    }
+    hb[i * TW + tx] = acc0;
+    if (i + TY < rows) hb[(i + TY) * TW + tx] = acc1;
+  }
+  __syncthreads();
+  if (c < W) {
+    const int nr = min(th, H - r0);          // output rows of this tile
+    for (int i = ty; i < nr; i += 2 * TY) {
+      const int i2 = min(i + TY, nr - 1);
+      float acc0 = 0.0f, acc1 = 0.0f;
+      for (int k = 0; k < K; ++k) {
+        const float t = tp[k];
+        acc0 += t * hb[(i + k) * TW + tx];
+        acc1 += t * hb[(i2 + k) * TW + tx];
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int ii = u == 0 ? i : i + TY;
+        if (ii >= nr) break;
+        const float acc = u == 0 ? acc0 : acc1;
+        const size_t at = static_cast<size_t>(r0 + ii) * W + c;
+        const float x = win[(ii + half) * ws + tx + half];   // level l at (r, c)
+        dst[at] = acc;
+        dog[at] = acc - x;
+        if (copy) a.blurs[0][at] = x;
+        if (ds) otile[ii * TW + tx] = ds == 2 ? x : acc;
+      }
+    }
+  }
+  if (ds) {
+    // the next octave's base over this tile's area (th and c0 even, so each
+    // 2x2 block, edge pairs included, lies inside the tile), as
+    // downsample_kernel computes it
+    __syncthreads();
+    const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+    float* next = a.blurs[o + 1];
+    for (int q = ty * TW + tx; q < (th / 2) * (TW / 2); q += TW * TY) {
+      const int i = r0 / 2 + q / (TW / 2), j = c0 / 2 + q % (TW / 2);
+      if (i >= Ho || j >= Wo) continue;
+      const int lr = 2 * i - r0, lc = 2 * j - c0;
+      float v;
+      if (!a.bin) {
+        v = otile[lr * TW + lc];
+      } else {
+        const int lr1 = min(2 * i + 1, H - 1) - r0, lc1 = min(2 * j + 1, W - 1) - c0;
+        const float y0 = 0.5f * otile[lr * TW + lc] + 0.5f * otile[lr1 * TW + lc];
+        const float y1 = 0.5f * otile[lr * TW + lc1] + 0.5f * otile[lr1 * TW + lc1];
+        v = 0.5f * y0 + 0.5f * y1;
+      }
+      next[static_cast<size_t>(i) * Wo + j] = v;
+    }
+  }
+  __syncthreads();                          // shared memory is reused by the next tile
+}
+
+__global__ void __launch_bounds__(TW * TY) small_octaves_kernel(SmallOctaves a) {
+  extern __shared__ float smem[];
+  const int rows = MAX_TH + 2 * a.max_half;
+  float* st = smem;
+  float* win = st + ((a.n_taps + 3) & ~3);
+  float* hb = win + rows * (TW + 2 * a.max_half);
+  float* otile = hb + rows * TW;
+  const int tid = threadIdx.y * TW + threadIdx.x;
+  for (int i = tid; i < a.n_taps; i += TW * TY) st[i] = a.taps[i];
+  __syncthreads();
+  cg::grid_group grid = cg::this_grid();
+  const int n_steps = a.table[0];
+  const int* items = a.table + n_steps + 2;
+  for (int s = 0; s < n_steps; ++s) {
+    const int i0 = a.table[1 + s], i1 = a.table[2 + s];
+    const int tiles = items[(i1 - 1) * ITEM_INTS + 7];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int i = i0;
+      while (t >= items[i * ITEM_INTS + 7]) ++i;
+      const int* it = items + i * ITEM_INTS;
+      small_octave_tile(a, it, t - it[6], st, win, hb, otile);
+    }
+    if (s + 1 < n_steps) grid.sync();
+  }
+}
+
 size_t level_smem(int K) {
   const int half = (K - 1) / 2;
   return sizeof(float) * (((K + 3) & ~3) + static_cast<size_t>(TH + 2 * half) * TW);
@@ -224,7 +437,7 @@ cudaError_t blur_level(const float* src, float* dst, float* dog, int H, int W,
 }
 
 // Mask form of an octave: where its (n_levels-2, H-2bd, W-2bd) mask goes,
-// and the octave's thresholds.  mask == nullptr: no mask (K1, K2, K9).
+// and the octave's thresholds.  mask == nullptr: no mask (K1, K9).
 struct OctaveMask {
   unsigned char* mask;
   int bd;
@@ -269,17 +482,17 @@ cudaError_t octave0(const float* img, float* blurs, float* dogs, int H, int W,
   return octave_levels(blurs, dogs, H, W, taps, offsets, sizes, 1, n_levels, s, om);
 }
 
-cudaError_t small_octaves(int n_oct, const void* const* blurs, const void* const* dogs,
-                          void* const* masks, const int* hs, const int* ws, const float* taps,
-                          const int* offsets, const int* sizes, int n_levels, int scales,
-                          int bin, int bd, float strong_thresh, const float* eths,
-                          cudaStream_t s) {
+// K2m: every small octave level by level (K2's earlier per-level form, with the
+// lagged mask), each next base by a downsample launch.
+cudaError_t small_octaves_mask(int n_oct, const void* const* blurs, const void* const* dogs,
+                               void* const* masks, const int* hs, const int* ws,
+                               const float* taps, const int* offsets, const int* sizes,
+                               int n_levels, int scales, int bin, int bd, float strong_thresh,
+                               const float* eths, cudaStream_t s) {
   if (n_oct < 1 || scales < 0 || scales > n_levels) return cudaErrorInvalidValue;
   for (int o = 0; o < n_oct; ++o) {
     float* b = static_cast<float*>(const_cast<void*>(blurs[o]));
-    const OctaveMask om = masks == nullptr
-        ? OctaveMask{nullptr, 0, 0.0f, 0.0f}
-        : OctaveMask{static_cast<unsigned char*>(masks[o]), bd, strong_thresh, eths[o]};
+    const OctaveMask om{static_cast<unsigned char*>(masks[o]), bd, strong_thresh, eths[o]};
     cudaError_t e = octave_levels(b, static_cast<float*>(const_cast<void*>(dogs[o])),
                                   hs[o], ws[o], taps, offsets, sizes, 0, n_levels, s, om);
     if (e != cudaSuccess) return e;
@@ -337,19 +550,68 @@ extern "C" int sift_separable_blur(const void* src, void* dst, int H, int W, con
                     static_cast<const float*>(taps), K, static_cast<cudaStream_t>(stream));
 }
 
-// K2.  n_oct octaves with sizes hs[o] x ws[o] (each ceil-half of the one
-// before); blurs[o]: (n_levels + 1, hs[o], ws[o]) f32, blurs[0][0] already
-// holds the first small octave's base; dogs[o]: (n_levels, hs[o], ws[o]).
-// taps/offsets/sizes: the n_levels increments.  Level `scales` of octave o
-// is downsampled (bin != 0: 2x2 mean, else shrink) into blurs[o + 1][0].
+// Blocks of K2's cooperative launch: as many as fit on the card at once, at
+// most two an SM, for taps of n_taps floats and half-width max_half.
+extern "C" int sift_small_octaves_ladder_grid(int n_taps, int max_half, int* blocks) {
+  if (n_taps < 1 || max_half < 0 || blocks == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = small_octaves_smem(n_taps, max_half);
+  int dev = 0, sms = 0, max_smem = 0, per_sm = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(small_octaves_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, small_octaves_kernel, TW * TY,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = sms * min(per_sm, 2);
+  return cudaSuccess;
+}
+
+// K2.  n_oct octaves with sizes ceil-halved from base1's (H, W); blurs[o]:
+// (n_levels + 1, h_o, w_o) f32, dogs[o]: (n_levels, h_o, w_o) f32, all
+// written here (level 0 of the first from base1, of the others by downsample,
+// bin != 0: 2x2 mean, else shrink, of the octave before's level `scales`).
+// taps: the n_levels increments' n_taps taps back to back, max_half their
+// largest half-width; table: the work list of small_octaves_schedule on the
+// device; blocks: sift_small_octaves_ladder_grid's count (or fewer).  One
+// cooperative launch; a refused launch returns its error.
 extern "C" int sift_small_octaves_ladder(int n_oct, const void* const* blurs,
-                                         const void* const* dogs, const int* hs,
-                                         const int* ws, const void* taps,
-                                         const int* offsets, const int* sizes,
-                                         int n_levels, int scales, int bin, void* stream) {
-  return small_octaves(n_oct, blurs, dogs, nullptr, hs, ws, static_cast<const float*>(taps),
-                       offsets, sizes, n_levels, scales, bin, 0, 0.0f, nullptr,
-                       static_cast<cudaStream_t>(stream));
+                                         const void* const* dogs, const void* base1,
+                                         const void* taps, int n_taps, int max_half,
+                                         const void* table, int bin, int blocks,
+                                         void* stream) {
+  if (n_oct < 1 || n_oct > SIFT_MAX_OCT || n_taps < 1 || max_half < 0 || blocks < 1)
+    return cudaErrorInvalidValue;
+  SmallOctaves a = {};
+  a.bin = bin;
+  a.n_taps = n_taps;
+  a.max_half = max_half;
+  a.base1 = static_cast<const float*>(base1);
+  a.taps = static_cast<const float*>(taps);
+  a.table = static_cast<const int*>(table);
+  for (int o = 0; o < n_oct; ++o) {
+    a.blurs[o] = static_cast<float*>(const_cast<void*>(blurs[o]));
+    a.dogs[o] = static_cast<float*>(const_cast<void*>(dogs[o]));
+  }
+  const size_t smem = small_octaves_smem(n_taps, max_half);
+  cudaError_t e = cudaFuncSetAttribute(small_octaves_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(small_octaves_kernel),
+                                  dim3(blocks), dim3(TW, TY), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 // K2m.  K2, plus masks[o]: (n_levels - 2, hs[o] - 2bd, ws[o] - 2bd) uint8,
@@ -362,7 +624,7 @@ extern "C" int sift_small_octaves_ladder_mask(int n_oct, const void* const* blur
                                               float strong_thresh, const float* eths,
                                               void* stream) {
   if (masks == nullptr || eths == nullptr) return cudaErrorInvalidValue;
-  return small_octaves(n_oct, blurs, dogs, masks, hs, ws, static_cast<const float*>(taps),
-                       offsets, sizes, n_levels, scales, bin, bd, strong_thresh, eths,
-                       static_cast<cudaStream_t>(stream));
+  return small_octaves_mask(n_oct, blurs, dogs, masks, hs, ws, static_cast<const float*>(taps),
+                            offsets, sizes, n_levels, scales, bin, bd, strong_thresh, eths,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +36,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_fns: Dict[Tuple[str, tuple], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -118,10 +119,13 @@ def library() -> ctypes.CDLL:
 
 def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """C entry point `name` with its argument types set (c_void_p for every
-    pointer and the stream, c_int / c_float for scalars); returns int."""
-    fn = getattr(library(), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    pointer and the stream, c_int / c_float for scalars); returns int.
+    Looked up and typed once per (name, argtypes)."""
+    key = (name, tuple(argtypes))
+    fn = _fns.get(key)
+    if fn is None:
+        fn = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)((name, library()))
+        _fns[key] = fn
     return fn
 
 

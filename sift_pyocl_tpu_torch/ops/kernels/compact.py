@@ -2,19 +2,26 @@
 
 Port of ``sift_pyocl_tpu/ops/pallas/compact.py``: ``compact_masks_multi``
 (K3, every octave in one launch) and ``compact_mask_pallas`` (K10a, one
-mask, here ``compact_mask``); both launch the kernels of
-``csrc/compact.cu``.  Octave o's set mask elements come out as flat
+mask, here ``compact_mask``); both are one launch of ``csrc/compact.cu``'s
+single-pass kernel.  Octave o's set mask elements come out as flat
 row-major indices in exactly ``np.nonzero`` order, at most
 ``MAX_PER_TILE`` per ``TILE``-element tile (the rest are dropped but still
 counted in ``total``), cut at ``caps[o]``.  K3's ``extract_mode`` ("sum" or
 "rowmm") chooses how the TPU kernel pulls a tile's indices out of VMEM;
 both give this one result, which the port's kernel computes for either.
+
+The kernel keeps a ticket, an epoch and one status word per tile in a
+scratch buffer per (device, stream), zeroed once at its first call there
+and left ready for the next call by the kernel itself, so a call clears
+nothing.  The calls on one stream (and the CUDA graphs captured on it)
+share that buffer and must not run concurrently.  A capture needs one call
+on the capturing stream before it, as any warm-up does.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -22,6 +29,8 @@ from .. import _build, on_cuda
 
 TILE = 64 * 512
 MAX_PER_TILE = 128
+
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _check_masks(masks: Sequence[torch.Tensor], caps: Sequence[int]) -> None:
@@ -35,6 +44,21 @@ def _check_masks(masks: Sequence[torch.Tensor], caps: Sequence[int]) -> None:
             raise TypeError(f"mask dtype {m.dtype}: expected bool or 8-bit ints")
 
 
+def _scratch_of(dev: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's scratch for `stream` on `dev`: zeroed at its first use
+    and kept (``csrc/compact.cu`` leaves it ready for the next call)."""
+    key = (dev.index, stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("compaction: call it once on this stream before capturing a "
+                               "CUDA graph (its scratch is made and zeroed at the first call)")
+        words = _build.function("sift_compact_scratch_words", [])()
+        buf = torch.zeros(words, dtype=torch.int64, device=dev)
+        _scratch[key] = buf
+    return buf
+
+
 def _launch(masks: Sequence[torch.Tensor], caps: Sequence[int]
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of ``csrc/compact.cu`` over `masks` (the work of K3 and K10a)."""
@@ -42,27 +66,30 @@ def _launch(masks: Sequence[torch.Tensor], caps: Sequence[int]
     flats: List[torch.Tensor] = []
     for m in masks:
         # bool, uint8 and int8 are bytes, and the kernel counts nonzero bytes
-        f = m.contiguous().view(torch.uint8).reshape(-1)
+        f = m if m.is_contiguous() else m.contiguous()
         if f.data_ptr() % 16:
             f = f.clone()
         flats.append(f)
     n_oct = len(flats)
     n_tiles = sum((f.numel() + TILE - 1) // TILE for f in flats)
-    idx = torch.zeros(int(sum(caps)), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch_of(dev, stream)
+    max_tiles = (scratch.numel() - 1) // 3       # one flag and two prefix words a tile
+    if n_tiles > max_tiles or any(c < 0 for c in caps):
+        raise ValueError(f"compaction takes at most {max_tiles} tiles of {TILE} elements a "
+                         f"call and caps >= 0; got {n_tiles} tiles, caps {list(caps)}")
+    idx = torch.empty(int(sum(caps)), dtype=torch.int32, device=dev)
     written = torch.empty(n_oct, dtype=torch.int32, device=dev)
     total = torch.empty(n_oct, dtype=torch.int32, device=dev)
-    tile_cnt = torch.empty(max(n_tiles, 1), dtype=torch.int32, device=dev)
-    tile_off = torch.empty_like(tile_cnt)
     vp = ctypes.c_void_p
     fn = _build.function("sift_compact_masks_multi",
-                         [ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, vp, vp])
+                         [ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, vp])
     ptrs = (vp * n_oct)(*[f.data_ptr() for f in flats])
     lens = (ctypes.c_longlong * n_oct)(*[f.numel() for f in flats])
     caps_c = (ctypes.c_int * n_oct)(*[int(c) for c in caps])
     with torch.cuda.device(dev):
-        err = fn(n_oct, ptrs, lens, caps_c, _build.ptr(idx), _build.ptr(written),
-                 _build.ptr(total), _build.ptr(tile_cnt), _build.ptr(tile_off),
-                 _build.stream_of(idx))
+        err = fn(n_oct, ptrs, lens, caps_c, idx.data_ptr(), written.data_ptr(),
+                 total.data_ptr(), scratch.data_ptr(), stream)
     _build.check(err, "compact")
     return idx, written, total
 

@@ -2,7 +2,10 @@
 
 Port of ``sift_pyocl_tpu/ops/pallas/ladder0.py::octave0_ladder`` (K1) and
 ``sift_pyocl_tpu/ops/pallas/ladder.py::small_octaves_ladder`` (K2); the
-kernels are ``csrc/ladder.cu``, one launch per blur level.  Taps are
+kernels are ``csrc/ladder.cu``: K1 one launch per blur level, K2 one
+cooperative launch for every small octave, walking the work list that
+``small_octaves_schedule`` builds here (``schedule_table`` puts it on the
+device).  Taps are
 ``oracle.gaussian_kernel``'s, uploaded once per (sigmas, device); every
 level clamps to its own edges, as ``ops.pyramid.blur`` does.  The plain
 versions are the plain pyramid's (``ops.pyramid.octave0_ladder_ref`` and
@@ -22,8 +25,9 @@ entry.  Their plain versions are the plain ladder followed by the stencil
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,6 +165,103 @@ def _check_small(base1: torch.Tensor, increments, n_oct: int, scales: int, ds_mo
         raise ValueError(f"unknown ds_mode {ds_mode!r}")
 
 
+# K2's tiles: TW columns (a warp across) by one of TILE_HEIGHTS rows, TY
+# warps a block (csrc/ladder.cu)
+TW, TY = 32, 8
+TILE_HEIGHTS = (64, 32, 16, 8)
+
+
+class LadderItem(NamedTuple):
+    """One blur pass of K2's work list: octave `octave`'s level + 1 from its
+    `level`, over tiles [tile_start, tile_end) of its step (``tiles_x``
+    across, ``th`` rows each), taps [tap_off, tap_off + K); ds 1 writes the
+    next octave's base from the level written, 2 from the level read
+    (scales == 0).  Octave 0's pass 0 reads base1 and writes it as level 0."""
+    octave: int
+    level: int
+    H: int
+    W: int
+    th: int
+    tiles_x: int
+    tile_start: int
+    tile_end: int
+    tap_off: int
+    K: int
+    ds: int
+
+
+def _tile_height(h: int, w: int, half: int, n_blocks: int) -> int:
+    """The tile height of an h x w octave that finishes a pass soonest on
+    `n_blocks` blocks: fewest rounds of tiles a block times rows a warp
+    sums (horizontal, th + 2 half rows; vertical, th rows), ties to the
+    taller tile."""
+    def cost(th: int) -> int:
+        tiles = math.ceil(w / TW) * math.ceil(h / th)
+        return math.ceil(tiles / n_blocks) * (math.ceil((th + 2 * half) / TY) + th // TY)
+
+    return min(TILE_HEIGHTS, key=lambda th: (cost(th), -th))
+
+
+def small_octaves_schedule(geo: Sequence[Tuple[int, int]], tap_sizes: Sequence[int],
+                           scales: int, n_blocks: int) -> List[List[LadderItem]]:
+    """K2's work list: steps of blur passes, each pass depending only on
+    passes of earlier steps.  Octave o's pass l (level l+1 from level l)
+    runs at step start(o) + l, where start(0) = 0 and octave o+1 starts one
+    step after the pass that writes its base (level `scales` of octave o,
+    or level 0 read by pass 0 when scales == 0), so octaves overlap."""
+    n_lv = len(tap_sizes)
+    if n_lv < 1 or not 0 <= scales <= n_lv:
+        raise ValueError(f"need >= 1 increment and 0 <= scales <= {n_lv}, got {scales}")
+    offsets = np.cumsum([0] + list(tap_sizes[:-1])).tolist()
+    half = max((k - 1) // 2 for k in tap_sizes)
+    ds_pass = max(scales - 1, 0)
+    steps: Dict[int, list] = {}
+    start = 0
+    for o, (h, w) in enumerate(geo):
+        th = _tile_height(h, w, half, n_blocks)
+        tiles_x, tiles = math.ceil(w / TW), math.ceil(w / TW) * math.ceil(h / th)
+        for l in range(n_lv):
+            ds = (2 if scales == 0 else 1) if o + 1 < len(geo) and l == ds_pass else 0
+            steps.setdefault(start + l, []).append(
+                (o, l, h, w, th, tiles_x, tiles, offsets[l], tap_sizes[l], ds))
+        start += ds_pass + 1
+    out = []
+    for s in range(len(steps)):
+        items, t = [], 0
+        for o, l, h, w, th, tiles_x, tiles, off, k, ds in steps[s]:
+            items.append(LadderItem(o, l, h, w, th, tiles_x, t, t + tiles, off, k, ds))
+            t += tiles
+        out.append(items)
+    return out
+
+
+def schedule_table(steps: List[List[LadderItem]]) -> np.ndarray:
+    """The int32 table ``csrc/ladder.cu``'s small_octaves_kernel reads: the
+    number of steps, the first item of each step (one entry more), then
+    each item's fields in ``LadderItem`` order."""
+    firsts = np.cumsum([0] + [len(items) for items in steps]).tolist()
+    flat = [f for items in steps for it in items for f in it]
+    return np.asarray([len(steps)] + firsts + flat, dtype=np.int32)
+
+
+@lru_cache(maxsize=32)
+def _small_plan(geo: Tuple[Tuple[int, int], ...], increments: Tuple[float, ...], scales: int,
+                device: torch.device):
+    """(device table, blocks, taps, tap count, largest half-width) of K2's
+    launch for these octaves and sigmas on `device`."""
+    taps, _, sizes = _taps_table(increments, device)
+    sizes = list(sizes)
+    half = max((k - 1) // 2 for k in sizes)
+    blocks = ctypes.c_int(0)
+    fn = _build.function("sift_small_octaves_ladder_grid", [ctypes.c_int, ctypes.c_int,
+                                                            ctypes.c_void_p])
+    with torch.cuda.device(device):
+        _build.check(fn(sum(sizes), half, ctypes.byref(blocks)), "small_octaves_ladder")
+    steps = small_octaves_schedule(geo, sizes, scales, blocks.value)
+    table = torch.as_tensor(schedule_table(steps), device=device)
+    return table, blocks.value, taps, sum(sizes), half
+
+
 def small_octaves_ladder(base1: torch.Tensor, increments: Sequence[float], n_oct: int,
                          scales: int, ds_mode: str = "shrink",
                          mask_cfg: Optional[Tuple[float, Sequence[float], int]] = None):
@@ -177,19 +278,18 @@ def small_octaves_ladder(base1: torch.Tensor, increments: Sequence[float], n_oct
     dev = base1.device
     n = len(increments)
     geo = _geometry(*base1.shape, n_oct)
-    taps, offsets, sizes = _taps_table(tuple(map(float, increments)), dev)
+    table, blocks, taps, n_taps, half = _small_plan(tuple(geo), tuple(map(float, increments)),
+                                                    scales, dev)
+    base1 = base1.contiguous()
     blurs, dogs = _allocate(geo, n, dev)
-    blurs[0][0].copy_(base1)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("sift_small_octaves_ladder",
-                         [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp])
+                         [ci, vp, vp, vp, vp, ci, ci, vp, ci, ci, vp])
     bp = (vp * n_oct)(*[b.data_ptr() for b in blurs])
     dp = (vp * n_oct)(*[d.data_ptr() for d in dogs])
-    hs = (ci * n_oct)(*[h for h, _ in geo])
-    ws = (ci * n_oct)(*[w for _, w in geo])
     with torch.cuda.device(dev):
-        err = fn(n_oct, bp, dp, hs, ws, _build.ptr(taps), offsets, sizes, n, scales,
-                 int(ds_mode == "bin"), _build.stream_of(base1))
+        err = fn(n_oct, bp, dp, _build.ptr(base1), _build.ptr(taps), n_taps, half,
+                 _build.ptr(table), int(ds_mode == "bin"), blocks, _build.stream_of(base1))
     _build.check(err, "small_octaves_ladder")
     small_octaves_ladder.launches += 1
     return list(zip(blurs, dogs))

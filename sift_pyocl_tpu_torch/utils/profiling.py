@@ -15,7 +15,8 @@ prints one JSON object:
   * ``frame_ms``: ``SiftPlan.keypoints`` per frame, host clock;
   * ``profile``: from ``torch.profiler`` over the same frames: summed kernel
     time, the device's busy share of the wall time, the number of kernel
-    launches per frame and the kernels that take the most time;
+    launches per frame (also by kernel name) and the kernels that take the
+    most time;
   * ``vo``: the VO step at the default ``VOConfig``, under
     ``mask_backend`` "xla" (the default ``SiftConfig``), "pallas" (K8) and
     "fused" (K1m/K2m):
@@ -119,8 +120,10 @@ def device_profile(run_frame, frames: int) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = defaultdict(float)
+    count = defaultdict(int)
     for e in kernels:
         by_name[e.name] += e.device_time_total / 1e3
+        count[e.name] += 1
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
@@ -129,6 +132,7 @@ def device_profile(run_frame, frames: int) -> dict:
         "busy_share": busy_ms / wall_ms if wall_ms else 0.0,
         "kernel_launches_per_frame": len(kernels) / frames,
         "top_kernels_ms_per_frame": [[name[:90], ms / frames] for name, ms in top],
+        "launches_by_name_per_frame": {name: n / frames for name, n in count.items()},
     }
 
 

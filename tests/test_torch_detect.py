@@ -23,7 +23,7 @@ from sift_pyocl_tpu.ops.pyramid import build_scale_space_jax
 
 from sift_pyocl_tpu_torch import SiftConfig
 from sift_pyocl_tpu_torch.ops import detect as td
-from sift_pyocl_tpu_torch.ops.kernels.compact import (MAX_PER_TILE, compact_mask,
+from sift_pyocl_tpu_torch.ops.kernels.compact import (MAX_PER_TILE, TILE, compact_mask,
                                                       compact_masks_multi,
                                                       compact_masks_multi_ref)
 from sift_pyocl_tpu_torch.ops.kernels.maskk import extrema_masks, extrema_masks_ref
@@ -37,18 +37,33 @@ def dogs160(scene160):
     return cfg, [np.asarray(d) for _, d in build_scale_space_jax(jnp.asarray(scene160), cfg)]
 
 
-def _random_masks():
-    rng = np.random.default_rng(5)
-    a = rng.random((3, 100, 150)) < 0.001
-    a[0, :10, :50] = True            # 500 bits in tile 0: past MAX_PER_TILE
-    b = rng.random((3, 50, 75)) < 0.004
-    c = rng.random((2, 40, 70)) < 0.03   # ~170 bits, cap 64: overflows its cap
-    return [a, b, c], [256, 128, 64]
+def _random_masks(case: str = "random"):
+    """(masks, caps) of a compaction case: "random", three octaves with a
+    dense tile and a cut at the cap; "tile_edges", a 10-tile mask whose
+    tiles 1 and 2 hold exactly 128 and 129 set bits and whose cap ends
+    exactly at the end of tile 4, beside a small second octave."""
+    if case == "random":
+        rng = np.random.default_rng(5)
+        a = rng.random((3, 100, 150)) < 0.001
+        a[0, :10, :50] = True            # 500 bits in tile 0: past MAX_PER_TILE
+        b = rng.random((3, 50, 75)) < 0.004
+        c = rng.random((2, 40, 70)) < 0.03   # ~170 bits, cap 64: overflows its cap
+        return [a, b, c], [256, 128, 64]
+    rng = np.random.default_rng(8)
+    a = rng.random((7, 313, 137)) < 0.001           # 300167 elements: 10 tiles
+    flat = a.reshape(-1)
+    for t, n in ((1, 128), (2, 129)):
+        flat[t * TILE:(t + 1) * TILE] = False
+        flat[t * TILE + rng.choice(TILE, n, replace=False)] = True
+    kept = np.minimum(np.add.reduceat(flat, np.arange(0, flat.size, TILE)), MAX_PER_TILE)
+    b = rng.random((3, 60, 90)) < 0.01
+    return [a, b], [int(kept[:5].sum()), 40]
 
 
-def test_compaction_matches_jax_kernel():
+@pytest.mark.parametrize("case", ["random", "tile_edges"])
+def test_compaction_matches_jax_kernel(case):
     """Exact: same indices in np.nonzero order, same written and total."""
-    masks, caps = _random_masks()
+    masks, caps = _random_masks(case)
     idx, wr, tot = (np.asarray(x) for x in
                     j_compact([jnp.asarray(m) for m in masks], caps, interpret=True))
     got_idx, got_wr, got_tot = compact_masks_multi([torch.from_numpy(m) for m in masks], caps)
@@ -60,8 +75,11 @@ def test_compaction_matches_jax_kernel():
         np.testing.assert_array_equal(got_idx.numpy()[off:off + w], idx[off:off + w])
         assert not got_idx.numpy()[off + w:off + cap].any()   # zeros after written
         off += cap
-    # the dense tile and the capacity cut were both exercised
-    assert int(tot[0]) > int(wr[0]) >= MAX_PER_TILE and int(wr[2]) == caps[2]
+    if case == "random":   # the dense tile and the capacity cut were both exercised
+        assert int(tot[0]) > int(wr[0]) >= MAX_PER_TILE and int(wr[2]) == caps[2]
+    else:                  # the cap fell on a tile's end, past two full tiles
+        assert int(wr[0]) == caps[0] and int(tot[0]) == int(masks[0].sum()) > caps[0]
+        assert masks[0].size > 9 * TILE
 
 
 def test_compaction_plain_version_semantics():

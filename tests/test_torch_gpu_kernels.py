@@ -396,3 +396,130 @@ def test_mode_arguments_compute_one_function(stage_inputs):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="two_pass"):
         matchk.best2_l2(d1, d2, v2, two_pass="yes")
+
+
+def _compaction_case(name: str):
+    """(masks, caps) of one compaction edge case (numpy, seeded)."""
+    from sift_pyocl_tpu_torch.ops.kernels.compact import TILE
+
+    rng = np.random.default_rng(7)
+    if name == "empty":
+        return [np.zeros((3, 200, 300), bool)], [64]
+    if name == "tiles_128_129":
+        m = np.zeros(3 * TILE, bool)
+        m[rng.choice(TILE, 128, replace=False)] = True
+        m[TILE + rng.choice(TILE, 129, replace=False)] = True
+        m[2 * TILE + 5] = True
+        return [m.reshape(3, -1)], [400]
+    if name == "cap_on_tile_boundary":
+        m = rng.random(6 * TILE) < 0.002            # ~65 a tile, none past 128
+        kept = m.reshape(6, TILE).sum(1)
+        return [m], [int(kept[:3].sum())]
+    if name == "more_tiles_than_sms":
+        return [rng.random((3, 1070, 1910)) < 1e-3, rng.random((9, 1000, 1000)) < 2e-4], [2048, 3000]
+    # lengths not a multiple of 4 or of the tile, and an empty mask
+    return ([rng.random(3 * TILE + 4093) < 0.01, rng.random(4097) < 0.05,
+             np.zeros(0, bool), rng.random(7) < 0.5], [1200, 100, 3, 4])
+
+
+@pytest.mark.parametrize("name", ["empty", "tiles_128_129", "cap_on_tile_boundary",
+                                  "more_tiles_than_sms", "ragged"])
+def test_compaction_edge_cases_are_exact(cuda, name):
+    """K3 and K10a equal their plain versions exactly (indices, written,
+    total, zeros past written) at the tile rule's and the cap's edges."""
+    masks, caps = _compaction_case(name)
+    ms = [torch.from_numpy(m).to(cuda) for m in masks]
+    reset_launch_counts()
+    for g, w in zip(compact.compact_masks_multi(ms, caps), compact.compact_masks_multi_ref(ms, caps)):
+        assert g.shape == w.shape and torch.equal(g, w), name
+    for m, cap in zip(ms, caps):
+        for g, w in zip(compact.compact_mask(m, cap), compact.compact_mask_ref(m, cap)):
+            assert g.shape == w.shape and torch.equal(g, w), name
+    assert compact.compact_masks_multi.launches == 1
+    assert compact.compact_mask.launches == len(ms)
+
+
+def test_compaction_repeated_calls_are_exact(cuda):
+    """50 calls in a row on one stream, of changing sizes (each call's
+    tiles fewer or more than the last's, so the status words of earlier
+    calls are still there), each equal to the plain version: the kernel's
+    ticket and epoch leave its scratch ready for the next call."""
+    rng = np.random.default_rng(11)
+    for i in range(50):
+        n_oct = int(rng.integers(1, 4))
+        masks = [torch.from_numpy(rng.random(int(rng.integers(1, 400_000))) < 3e-3).to(cuda)
+                 for _ in range(n_oct)]
+        caps = [int(rng.integers(0, 1500)) for _ in range(n_oct)]
+        for g, w in zip(compact.compact_masks_multi(masks, caps),
+                        compact.compact_masks_multi_ref(masks, caps)):
+            assert torch.equal(g, w), i
+
+
+def test_compaction_and_small_octaves_replay_in_a_cuda_graph(cuda):
+    """K3 and K2 captured once in a CUDA graph and replayed 5 times on new
+    inputs copied into the captured buffers: every replay equals an eager
+    call on the same inputs (the compaction's epoch advances on the device)."""
+    from sift_pyocl_tpu_torch import SiftConfig
+
+    cfg = SiftConfig()
+    incs = cfg.sigma_increments()
+    rng = np.random.default_rng(12)
+
+    def inputs():
+        masks = [torch.from_numpy(rng.random(s) < 2e-3).to(cuda)
+                 for s in ((3, 300, 500), (3, 150, 250), (3, 75, 125))]
+        base = torch.from_numpy(rng.random((271, 483), dtype=np.float32) * 255).to(cuda)
+        return masks, base
+
+    caps = [512, 256, 128]
+    masks, base = inputs()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):             # warm-up on the capturing stream
+        for _ in range(2):
+            compact.compact_masks_multi(masks, caps)
+            ladder.small_octaves_ladder(base, incs, 4, cfg.scales, "shrink")
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out_c = compact.compact_masks_multi(masks, caps)
+        out_l = ladder.small_octaves_ladder(base, incs, 4, cfg.scales, "shrink")
+    for _ in range(5):
+        new_masks, new_base = inputs()
+        for m, n in zip(masks, new_masks):
+            m.copy_(n)
+        base.copy_(new_base)
+        graph.replay()
+        want_c = compact.compact_masks_multi(new_masks, caps)
+        want_l = ladder.small_octaves_ladder(new_base, incs, 4, cfg.scales, "shrink")
+        torch.cuda.synchronize()
+        for g, w in zip(out_c, want_c):
+            assert torch.equal(g, w)
+        for (gb, gd), (wb, wd) in zip(out_l, want_l):
+            assert torch.equal(gb, wb) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("shape,n_oct,scales,mode", [
+    ((541, 963), 6, 3, "shrink"), ((541, 963), 6, 2, "bin"), ((135, 241), 1, 3, "bin"),
+    ((135, 241), 1, 2, "shrink"), ((77, 131), 3, 3, "bin"), ((77, 131), 3, 2, "shrink")])
+def test_small_octaves_ladder_is_k2m_bit_for_bit(cuda, shape, n_oct, scales, mode):
+    """K2 in one launch: its blur and DoG stacks bit-equal to K2m's (which
+    keeps the per-level launches) and within 1e-3 of the plain ladder, at
+    odd sizes, one and six octaves, scales 2 and 3, both downsamples."""
+    from sift_pyocl_tpu_torch import SiftConfig
+
+    cfg = SiftConfig(scales=scales, downsample_mode=mode)
+    incs = cfg.sigma_increments()
+    base = torch.from_numpy(synthetic_scene(shape, n_blobs=20, seed=6)).to(cuda) / 255.0
+    eths = tuple(maskk.octave_edge_thresh(cfg, o) for o in range(1, n_oct + 1))
+    reset_launch_counts()
+    got = ladder.small_octaves_ladder(base, incs, n_oct, scales, mode)
+    k2m = ladder.small_octaves_ladder(base, incs, n_oct, scales, mode,
+                                      mask_cfg=(cfg.peak_thresh, eths, cfg.border_dist))
+    want = ladder.small_octaves_ladder_ref(base, incs, n_oct, scales, mode)
+    assert ladder.small_octaves_ladder.launches == 1
+    assert len(got) == len(k2m) == len(want) == n_oct
+    for (gb, gd), (mb, md, _), (wb, wd) in zip(got, k2m, want):
+        assert gb.shape == wb.shape and gd.shape == wd.shape
+        assert torch.equal(gb, mb) and torch.equal(gd, md)
+        assert float((gb - wb).abs().max()) <= 1e-3 and float((gd - wd).abs().max()) <= 1e-3
