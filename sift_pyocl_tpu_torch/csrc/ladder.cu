@@ -9,25 +9,44 @@
 // blurred by one sigma: the per-level octave 0 of configs whose taps the
 // TPU's K1 strips cannot hold, e.g. SiftConfig(scales=2)).
 //
-// What bounds them on the card: bytes.  Octave 0 at 1080x1920 reads the
-// 8.3 MB image and writes 11 planes of 8.3 MB (6 blurs, 5 DoGs); its
-// arithmetic (about 106 taps a pixel, two passes) is far below the card's
-// float rate.
-//
-// K1, K9 (simple first): ONE launch per blur level.  A block owns a tile of
-// TW x TH output pixels.  Its horizontal pass reads the previous level
-// through the read-only cache at clamped row and column indices -- which is
-// exactly the clamp-to-edge of that level (the clamp belongs to the level
-// being blurred, not to a padded earlier one) -- for the TH + 2*half rows
-// the vertical pass needs, into shared memory.  The vertical pass sums
-// those rows, writes the blur level, and writes the DoG (this level minus
-// the previous one).  Taps come from the caller's device buffer, any
-// length: no strip margins, so K1 takes any sigma; the pyramid still routes
-// octave 0 per level wherever the JAX package does (ops/pyramid.py), and
-// K9 is then one launch of the same level kernel with no DoG, so its levels
-// are bit-equal to K1's.  Each sum runs over the taps in ascending order,
-// one rounding per operation (the library is built with --fmad=false).
-// K1 is 6 launches a call; K9 one.
+// K1, K9: ONE launch per blur level (K1 6 a call at the default config,
+// K9 one).  Octave 0 at 1080x1920 reads the 8.3 MB image and writes 11
+// planes of 8.3 MB (6 blurs, 5 DoGs): 0.0297 ms at 3.35 TB/s.  What bounded
+// the earlier level body (blur_level_tile) was issue, not bytes: each
+// output took one global load and one clamp a horizontal tap and two
+// shared-memory loads a vertical tap, in tap loops of runtime length
+// (~2 200 issued instructions a pixel over the 106 taps of the default
+// ladder), where --fmad=false leaves 2 x 2 x 106 = 424 float operations
+// a pixel.  The level body now (blur_level_kernel<K>):
+//   - stage, then sum: a block's LW x LH = 64 x 64 output tile stages its
+//     (LH + 2h) x (LW + 2h) input window in shared memory once, every
+//     element by an asynchronous 4-byte cp.async, the row and column
+//     clamps applied to the staged address (the clamp-to-edge of the level
+//     being blurred), so neither pass makes a global load or a clamp a tap;
+//   - register blocking: in the horizontal pass a thread sums 8 adjacent
+//     columns of one row (lanes on rows, window row stride odd: no bank
+//     conflicts), in the vertical pass 8 consecutive rows of one column
+//     (lanes on columns); each value loaded from shared memory serves 8
+//     outputs, and each tap (a broadcast load) 8;
+//   - the tap loops unrolled, one instance for each odd K of 3-39 (the
+//     default config's 11-27, scales=2's up to 39); any other K launches
+//     blur_level_any_kernel, the earlier body, so no size raises;
+//   - 64-column tiles: the halo is (64 + 2h) / 64 of the columns, against
+//     (32 + 2h) / 32 a warp wide; at K = 27, 56 KB of shared memory, 4
+//     blocks (32 warps) an SM, and the 510 tiles of a 1080p level in one
+//     wave of 528; -Xptxas -v: 32-34 registers, no spills;
+//   - the DoG from the level's own staged centre sample, not a second read
+//     of the previous level; the device's shared-memory limit is queried
+//     once a device, each instance's attribute set once.
+// Each output still sums its taps in ascending order from 0.0f, one
+// rounding per operation (the library is built with --fmad=false), so the
+// stacks are bit-equal to those of the mask forms, which keep the earlier
+// body, and K9 is one launch of the same kernel without the DoG, bit-equal
+// to K1's levels.  What bounds it now: within a level all blocks stage,
+// then sum, then write at about the same time (one wave), so a level's
+// bytes and its issue overlap little.  Taps come from the caller's device
+// buffer; the pyramid still routes octave 0 per level wherever the JAX
+// package does (ops/pyramid.py).
 //
 // K2, the small octaves (1..n_oct-1: 540x960 down to 17x30 at 1080x1920),
 // in ONE launch.  What the TPU kernel kept out of device memory: its launch
@@ -83,8 +102,9 @@
 // other choice; it would widen the horizontal pass past the warp's 32
 // columns and change the blur kernel, where the lag leaves the blur and DoG
 // arithmetic exactly as in K1/K2 (bit-equal by construction).  The mask
-// forms launch their own instance of the level body (blur_level_mask_kernel),
-// so the kernel of K1 and K9 carries no mask argument or branch.  The mask
+// forms launch their own instance of the earlier level body
+// (blur_level_mask_kernel) for every level, so the kernel of K1 and K9
+// carries no mask argument or branch.  The mask
 // reads its 27 neighbours through the read-only cache from planes written
 // one to three launches before, which at 1080x1920 (three 8.3 MB planes)
 // still sit in the 50 MB L2; the TPU kernels' reason to fuse, keeping the
@@ -92,6 +112,7 @@
 // byte is written once: K1m moves K1's bytes plus 6.2 MB of mask at
 // 1080x1920.
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -150,9 +171,11 @@ __global__ void __launch_bounds__(TW * TY) mask_kernel(MaskPlane mp, int H, int 
   mask_tile(mp, H, W, blockIdx.y * TH, blockIdx.x * TW + threadIdx.x);
 }
 
-// One blur level on the TW x TH tile of this block, and with kMask the
-// lagged mask plane `mp` on the same tile.  The K1 and K9 kernel is the
-// kMask = false instance, so the mask forms leave its code as it was.
+// The earlier level body: one blur level on the TW x TH tile of this block,
+// and with kMask the lagged mask plane `mp` (where mp.m is set) on the same
+// tile.  The mask forms run it for every level; blur_level_any_kernel, the
+// kMask = false instance, takes the tap counts blur_level_kernel<K> has no
+// instance of.
 template <bool kMask>
 __device__ __forceinline__ void blur_level_tile(const float* __restrict__ src,
                                                 float* __restrict__ dst,
@@ -187,16 +210,118 @@ __device__ __forceinline__ void blur_level_tile(const float* __restrict__ src,
     dst[at] = acc;
     if (dog != nullptr) dog[at] = acc - src[at];
   }
-  if constexpr (kMask) mask_tile(mp, H, W, r0, c);
+  if constexpr (kMask) {
+    if (mp.m != nullptr) mask_tile(mp, H, W, r0, c);
+  }
 }
 
 constexpr MaskPlane NO_MASK = {nullptr, nullptr, 0, 0.0f, 0.0f};
 
+// K1's and K9's level for a tap count that blur_level_kernel has no
+// instance of (any K): the mask forms' body without the mask.
 __global__ void __launch_bounds__(TW * TY)
-blur_level_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                  float* __restrict__ dog, int H, int W,
-                  const float* __restrict__ taps, int K) {
+blur_level_any_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                      float* __restrict__ dog, int H, int W,
+                      const float* __restrict__ taps, int K) {
   blur_level_tile<false>(src, dst, dog, H, W, taps, K, MaskPlane{});
+}
+
+// K1's and K9's level body (see the note at the top): an LW x LH output
+// tile, its (LH + 2h) x (LW + 2h) input window staged once by cp.async
+// with the clamp applied to each staged address, then two passes over
+// shared memory with the tap loops unrolled (K taps, compile-time).
+constexpr int LW = 64;          // tile columns
+constexpr int LH = 64;          // tile rows
+constexpr int LNT = 256;        // threads a block (8 warps)
+constexpr int LCB = 8;          // horizontal outputs a thread: adjacent columns
+constexpr int LRB = 8;          // vertical outputs a thread: consecutive rows
+constexpr int LHS = LW + 1;     // row stride of the horizontal sums (odd)
+constexpr int LK_MAX = 39;      // the largest K with an instance (scales=2's taps)
+static_assert(LW == (LNT / 32) * LCB, "one warp per LCB-column block in the horizontal pass");
+
+// Shared memory of blur_level_kernel<K>: the taps, the staged window
+// (row stride odd, so that lanes on consecutive rows hit distinct banks),
+// the horizontal sums.
+constexpr size_t level_tile_smem(int K) {
+  return sizeof(float) * (((K + 3) & ~3) + (LH + K - 1) * (LW + K) + (LH + K - 1) * LHS);
+}
+
+template <int K>
+__global__ void __launch_bounds__(LNT) blur_level_kernel(const float* __restrict__ src,
+                                                         float* __restrict__ dst,
+                                                         float* __restrict__ dog, int H, int W,
+                                                         const float* __restrict__ taps) {
+  constexpr int h = (K - 1) / 2;
+  constexpr int rows = LH + 2 * h, cols = LW + 2 * h;
+  constexpr int ws = cols + 1;              // odd window row stride
+  extern __shared__ float smem[];
+  float* st = smem;
+  float* win = smem + ((K + 3) & ~3);       // rows x ws
+  float* hb = win + rows * ws;              // rows x LHS
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.x * LW, r0 = blockIdx.y * LH;
+  if (tid < K) st[tid] = taps[tid];
+  // stage: one asynchronous 4-byte copy an element, all in flight at once;
+  // row and column clamps applied here, once per staged element
+  for (int i = warp; i < rows; i += LNT / 32) {
+    const float* srow = src + static_cast<size_t>(clampi(r0 - h + i, 0, H - 1)) * W;
+    float* wrow = win + i * ws;
+    for (int j = lane; j < cols; j += 32)
+      __pipeline_memcpy_async(wrow + j, srow + clampi(c0 - h + j, 0, W - 1), sizeof(float));
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // horizontal: warp w owns columns [LCB w, LCB w + LCB), lanes own rows;
+  // each window value loaded once serves LCB outputs; each output sums its
+  // taps in ascending order from 0.0f, one rounding per operation
+  const int jb = warp * LCB;
+  for (int i = lane; i < rows; i += 32) {
+    const float* wr = win + i * ws + jb;
+    float acc[LCB], x[LCB];
+#pragma unroll
+    for (int u = 0; u < LCB; ++u) acc[u] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < LCB - 1; ++u) x[u] = wr[u];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      x[(k + LCB - 1) % LCB] = wr[k + LCB - 1];
+      const float t = st[k];
+#pragma unroll
+      for (int u = 0; u < LCB; ++u) acc[u] += t * x[(k + u) % LCB];
+    }
+#pragma unroll
+    for (int u = 0; u < LCB; ++u) hb[i * LHS + jb + u] = acc[u];
+  }
+  __syncthreads();
+  // vertical: a thread sums LRB consecutive rows of one column, lanes on
+  // consecutive columns; the DoG takes the level's own staged sample
+  for (int q = warp; q < (LW / 32) * (LH / LRB); q += LNT / 32) {
+    const int cl = (q % (LW / 32)) * 32 + lane, i0 = (q / (LW / 32)) * LRB;
+    const float* hc = hb + i0 * LHS + cl;
+    float acc[LRB], x[LRB];
+#pragma unroll
+    for (int u = 0; u < LRB; ++u) acc[u] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < LRB - 1; ++u) x[u] = hc[u * LHS];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      x[(k + LRB - 1) % LRB] = hc[(k + LRB - 1) * LHS];
+      const float t = st[k];
+#pragma unroll
+      for (int u = 0; u < LRB; ++u) acc[u] += t * x[(k + u) % LRB];
+    }
+    const int c = c0 + cl;
+    if (c >= W) continue;
+#pragma unroll
+    for (int u = 0; u < LRB; ++u) {
+      const int r = r0 + i0 + u;
+      if (r >= H) break;
+      const size_t at = static_cast<size_t>(r) * W + c;
+      dst[at] = acc[u];
+      if (dog != nullptr) dog[at] = acc[u] - win[(i0 + u + h) * ws + cl + h];
+    }
+  }
 }
 
 // K1m/K2m's level launch: the blur level and the lagged mask plane `mp`.
@@ -408,31 +533,85 @@ size_t level_smem(int K) {
   return sizeof(float) * (((K + 3) & ~3) + static_cast<size_t>(TH + 2 * half) * TW);
 }
 
-// One level launch; with mp.m set, the mask form's (blur_level_mask_kernel).
+// The largest dynamic shared memory a block may opt into on the current
+// device, queried once a device.
+cudaError_t max_block_smem(size_t* out) {
+  constexpr int kDevs = 64;
+  static int cached[kDevs] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kDevs) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int v = 0;
+    e = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    cached[dev] = v;
+  }
+  *out = static_cast<size_t>(cached[dev]);
+  return cudaSuccess;
+}
+
+// Sets `kernel`'s dynamic shared memory limit to `smem` once a device
+// (`done` is the caller's per-kernel table).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, bool* done) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess) done[dev] = true;
+  return e;
+}
+
+// One launch of blur_level_kernel<K> (K odd, 3 <= K <= LK_MAX), or of
+// blur_level_any_kernel for any other K.
+template <int K>
+cudaError_t launch_level(const float* src, float* dst, float* dog, int H, int W,
+                         const float* taps, int k, cudaStream_t s, size_t max_smem) {
+  if constexpr (K <= LK_MAX) {
+    if (k != K) return launch_level<K + 2>(src, dst, dog, H, W, taps, k, s, max_smem);
+    constexpr size_t smem = level_tile_smem(K);
+    static bool done[64] = {};
+    if (smem > max_smem) return cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(blur_level_kernel<K>, smem, done);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((W + LW - 1) / LW, (H + LH - 1) / LH);
+    blur_level_kernel<K><<<grid, LNT, smem, s>>>(src, dst, dog, H, W, taps);
+    return cudaGetLastError();
+  } else {
+    const size_t smem = level_smem(k);
+    static bool done[64] = {};
+    if (smem > max_smem) return cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(blur_level_any_kernel, smem, done);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+    blur_level_any_kernel<<<grid, dim3(TW, TY), smem, s>>>(src, dst, dog, H, W, taps, k);
+    return cudaGetLastError();
+  }
+}
+
+// One level launch: K1's and K9's kernel, or with `mp` the mask forms'
+// (blur_level_mask_kernel, which also tests mask plane mp->m where set).
 cudaError_t blur_level(const float* src, float* dst, float* dog, int H, int W,
                        const float* taps, int K, cudaStream_t s,
-                       const MaskPlane& mp = NO_MASK) {
+                       const MaskPlane* mp = nullptr) {
   if (K < 1 || (K & 1) == 0 || H < 1 || W < 1) return cudaErrorInvalidValue;
+  size_t max_smem = 0;
+  cudaError_t e = max_block_smem(&max_smem);
+  if (e != cudaSuccess) return e;
+  if (mp == nullptr) return launch_level<3>(src, dst, dog, H, W, taps, K, s, max_smem);
   const size_t smem = level_smem(K);
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  const bool masked = mp.m != nullptr;
-  if (smem > 48 * 1024) {
-    const int n = static_cast<int>(smem);
-    cudaError_t e = masked
-        ? cudaFuncSetAttribute(blur_level_mask_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, n)
-        : cudaFuncSetAttribute(blur_level_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, n);
-    if (e != cudaSuccess) return e;
-  }
+  if (smem > max_smem) return cudaErrorInvalidValue;
+  static bool done[64] = {};
+  e = allow_smem(blur_level_mask_kernel, smem, done);
+  if (e != cudaSuccess) return e;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  if (masked)
-    blur_level_mask_kernel<<<grid, dim3(TW, TY), smem, s>>>(src, dst, dog, H, W, taps, K, mp);
-  else
-    blur_level_kernel<<<grid, dim3(TW, TY), smem, s>>>(src, dst, dog, H, W, taps, K);
+  blur_level_mask_kernel<<<grid, dim3(TW, TY), smem, s>>>(src, dst, dog, H, W, taps, K, *mp);
   return cudaGetLastError();
 }
 
@@ -460,10 +639,10 @@ cudaError_t octave_levels(float* blurs, float* dogs, int H, int W, const float* 
     return MaskPlane{dogs + p * plane, om.mask + p * mplane, om.bd, om.strong_thresh, om.eth};
   };
   for (int l = 0; l < n_levels; ++l) {
-    const MaskPlane mp = (om.mask != nullptr && l >= 3) ? plane_of(l - 3) : NO_MASK;
+    const MaskPlane mp = l >= 3 ? plane_of(l - 3) : NO_MASK;
     cudaError_t e = blur_level(blurs + l * plane, blurs + (l + 1) * plane,
                                dogs + l * plane, H, W, taps + offsets[tap0 + l],
-                               sizes[tap0 + l], s, mp);
+                               sizes[tap0 + l], s, om.mask != nullptr ? &mp : nullptr);
     if (e != cudaSuccess) return e;
   }
   if (om.mask != nullptr) {
@@ -477,7 +656,8 @@ cudaError_t octave_levels(float* blurs, float* dogs, int H, int W, const float* 
 cudaError_t octave0(const float* img, float* blurs, float* dogs, int H, int W,
                     const float* taps, const int* offsets, const int* sizes, int n_levels,
                     cudaStream_t s, const OctaveMask& om) {
-  cudaError_t e = blur_level(img, blurs, nullptr, H, W, taps + offsets[0], sizes[0], s);
+  cudaError_t e = blur_level(img, blurs, nullptr, H, W, taps + offsets[0], sizes[0], s,
+                             om.mask != nullptr ? &NO_MASK : nullptr);
   if (e != cudaSuccess) return e;
   return octave_levels(blurs, dogs, H, W, taps, offsets, sizes, 1, n_levels, s, om);
 }

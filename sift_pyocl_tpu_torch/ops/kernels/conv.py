@@ -1,9 +1,9 @@
 """K9: the separable Gaussian blur of one plane.
 
 Port of ``sift_pyocl_tpu/ops/pallas/conv.py::separable_blur_pallas``; the
-kernel is ``sift_separable_blur`` in ``csrc/ladder.cu``, one launch of the
-level kernel that K1 and K2 run for each blur level (without the DoG), so
-an octave blurred level by level through K9 is bit-equal to K1's.  Each
+kernel is ``sift_separable_blur`` in ``csrc/ladder.cu``, one launch of
+K1's level kernel (``blur_level_kernel<K>``, without the DoG), so an
+octave blurred level by level through K9 is bit-equal to K1's.  Each
 pass clamps its reads to the plane's edges (the Pallas wrapper edge-pads
 the plane first: the same values).  The plain version is the plain
 pyramid's blur (``ops.pyramid.separable_blur_ref``).

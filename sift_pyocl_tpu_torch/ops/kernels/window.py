@@ -13,6 +13,13 @@ static window ``win`` may be any size (the TPU kernels' ``win <= 128`` was a
 lane limit).  The plain versions share one body of histogram arithmetic
 (``_orientation_hists``, ``_descriptor_hists``), which the plain
 ``kp_backend="xla"`` path runs too.
+
+K6's kernel walks only each keypoint's support inside that window: the
+boxes ``support_boxes`` computes (the orientation circle's, and at each
+angle the 25 descriptor quads'), which hold every sample the plain
+arithmetic counts (``tests/test_torch_window_support.py``).  It computes
+each window's origin from fr/fc itself, so a call with the main path's
+argument types is one CUDA launch.
 """
 
 from __future__ import annotations
@@ -59,6 +66,65 @@ def slot_octave_geometry(caps: Sequence[int], row_starts: Sequence[int],
             per_slot([b.shape[-1] for b in blurs]))
 
 
+N_QUADS = (DESC_GRID + 1) ** 2   # descriptor quads: (floor(rbin), floor(cbin)) in -1..3
+
+
+def _box_span(f, centre, half, win: int, origin, extent):
+    """[lo, hi) of the window samples whose offset from the keypoint lies
+    in [centre - half, centre + half], inside the window and the octave
+    (``csrc/window.cu::box_span``, the same f32 operations)."""
+    lo = torch.ceil((f + centre) - half).to(torch.int64)
+    hi = torch.floor((f + centre) + half).to(torch.int64) + 1
+    lo = torch.maximum(lo.clamp(min=0), -origin)
+    hi = torch.minimum(hi.clamp(max=win), extent - origin)
+    return lo, hi
+
+
+def support_boxes(fr: torch.Tensor, fc: torch.Tensor, sigma: torch.Tensor, win: int,
+                  oct_h, oct_w, angle=None) -> torch.Tensor:
+    """K6's support boxes, as the kernel computes them, in window
+    coordinates (r0, r1, c0, c1), half-open, empty where r1 <= r0 or
+    c1 <= c0; clipped to the win x win window and to the oct_h x oct_w
+    octave (ints or (n,) tensors).  Without `angle`: (n, 4), the
+    orientation circle's box, |offset| <= floor(4.5 sigma) + 1.  With
+    `angle` (n,): (n, 25, 4), the box of each descriptor quad (qr, qc) in
+    -1..3 (quad 5 (qr + 1) + qc + 1): the samples whose (floor(rbin),
+    floor(cbin)) is (qr, qc), a square of side 3 sigma rotated by `angle`
+    and centred at bin offset (qr - 1, qc - 1), plus one sample.  The
+    kernel walks these boxes; the plain versions do not use them."""
+    rs, cs, fro, fco = window_origin(fr.float(), fc.float(), win)
+    sig = sigma.float()
+    H = torch.as_tensor(oct_h, device=fr.device).long()
+    W = torch.as_tensor(oct_w, device=fr.device).long()
+    rs, cs = rs.long(), cs.long()
+    if angle is None:
+        half = torch.floor(3.0 * (1.5 * sig)) + 1.0
+        zero = torch.zeros_like(sig)
+        r = _box_span(fro, zero, half, win, rs, H)
+        c = _box_span(fco, zero, half, win, cs, W)
+        return torch.stack([r[0], r[1], c[0], c[1]], dim=-1)
+    a = angle.float()
+    cos_t, sin_t = torch.cos(a)[:, None], torch.sin(a)[:, None]
+    sp = (3.0 * sig)[:, None]
+    q = torch.arange(N_QUADS, device=fr.device)
+    ur = (q // (DESC_GRID + 1) - 2).to(torch.float32)   # qr - 1
+    uc = (q % (DESC_GRID + 1) - 2).to(torch.float32)    # qc - 1
+    cr = sp * (cos_t * ur + sin_t * uc)
+    cc = sp * (cos_t * uc - sin_t * ur)
+    half = (0.5 * sp) * (torch.abs(cos_t) + torch.abs(sin_t)) + 1.0
+    if H.ndim:
+        H, W = H[:, None], W[:, None]
+    r = _box_span(fro[:, None], cr, half, win, rs[:, None], H)
+    c = _box_span(fco[:, None], cc, half, win, cs[:, None], W)
+    return torch.stack([r[0], r[1], c[0], c[1]], dim=-1)
+
+
+def box_samples(boxes: torch.Tensor) -> torch.Tensor:
+    """The samples each box holds: (r1 - r0) (c1 - c0), 0 where empty."""
+    return ((boxes[..., 1] - boxes[..., 0]).clamp(min=0)
+            * (boxes[..., 3] - boxes[..., 2]).clamp(min=0))
+
+
 def _check(mag, ori, arrays, win, max_ori) -> None:
     if mag.shape != ori.shape or mag.ndim != 3 or mag.dtype != torch.float32:
         raise ValueError("mag/ori must be matching (S, rows, wmax) float32 atlases")
@@ -68,6 +134,13 @@ def _check(mag, ori, arrays, win, max_ori) -> None:
             raise ValueError("per-keypoint arrays must be (cap,) on the atlas's device")
     if not 1 <= max_ori <= MAX_ORI or win < 1:
         raise ValueError(f"need 1 <= max_ori <= {MAX_ORI} and win >= 1")
+
+
+def _bytes(valid: torch.Tensor) -> torch.Tensor:
+    """A valid mask as the uint8 the kernels read: a view of a bool mask
+    (no launch), a cast of any other type."""
+    v = valid.contiguous()
+    return v.view(torch.uint8) if v.dtype == torch.bool else v.to(torch.uint8)
 
 
 REDUCE_MODES = ("scalar", "colsum")
@@ -96,23 +169,23 @@ def orient_desc_fused(mag: torch.Tensor, ori: torch.Tensor, s_int: torch.Tensor,
     S, rows, wmax = mag.shape
     n = fr.shape[0]
     dev = mag.device
-    rs, cs, fro, fco = window_origin(fr.float(), fc.float(), win)
-    i32 = [t.to(torch.int32).contiguous()
-           for t in (s_int - 1, rs, cs, row_off, oct_h, oct_w)]
-    f32 = [t.to(torch.float32).contiguous() for t in (fro, fco, sigma)]
-    v8 = valid.to(torch.uint8).contiguous()
+    # no-ops for the main path's types (int32 plane indices and octave
+    # geometry, f32 coordinates and sigma, a bool mask viewed as uint8), so
+    # a call launches the kernel alone
+    i32 = [t.to(torch.int32).contiguous() for t in (s_int, row_off, oct_h, oct_w)]
+    f32 = [t.to(torch.float32).contiguous() for t in (fr, fc, sigma)]
+    v8 = _bytes(valid)
     ang = torch.empty(n, max_ori, dtype=torch.float32, device=dev)
     ok = torch.empty(n, max_ori, dtype=torch.bool, device=dev)
     desc = torch.empty(n, max_ori, 128, dtype=torch.float32, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("sift_orient_desc",
-                         [vp, vp, ci, ci, ci] + [vp] * 10 + [ci, ci, vp, vp, vp, vp])
+                         [vp, vp, ci, ci, ci] + [vp] * 8 + [ci, ci, vp, vp, vp, vp])
     p = _build.ptr
     with torch.cuda.device(dev):
-        err = fn(p(mag), p(ori), int(rows), int(wmax), int(n), p(i32[0]), p(i32[1]),
-                 p(i32[2]), p(v8), p(f32[0]), p(f32[1]), p(f32[2]), p(i32[3]),
-                 p(i32[4]), p(i32[5]), int(win), int(max_ori), p(ang), p(ok), p(desc),
-                 _build.stream_of(mag))
+        err = fn(p(mag), p(ori), int(rows), int(wmax), int(n), p(i32[0]), p(f32[0]),
+                 p(f32[1]), p(v8), p(f32[2]), p(i32[1]), p(i32[2]), p(i32[3]), int(win),
+                 int(max_ori), p(ang), p(ok), p(desc), _build.stream_of(mag))
     _build.check(err, "orient_desc_fused")
     orient_desc_fused.launches += 1
     return ang, ok, desc
@@ -327,8 +400,7 @@ def _launch_hist(name, mag_p, ori_p, s_int, fr, fc, sigma, valid, win, angle=Non
     slots = [s_int.to(torch.int32).contiguous()]
     slots += [t.to(torch.float32).contiguous()
               for t in (fr, fc, sigma) + (() if angle is None else (angle,))]
-    v = valid.contiguous()
-    slots.append(v.view(torch.uint8) if v.dtype == torch.bool else v.to(torch.uint8))
+    slots.append(_bytes(valid))
     out = torch.empty(n, N_ORI_BINS if angle is None else 128, dtype=torch.float32,
                       device=mag.device)
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -523,3 +523,152 @@ def test_small_octaves_ladder_is_k2m_bit_for_bit(cuda, shape, n_oct, scales, mod
         assert gb.shape == wb.shape and gd.shape == wd.shape
         assert torch.equal(gb, mb) and torch.equal(gd, md)
         assert float((gb - wb).abs().max()) <= 1e-3 and float((gd - wd).abs().max()) <= 1e-3
+
+
+def _k6_args(stage_inputs, win: int, max_ori: int, corners: bool = True):
+    """K6's arguments on the stage inputs' keypoints; with `corners`, the
+    first valid slots of each octave moved to its four corners (boxes the
+    octave clips)."""
+    _, octaves, dogs, masks, caps = stage_inputs
+    blurs = [b for b, _ in octaves]
+    mag, ori, row_starts = gradpad.grad_atlas(blurs, CFG.scales)
+    idx, wr, _ = compact.compact_masks_multi(masks, caps)
+    s, r, c, valid = decode_compacted(dogs, masks, caps, idx, wr, CFG.border_dist)
+    fs, fr, fc, _, acc = refine.refine_multi(dogs, s, r, c, valid, caps, CFG.border_dist,
+                                             CFG.peak_thresh, CFG.max_interp_moves)
+    fr, fc, kvalid = fr.clone(), fc.clone(), (acc > 0) & valid
+    if corners:
+        off = 0
+        for o, cap in enumerate(caps):
+            h, w = blurs[o].shape[-2:]
+            slots = off + torch.nonzero(kvalid[off:off + cap]).flatten()[:4]
+            for slot, (y, x) in zip(slots.tolist(), ((0.2, 0.4), (0.3, w - 0.6),
+                                                      (h - 1.3, 0.1), (h - 0.55, w - 0.52))):
+                fr[slot], fc[slot] = y, x
+            off += cap
+    sigma = CFG.init_sigma * 2.0 ** (fs / CFG.scales)
+    return (mag, ori, s, fr, fc, sigma, kvalid, win, max_ori,
+            *window.slot_octave_geometry(caps, row_starts, blurs))
+
+
+def _k6_close(got, want) -> int:
+    """K6's gates against its plain version (as chip_smoke.py's): ok flags
+    equal up to near-tie peaks, angles within 1e-4, u8 descriptors within 1
+    count with mean < 0.01.  Returns the ok slots."""
+    from sift_pyocl_tpu_torch.ops.orient_desc import quantize_descriptors
+
+    (ak, okk, rk), (ap, okp, rp) = got, want
+    n_ok = int(okp.sum())
+    assert int((okk != okp).sum()) <= max(1, n_ok // 500)
+    both = okk & okp
+    if not bool(both.any()):
+        return n_ok
+    da = (ak[both] - ap[both]).abs()
+    assert float(torch.minimum(da, 2 * np.pi - da).max()) <= 1e-4
+    dq = (quantize_descriptors(rk[both]).int() - quantize_descriptors(rp[both]).int()).abs()
+    assert int(dq.max()) <= 1 and float(dq.float().mean()) < 0.01
+    assert not bool(rk[~okk].any())
+    return n_ok
+
+
+@pytest.mark.parametrize("win,max_ori", [(16, 2), (80, 2), (104, 1), (104, 2), (104, 8),
+                                         (136, 2)])
+def test_orient_desc_kernel_matches_plain_and_repeats(stage_inputs, win, max_ori):
+    """K6 (one launch, each keypoint's own support boxes) within its
+    tolerances of the plain version at windows 16-136 and max_ori 1, 2, 8,
+    with keypoints at every octave's corners; two calls give the same
+    bits."""
+    args = _k6_args(stage_inputs, win, max_ori)
+    reset_launch_counts()
+    got = window.orient_desc_fused(*args)
+    again = window.orient_desc_fused(*args)
+    assert window.orient_desc_fused.launches == 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert _k6_close(got, window.orient_desc_fused_ref(*args)) > 10
+
+
+def test_orient_desc_kernel_all_invalid(stage_inputs):
+    """Every slot invalid: zeros everywhere."""
+    args = list(_k6_args(stage_inputs, 104, 2, corners=False))
+    args[6] = torch.zeros_like(args[6])
+    ang, ok, desc = window.orient_desc_fused(*args)
+    assert not bool(ang.any()) and not bool(ok.any()) and not bool(desc.any())
+
+
+LADDER_SHAPES = [(135, 241), (77, 131), (7, 11)]   # odd; the last below a tap half-width
+
+
+@pytest.mark.parametrize("scales", [2, 3, 4])
+@pytest.mark.parametrize("shape", LADDER_SHAPES)
+def test_octave0_ladder_is_k1m_and_k9_bit_for_bit(cuda, shape, scales):
+    """K1 (staged, unrolled level body) bit-equal to K1m's stacks (which
+    keep the earlier level body) and to the same levels through K9, and
+    within 1e-3 of the plain ladder, at odd sizes, a plane smaller than a
+    tap half-width, scales 2, 3 and 4 (up to 39 taps)."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops import pyramid as tp
+
+    cfg = SiftConfig(scales=scales)
+    pre, incs = tp.pre_blur_sigma(cfg), cfg.sigma_increments()
+    x = tp.normalize_image(torch.from_numpy(synthetic_scene(shape, n_blobs=20, seed=4)).to(cuda))
+    reset_launch_counts()
+    b, d = ladder.octave0_ladder(x, pre, incs)
+    assert ladder.octave0_ladder.launches == 1
+    mb, md, _ = ladder.octave0_ladder(x, pre, incs, mask_cfg=(cfg.peak_thresh, 10.0, 1))
+    assert torch.equal(b, mb) and torch.equal(d, md)
+    level = conv.separable_blur(x, tp._taps(pre, cuda))
+    assert torch.equal(level, b[0])
+    for lv, s in enumerate(incs):
+        nxt = conv.separable_blur(b[lv], tp._taps(s, cuda))
+        assert torch.equal(nxt, b[lv + 1]) and torch.equal(nxt - b[lv], d[lv])
+    rb, rd = ladder.octave0_ladder_ref(x, pre, incs)
+    assert float((b - rb).abs().max()) <= 1e-3 and float((d - rd).abs().max()) <= 1e-3
+
+
+def test_orient_desc_and_octave0_ladder_replay_in_a_cuda_graph(stage_inputs, cuda):
+    """K6 and K1 captured once in a CUDA graph and replayed 5 times on new
+    inputs copied into the captured buffers: every replay equals an eager
+    call on the same inputs."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops import pyramid as tp
+
+    cfg = SiftConfig()
+    pre, incs = tp.pre_blur_sigma(cfg), cfg.sigma_increments()
+    args = list(_k6_args(stage_inputs, 104, 2))
+    static = [t.clone() if torch.is_tensor(t) else t for t in args]
+    rng = np.random.default_rng(13)
+    img = torch.from_numpy(rng.random((271, 483), dtype=np.float32) * 255).to(cuda)
+
+    def new_inputs():
+        a = list(args)
+        a[0] = args[0] * float(rng.uniform(0.5, 2.0))
+        a[3] = args[3] + torch.from_numpy(rng.uniform(-0.5, 0.5, args[3].shape).astype(
+            np.float32)).to(cuda)
+        a[6] = args[6] & torch.from_numpy(rng.random(args[6].shape[0]) < 0.8).to(cuda)
+        return a, torch.from_numpy(rng.random((271, 483), dtype=np.float32) * 255).to(cuda)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):             # warm-up on the capturing stream
+        for _ in range(2):
+            window.orient_desc_fused(*static)
+            ladder.octave0_ladder(img, pre, incs)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out_w = window.orient_desc_fused(*static)
+        out_l = ladder.octave0_ladder(img, pre, incs)
+    for _ in range(5):
+        a, new_img = new_inputs()
+        for i in (0, 3, 6):
+            static[i].copy_(a[i])
+        img.copy_(new_img)
+        graph.replay()
+        want_w = window.orient_desc_fused(*a)
+        want_l = ladder.octave0_ladder(new_img, pre, incs)
+        torch.cuda.synchronize()
+        for g, w in zip(out_w, want_w):
+            assert torch.equal(g, w)
+        for g, w in zip(out_l, want_l):
+            assert torch.equal(g, w)
