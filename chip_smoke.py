@@ -10,9 +10,10 @@
    shapes of its path (a 1080x1920 frame) and asserts parity: K1/K2 (blur
    ladders) and K9 (the blur of one plane, at SiftConfig(scales=2)'s five
    octave-0 sigmas) within 1e-3, K3 and K10a (compaction), K8 (extrema
-   masks, all 7 octaves) and K7 (best-2 matching, both calls of a VO step)
-   exactly, K4/K10b (refinement) with the same accepts and floats within
-   1e-5, K5, K6, K11a and K11b as in their tests.  Times each with CUDA
+   masks, all 7 octaves; one launch a call) and K7 (best-2 matching, both
+   calls of a VO step, each timed and profiled; one launch a call, the same
+   bits on two calls) exactly, K4/K10b (refinement) with the same accepts
+   and floats within 1e-5, K5, K6, K11a and K11b as in their tests.  Times each with CUDA
    events, beside the plain version, a PyTorch library call where one
    computes the same function, and the least time the card could take, and
    counts its CUDA launches and device time a call with torch.profiler
@@ -33,8 +34,8 @@
    twice a frame; the same run with plain=True agrees (keypoint counts,
    tracking, final camera centre, rotation).  Prints ms per step, the stage
    split, device time and launches per step, and host syncs per step; gates
-   the per-step CUDA launches of K1's, K2's, K3's and K6's kernels
-   (STEP_LAUNCHES, from torch.profiler; P1 and P7 likewise).
+   the per-step CUDA launches of K1's, K2's, K3's, K6's and K7's kernels and
+   K8's (STEP_LAUNCHES, from torch.profiler; P1 and P7 likewise).
 6. P1: the same VO run with SiftConfig(mask_backend="pallas"): K8 once,
    K1-K6 once and K7 twice a step, every frame's keypoint buffer equal to
    the default run's and the final pose within 1e-6 of it; ms per step,
@@ -498,6 +499,7 @@ def check_mask_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
                lambda: maskk.extrema_masks(dogs, cfg),
                lambda: maskk.extrema_masks_ref(dogs, cfg), 50,
                n_bytes=4 * sum(d.numel() for d in dogs) + mask_px, ops=70 * mask_px)
+    assert rec.rows["extrema_masks"]["cuda_launches"] == 1, "K8 made more than one CUDA launch"
 
     mask, cap = want[0], caps[0]
     got = compact.compact_mask(mask, cap)
@@ -574,7 +576,10 @@ def check_matcher(buf, rec: Kernels) -> None:
     main path's row validity: the frame's 8320 keypoint slots against a
     2048-slot map of 8 blocks of 256 valid keypoints, and the frame's 256
     strongest valid keypoints (vo_step's spawn rows) against its 8320 slots
-    (the keyframe)."""
+    (the keyframe).  Each call: the same bits on two calls, one CUDA
+    launch, its event and device time, bound and library time
+    (torch.mm + torch.topk); the row's main figures are the map call's,
+    the keyframe call's are its keyframe_* keys."""
     from sift_pyocl_tpu_torch.ops.kernels import matchk
 
     rng = np.random.default_rng(0)
@@ -590,29 +595,55 @@ def check_matcher(buf, rec: Kernels) -> None:
     assert bool(map_valid.all()) and bool(spawn_valid.all())
     cases = [("map", buf.desc, map_desc, map_valid, buf.valid),
              ("keyframe", spawn, buf.desc, buf.valid, spawn_valid)]
+    calls = {}
     for tag, d1, d2, v2, v1 in cases:
         got = matchk.best2_l2(d1, d2, v2, v1)
+        again = matchk.best2_l2(d1, d2, v2, v1)
         want = matchk.best2_l2_ref(d1, d2, v2)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
+        for g, a, w in zip(got, again, want):
             assert torch.equal(g[v1], w[v1]), f"K7 ({tag}) differs on valid rows"
-        ms = cuda_ms(lambda: matchk.best2_l2(d1, d2, v2, v1), 50)
-        plain_ms = cuda_ms(lambda: matchk.best2_l2_ref(d1, d2, v2), 12)
-        print(f"best2_l2 ({tag}, {d1.shape[0]} x {d2.shape[0]}, {int(v1.sum())} valid rows): "
-              f"equal on valid rows; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    d1, d2, v2, v1 = buf.desc, map_desc, map_valid, buf.valid
-    n_valid = int(v1.sum())
+            assert torch.equal(g, a), f"K7 ({tag}) gave other bits on a second call"
+        a32, b32 = d1.float(), d2.float()
+        n_rows, n_cols = int(v1.sum()), int(v2.sum())
+        launches, dev_ms = profile_calls(lambda: matchk.best2_l2(d1, d2, v2, v1))
+        assert launches == 1, f"K7 ({tag}) made {launches} CUDA launches a call"
+        # least work: each input read once, the outputs written once; 2 x
+        # 128 integer operations for each (valid row, valid column) pair
+        bound_ms, bound_by = bound(d1.numel() + d2.numel() + v1.numel() + v2.numel()
+                                   + 12 * d1.shape[0], 2 * 128 * n_rows * n_cols, INT8_OPS)
+        calls[tag] = {
+            "d1": d1, "d2": d2, "v1": v1, "v2": v2, "n_rows": n_rows, "n_cols": n_cols,
+            "ms": cuda_ms(lambda: matchk.best2_l2(d1, d2, v2, v1), 50),
+            "device_ms": dev_ms, "cuda_launches": launches,
+            "plain_ms": cuda_ms(lambda: matchk.best2_l2_ref(d1, d2, v2), 12),
+            "library_ms": cuda_ms(lambda: torch.topk(torch.mm(a32, b32.T), 2, dim=1,
+                                                     largest=False), 50),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        c = calls[tag]
+        print(f"best2_l2 ({tag}, {d1.shape[0]} x {d2.shape[0]}, {n_rows} valid rows, {n_cols} "
+              f"valid columns): equal on valid rows, the same bits on two calls; kernel "
+              f"{c['ms']:.4f} ms (device {dev_ms:.4f}, CUDA launches a call {launches:g}), plain "
+              f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    m = calls["map"]
+    d1, d2, v2, v1 = m["d1"], m["d2"], m["v2"], m["v1"]
     a32, b32 = d1.float(), d2.float()
 
     def library():
         torch.topk(torch.mm(a32, b32.T), 2, dim=1, largest=False)
 
-    rec.record("best2_l2", "sift_pyocl_tpu_torch/csrc/matchk.cu",
-               f"{ROOT}/ops/pallas/matchk.py:113", 0.0,
-               lambda: matchk.best2_l2(d1, d2, v2, v1),
-               lambda: matchk.best2_l2_ref(d1, d2, v2), 50,
-               n_bytes=d1.numel() + d2.numel() + v1.numel() + v2.numel() + 12 * d1.shape[0],
-               ops=2 * 128 * n_valid * d2.shape[0], peak_ops=INT8_OPS, library=library)
+    row = rec.record("best2_l2", "sift_pyocl_tpu_torch/csrc/matchk.cu",
+                     f"{ROOT}/ops/pallas/matchk.py:113", 0.0,
+                     lambda: matchk.best2_l2(d1, d2, v2, v1),
+                     lambda: matchk.best2_l2_ref(d1, d2, v2), 50,
+                     n_bytes=d1.numel() + d2.numel() + v1.numel() + v2.numel()
+                     + 12 * d1.shape[0], ops=2 * 128 * m["n_rows"] * m["n_cols"],
+                     peak_ops=INT8_OPS, library=library)
+    assert row["cuda_launches"] == 1, f"K7 made {row['cuda_launches']} CUDA launches a call"
+    k = calls["keyframe"]
+    row.update({f"keyframe_{f}": k[f] for f in ("ms", "device_ms", "cuda_launches", "plain_ms",
+                                                "library_ms", "bound_ms", "bound_by")})
 
 
 def plan_frames(plan, img, frames: int = FRAMES):
@@ -748,10 +779,16 @@ def check_vo_counts(init_counts, counts, extra=(), ladders=VO_KERNELS[:2]):
 # substrings in torch.profiler's trace): K2's one cooperative launch and
 # K3's one launch, where the per-level design launched 35 level and downsample kernels
 # (and a copy) for K2 and three kernels (and a fill) for K3; K1's six level
-# launches; K6's one launch, where its wrapper launched 12 more.
+# launches; K6's one launch, where its wrapper launched 12 more; K7's one
+# launch a call (map and keyframe), where its wrapper cast both valid masks
+# first; K8's one launch on P1 ("mask_kernel" also names K1m's
+# blur_level_mask_kernel, which these two paths never launch).
 STEP_LAUNCHES = {"small_octaves_kernel": 1, "compact_kernel": 1, "downsample_kernel": 0,
-                 "blur_level_kernel": 6, "orient_desc_kernel": 1}
-STEP_LAUNCHES_FUSED = {"small_octaves_kernel": 0, "compact_kernel": 1, "orient_desc_kernel": 1}
+                 "blur_level_kernel": 6, "orient_desc_kernel": 1, "best2_l2_kernel": 2,
+                 "mask_kernel": 0}
+STEP_LAUNCHES_P1 = {**STEP_LAUNCHES, "mask_kernel": 1}
+STEP_LAUNCHES_FUSED = {"small_octaves_kernel": 0, "compact_kernel": 1, "orient_desc_kernel": 1,
+                       "best2_l2_kernel": 2}
 
 
 def check_step_launches(tag: str, prof: dict, want: dict) -> None:
@@ -877,7 +914,7 @@ def check_vo_k8(base: dict) -> dict:
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
     prof = profiling.device_profile(one, 2)
-    check_step_launches("P1", prof, STEP_LAUNCHES)
+    check_step_launches("P1", prof, STEP_LAUNCHES_P1)
     print(f"P1: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
           f"mask's, final pose {gap:.3g} apart", flush=True)
     # the two mask backends in turns (default, K8, K8, default) in this one

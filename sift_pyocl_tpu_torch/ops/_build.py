@@ -143,3 +143,10 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def as_bytes(valid: torch.Tensor) -> torch.Tensor:
+    """A valid mask as the uint8 the kernels read: a view of a bool mask
+    (no launch), a cast of any other type."""
+    v = valid.contiguous()
+    return v.view(torch.uint8) if v.dtype == torch.bool else v.to(torch.uint8)

@@ -16,7 +16,7 @@ K1/K2 (``ladder.py``) equal bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -90,39 +90,76 @@ def _check(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> None:
             raise ValueError("DoG stacks must lie on one device with one plane count")
 
 
+class _Layout(NamedTuple):
+    """What a K8 call needs apart from the DoG pointers, for one set of
+    octave shapes and thresholds: the ctypes arguments and the masks'
+    places in the output."""
+    hs: ctypes.Array
+    ws: ctypes.Array
+    eths: ctypes.Array
+    outoff: ctypes.Array
+    ptrs: ctypes.Array          # refilled with the DoG pointers at each call
+    offs: List[int]
+    sizes: List[int]
+    shapes: List[Tuple[int, int, int]]
+    n_bytes: int
+
+
+_layouts: Dict[tuple, _Layout] = {}
+
+
+def _layout(dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> _Layout:
+    """The cached layout for these DoG shapes and `cfg` (built once)."""
+    bd = cfg.border_dist
+    key = (tuple(tuple(d.shape) for d in dogs), bd, cfg.peak_thresh, cfg.edge_thresh,
+           cfg.edge_thresh1, cfg.double_im_size)
+    lay = _layouts.get(key)
+    if lay is None:
+        shapes = [(d.shape[0] - 2, d.shape[1] - 2 * bd, d.shape[2] - 2 * bd) for d in dogs]
+        sizes = [s * h * w for s, h, w in shapes]
+        offs, n = [], 0
+        for size in sizes:
+            offs.append(n)
+            n += (size + 15) // 16 * 16
+        n_oct = len(dogs)
+        ci = ctypes.c_int
+        lay = _Layout(hs=(ci * n_oct)(*[d.shape[1] for d in dogs]),
+                      ws=(ci * n_oct)(*[d.shape[2] for d in dogs]),
+                      eths=(ctypes.c_float * n_oct)(*[octave_edge_thresh(cfg, o)
+                                                      for o in range(n_oct)]),
+                      outoff=(ctypes.c_longlong * n_oct)(*offs),
+                      ptrs=(ctypes.c_void_p * n_oct)(), offs=offs, sizes=sizes,
+                      shapes=shapes, n_bytes=n)
+        _layouts[key] = lay
+    return lay
+
+
 def extrema_masks(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> List[torch.Tensor]:
     """Every octave's extrema mask in one launch: octave o's (S-2, H-2bd,
     W-2bd) bool mask, equal to ``extrema_mask(octave_dogs[o], cfg, o)``.
-    On the card the masks are views of one uint8 0/1 allocation."""
+    On the card the masks are views of one uint8 0/1 allocation; a warm
+    call (shapes and cfg seen before) builds no ctypes array."""
     _check(octave_dogs, cfg)
     if not on_cuda(octave_dogs[0]):
         return extrema_masks_ref(octave_dogs, cfg)
     dogs = [d.contiguous() for d in octave_dogs]
     dev = dogs[0].device
-    bd = cfg.border_dist
-    shapes = [(d.shape[0] - 2, d.shape[1] - 2 * bd, d.shape[2] - 2 * bd) for d in dogs]
-    sizes = [s * h * w for s, h, w in shapes]
-    offs, n = [], 0
-    for size in sizes:
-        offs.append(n)
-        n += (size + 15) // 16 * 16
-    out = torch.empty(n, dtype=torch.uint8, device=dev)
-    n_oct = len(dogs)
+    lay = _layout(dogs, cfg)
+    for o, d in enumerate(dogs):
+        lay.ptrs[o] = d.data_ptr()
+    out = torch.empty(lay.n_bytes, dtype=torch.uint8, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("sift_extrema_masks",
                          [ci, vp, vp, vp, vp, vp, ci, ci, ctypes.c_float, vp, vp])
-    ptrs = (vp * n_oct)(*[d.data_ptr() for d in dogs])
-    hs = (ci * n_oct)(*[d.shape[1] for d in dogs])
-    ws = (ci * n_oct)(*[d.shape[2] for d in dogs])
-    eths = (ctypes.c_float * n_oct)(*[octave_edge_thresh(cfg, o) for o in range(n_oct)])
-    outoff = (ctypes.c_longlong * n_oct)(*offs)
     with torch.cuda.device(dev):
-        err = fn(n_oct, ptrs, hs, ws, eths, outoff, int(dogs[0].shape[0]), int(bd),
-                 float(0.8 * cfg.peak_thresh), _build.ptr(out), _build.stream_of(out))
+        err = fn(len(dogs), lay.ptrs, lay.hs, lay.ws, lay.eths, lay.outoff,
+                 int(dogs[0].shape[0]), int(cfg.border_dist), float(0.8 * cfg.peak_thresh),
+                 _build.ptr(out), _build.stream_of(out))
     _build.check(err, "extrema_masks")
     extrema_masks.launches += 1
     flat = out.view(torch.bool)
-    return [flat[off:off + size].view(shape) for off, size, shape in zip(offs, sizes, shapes)]
+    return [flat[off:off + size].view(shape)
+            for off, size, shape in zip(lay.offs, lay.sizes, lay.shapes)]
 
 
 extrema_masks.launches = 0

@@ -11,18 +11,30 @@ differ by the order of the dot products' sums.  There is no cap on the
 number of columns.  ``two_pass`` chooses how the TPU kernel reduces a
 distance tile; both of its values compute this one function, which the
 port's kernels compute whichever is given.
+
+K7 splits the columns into blocks of ``SPLIT_COLS`` and merges the splits'
+best-2 on the card by one rule (one launch a call); ``best2_split_merge``
+is the same merge in plain PyTorch, held to ``best2_l2_ref`` on the CPU
+(``tests/test_torch_match_splits.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import _build, on_cuda
 
 Best2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+SPLIT_COLS = 128     # desc2 columns a K7 block (its two 64-column tiles)
+ROW_TILE = 64        # query rows a K7 block (csrc/matchk.cu's MT)
+
+# K7's per-row-tile ticket counters, per (device, stream): zeroed at their
+# first use there and left zero by every call (csrc/matchk.cu).
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _check(desc1, desc2, valid2, valid1) -> None:
@@ -45,22 +57,68 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _launch(name: str, a: torch.Tensor, b: torch.Tensor, valid2: torch.Tensor,
-            valid1: Optional[torch.Tensor]) -> Best2:
-    """One launch of the C entry `name` on prepared operands."""
-    n1, n2 = a.shape[0], b.shape[0]
-    v2 = valid2.to(torch.uint8).contiguous()
-    v1 = None if valid1 is None else valid1.to(torch.uint8).contiguous()
+def _counters_of(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least `n` zeroed ticket counters for `stream` on `dev`."""
+    key = (dev.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("best2_l2: call it once on this stream at this size before "
+                               "capturing a CUDA graph (its counters are made at a call)")
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+        _counters[key] = buf
+    return buf
+
+
+def _optional_ptr(t: Optional[torch.Tensor]):
+    return None if t is None else _build.ptr(t)
+
+
+def _valid_bytes(valid2: torch.Tensor, valid1: Optional[torch.Tensor]):
+    """The masks as the kernels' uint8 (views of bool masks: no launch)."""
+    return _build.as_bytes(valid2), None if valid1 is None else _build.as_bytes(valid1)
+
+
+def _outputs(a: torch.Tensor) -> Best2:
+    n1 = a.shape[0]
     d1 = torch.empty(n1, dtype=torch.float32, device=a.device)
-    d2 = torch.empty_like(d1)
-    i1 = torch.empty(n1, dtype=torch.int32, device=a.device)
+    return d1, torch.empty_like(d1), torch.empty(n1, dtype=torch.int32, device=a.device)
+
+
+def _launch_u8(a: torch.Tensor, b: torch.Tensor, valid2: torch.Tensor,
+               valid1: Optional[torch.Tensor]) -> Best2:
+    """One launch of K7 on aligned u8 operands."""
+    n1, n2 = a.shape[0], b.shape[0]
+    d1, d2, i1 = _outputs(a)
+    v2, v1 = _valid_bytes(valid2, valid1)
+    n_splits = -(-n2 // SPLIT_COLS)
+    part = counters = None
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if n_splits > 1:
+        part = torch.empty(3 * n_splits * n1, dtype=torch.int32, device=a.device)
+        counters = _counters_of(a.device, stream, -(-n1 // ROW_TILE))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function(name, [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp])
+    fn = _build.function("sift_best2_l2", [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp])
+    p = _optional_ptr
     with torch.cuda.device(a.device):
-        err = fn(_build.ptr(a), _build.ptr(b), None if v1 is None else _build.ptr(v1),
-                 _build.ptr(v2), n1, n2, _build.ptr(d1), _build.ptr(d2), _build.ptr(i1),
+        err = fn(p(a), p(b), p(v1), p(v2), n1, n2, SPLIT_COLS, p(d1), p(d2), p(i1),
+                 p(part), p(counters), ctypes.c_void_p(stream))
+    _build.check(err, "best2_l2")
+    return d1, d2, i1
+
+
+def _launch_f32(a: torch.Tensor, b: torch.Tensor, valid2: torch.Tensor,
+                valid1: Optional[torch.Tensor]) -> Best2:
+    """One launch of K7f on contiguous f32 operands."""
+    d1, d2, i1 = _outputs(a)
+    v2, v1 = _valid_bytes(valid2, valid1)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("sift_best2_l2_f32", [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp])
+    p = _optional_ptr
+    with torch.cuda.device(a.device):
+        err = fn(p(a), p(b), p(v1), p(v2), a.shape[0], b.shape[0], p(d1), p(d2), p(i1),
                  _build.stream_of(a))
-    _build.check(err, name)
+    _build.check(err, "best2_l2_f32")
     return d1, d2, i1
 
 
@@ -80,7 +138,7 @@ def best2_l2(desc1: torch.Tensor, desc2: torch.Tensor, valid2: torch.Tensor,
         return best2_l2_ref(desc1, desc2, valid2)
     if desc1.dtype != torch.uint8 or desc2.dtype != torch.uint8:
         return best2_l2_f32(desc1, desc2, valid2, valid1)
-    out = _launch("sift_best2_l2", _aligned(desc1), _aligned(desc2), valid2, valid1)
+    out = _launch_u8(_aligned(desc1), _aligned(desc2), valid2, valid1)
     best2_l2.launches += 1
     return out
 
@@ -96,8 +154,8 @@ def best2_l2_f32(desc1: torch.Tensor, desc2: torch.Tensor, valid2: torch.Tensor,
     _check(desc1, desc2, valid2, valid1)
     if not on_cuda(desc1):
         return best2_l2_ref(desc1, desc2, valid2)
-    out = _launch("sift_best2_l2_f32", desc1.to(torch.float32).contiguous(),
-                  desc2.to(torch.float32).contiguous(), valid2, valid1)
+    out = _launch_f32(desc1.to(torch.float32).contiguous(),
+                      desc2.to(torch.float32).contiguous(), valid2, valid1)
     best2_l2_f32.launches += 1
     return out
 
@@ -123,3 +181,41 @@ def best2_l2_ref(desc1: torch.Tensor, desc2: torch.Tensor, valid2: torch.Tensor,
     col = torch.arange(dist.shape[1], device=dist.device)
     d2 = torch.where(col[None, :] == i1[:, None], torch.inf, dist).min(dim=1).values
     return d1, d2, i1.to(torch.int32)
+
+
+def _merge(a: Best2, b: Best2) -> Best2:
+    """K7's merge of two partial best-2 states (d1, d2, i1), row by row, by
+    the kernel's rule (``csrc/matchk.cu``):
+
+        other best lower, or equal at a lower column -> other wins and
+          second = min(own best, other second);
+        else second = min(own second, other best).
+
+    So the second excludes only the argmin column, and equal minima go to
+    the lowest column whatever the order of merging."""
+    best, second, idx = a
+    ob, os_, oi = b
+    wins = (ob < best) | ((ob == best) & (oi < idx))
+    return (torch.where(wins, ob, best),
+            torch.where(wins, torch.minimum(best, os_), torch.minimum(second, ob)),
+            torch.where(wins, oi, idx))
+
+
+def best2_split_merge(desc1: torch.Tensor, desc2: torch.Tensor, valid2: torch.Tensor,
+                      n_splits: int) -> Best2:
+    """K7's column splits in plain PyTorch: desc2's columns cut into
+    `n_splits` splits of ceil(N2 / n_splits) columns (the last one
+    shorter, empty splits dropped), each split's best-2 by
+    ``best2_l2_ref`` (a split with no valid column is (inf, inf, its
+    first column), the state the kernel starts a split from), merged in
+    ascending split order by ``_merge``.  Equals ``best2_l2_ref`` bit for
+    bit; every row is computed."""
+    _check(desc1, desc2, valid2, None)
+    n2 = desc2.shape[0]
+    width = -(-n2 // n_splits)
+    out = None
+    for c0 in range(0, n2, width):
+        d1, d2, i1 = best2_l2_ref(desc1, desc2[c0:c0 + width], valid2[c0:c0 + width])
+        part = (d1, d2, i1 + c0)
+        out = part if out is None else _merge(out, part)
+    return out

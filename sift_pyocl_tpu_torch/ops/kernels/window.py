@@ -25,6 +25,7 @@ argument types is one CUDA launch.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -38,6 +39,7 @@ PI_F = float(np.float32(np.pi))
 TWO_PI_F = float(np.float32(2 * np.pi))
 ORI_SCALE = float(np.float32(DESC_ORI / (2 * np.pi)))
 MAX_ORI = 8
+LOG2E = 1.0 / math.log(2.0)
 
 Fused = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -136,13 +138,6 @@ def _check(mag, ori, arrays, win, max_ori) -> None:
         raise ValueError(f"need 1 <= max_ori <= {MAX_ORI} and win >= 1")
 
 
-def _bytes(valid: torch.Tensor) -> torch.Tensor:
-    """A valid mask as the uint8 the kernels read: a view of a bool mask
-    (no launch), a cast of any other type."""
-    v = valid.contiguous()
-    return v.view(torch.uint8) if v.dtype == torch.bool else v.to(torch.uint8)
-
-
 REDUCE_MODES = ("scalar", "colsum")
 
 
@@ -174,7 +169,7 @@ def orient_desc_fused(mag: torch.Tensor, ori: torch.Tensor, s_int: torch.Tensor,
     # a call launches the kernel alone
     i32 = [t.to(torch.int32).contiguous() for t in (s_int, row_off, oct_h, oct_w)]
     f32 = [t.to(torch.float32).contiguous() for t in (fr, fc, sigma)]
-    v8 = _bytes(valid)
+    v8 = _build.as_bytes(valid)
     ang = torch.empty(n, max_ori, dtype=torch.float32, device=dev)
     ok = torch.empty(n, max_ori, dtype=torch.bool, device=dev)
     desc = torch.empty(n, max_ori, 128, dtype=torch.float32, device=dev)
@@ -250,6 +245,16 @@ def _offsets(fro, fco, win: int):
     return arf[None, :, None] - fro[:, None, None], arf[None, None, :] - fco[:, None, None]
 
 
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of an f32 tensor as exp2 in f64, rounded once to f32 (the
+    correctly rounded value but for rare near-ties), so that the plain
+    histograms have the same bits in every process.  PyTorch's exp on the
+    CPU (f32 and f64) computed one worker thread's chunk of a process's
+    first exp call at up to 1.5e-4 relative error in 10 of 240 processes;
+    its exp2 and pow never did (``tests/test_torch_window_determinism.py``)."""
+    return torch.exp2(x.to(torch.float64) * LOG2E).to(torch.float32)
+
+
 def _orientation_hists(mw, ow, rr, cc, sig) -> torch.Tensor:
     """(m, 36) orientation histograms of (m, win, win) windows: weight
     exp(-d2 / (2 sw^2)) * mag with sw = 1.5 sigma inside d2 < floor(3 sw)^2
@@ -259,7 +264,7 @@ def _orientation_hists(mw, ow, rr, cc, sig) -> torch.Tensor:
     sig_w = 1.5 * sig
     radius = torch.floor(3.0 * sig_w)
     inside = d2 < radius * radius + 0.5
-    w = torch.exp(-d2 / (2.0 * sig_w * sig_w)) * mw * inside
+    w = _exp_f32(-d2 / (2.0 * sig_w * sig_w)) * mw * inside
     b = torch.floor(N_ORI_BINS * (ow + PI_F) / TWO_PI_F).long().clamp(0, N_ORI_BINS - 1)
     hist = torch.zeros(m_, N_ORI_BINS, dtype=torch.float32, device=mw.device)
     return hist.scatter_add_(1, b.reshape(m_, -1), w.reshape(m_, -1))
@@ -280,7 +285,7 @@ def _descriptor_hists(mw, ow, rr, cc, sig, angle) -> torch.Tensor:
     rbin = rrot + (DESC_GRID / 2.0 - 0.5)
     cbin = crot + (DESC_GRID / 2.0 - 0.5)
     inside = (rbin > -1.0) & (rbin < DESC_GRID) & (cbin > -1.0) & (cbin < DESC_GRID)
-    gw = torch.exp(-(rrot * rrot + crot * crot) / (2.0 * (0.5 * DESC_GRID) ** 2))
+    gw = _exp_f32(-(rrot * rrot + crot * crot) / (2.0 * (0.5 * DESC_GRID) ** 2))
     mm = gw * mw * inside
     obin = (ow - angle) * ORI_SCALE
     obin = obin - torch.floor(obin / DESC_ORI) * DESC_ORI
@@ -400,7 +405,7 @@ def _launch_hist(name, mag_p, ori_p, s_int, fr, fc, sigma, valid, win, angle=Non
     slots = [s_int.to(torch.int32).contiguous()]
     slots += [t.to(torch.float32).contiguous()
               for t in (fr, fc, sigma) + (() if angle is None else (angle,))]
-    slots.append(_bytes(valid))
+    slots.append(_build.as_bytes(valid))
     out = torch.empty(n, N_ORI_BINS if angle is None else 128, dtype=torch.float32,
                       device=mag.device)
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

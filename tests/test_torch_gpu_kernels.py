@@ -152,7 +152,7 @@ def test_ladder_kernels_match_plain(cuda, mode):
     cfg = SiftConfig(downsample_mode=mode)
     incs = cfg.sigma_increments()
     pre = float((cfg.init_sigma**2 - cfg.orig_sigma**2) ** 0.5)
-    for shape in (SHAPE, (135, 241)):
+    for shape in (SHAPE, (135, 241), (77, 131)):
         x = normalize_image(torch.from_numpy(synthetic_scene(shape, n_blobs=20, seed=4)).to(cuda))
         got = ladder.octave0_ladder(x, pre, incs)
         want = ladder.octave0_ladder_ref(x, pre, incs)
@@ -168,10 +168,11 @@ def test_ladder_kernels_match_plain(cuda, mode):
             assert float((gb - wb).abs().max()) <= 1e-3 and float((gd - wd).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("n1,n2", [(512, 8320), (8320, 2048), (37, 1)])
+@pytest.mark.parametrize("n1,n2", [(512, 8320), (8320, 2048), (256, 8320), (37, 1), (64, 1)])
 def test_best2_l2_kernel_is_exact(cuda, n1, n2):
     """K7 equals its plain version on valid1 rows bit for bit, past the
-    TPU's 8192-column cap, with ties at the minimum and an all-invalid
+    TPU's 8192-column cap, with ties at the minimum (inside one column
+    split, and across splits: the lowest column wins) and an all-invalid
     column set; invalid rows come back (0, 0, 0)."""
     rng = np.random.default_rng(n1 + n2)
     d1 = torch.from_numpy(rng.integers(0, 256, (n1, 128), dtype=np.uint8))
@@ -184,6 +185,12 @@ def test_best2_l2_kernel_is_exact(cuda, n1, n2):
         d2[-1] = d2[-2] = d1[1]
         v1[:2] = True
         v2[[3, 5, -2, -1]] = True
+    if n2 > 2 * matchk.SPLIT_COLS + 100:   # row 0's tie also in split 1; row 2's in 1 and 2
+        s = matchk.SPLIT_COLS
+        d2[s + 44] = d2[3]
+        d2[s + 4] = d2[2 * s + 88] = d1[2]
+        v1[2] = True
+        v2[[s + 44, s + 4, 2 * s + 88]] = True
     d1, d2, v1, v2 = (t.to(cuda) for t in (d1, d2, v1, v2))
     for valid2 in (v2, torch.zeros_like(v2)):
         got = matchk.best2_l2(d1, d2, valid2, v1)
@@ -193,6 +200,8 @@ def test_best2_l2_kernel_is_exact(cuda, n1, n2):
             assert not a[~v1].any()
         if n2 > 8 and valid2 is v2:
             assert int(got[2][0]) == 3 and float(got[1][0]) == float(got[0][0]) == 0.0
+        if n2 > 2 * matchk.SPLIT_COLS + 100 and valid2 is v2:
+            assert int(got[2][2]) == matchk.SPLIT_COLS + 4 and float(got[1][2]) == 0.0
     # K7f on the same values as f32 (and mixed): integer sums below 2^24
     # are exact in f32, so it equals K7 bit for bit here
     reset_launch_counts()
@@ -317,7 +326,7 @@ def test_fused_ladder_masks_are_exact(cuda, mode):
     incs = cfg.sigma_increments()
     pre = float((cfg.init_sigma**2 - cfg.orig_sigma**2) ** 0.5)
     bd = cfg.border_dist
-    for shape in (SHAPE, (135, 241)):
+    for shape in (SHAPE, (135, 241), (77, 131)):
         x = normalize_image(torch.from_numpy(synthetic_scene(shape, n_blobs=20, seed=4)).to(cuda))
         n_oct = cfg.n_octaves(shape)
         b0, d0, m0 = ladder.octave0_ladder(
@@ -672,3 +681,140 @@ def test_orient_desc_and_octave0_ladder_replay_in_a_cuda_graph(stage_inputs, cud
             assert torch.equal(g, w)
         for g, w in zip(out_l, want_l):
             assert torch.equal(g, w)
+
+
+def _cuda_launches(fn, name: str, calls: int = 3):
+    """(launches of kernels named `name`, other CUDA launches: kernels,
+    memsets, copies) that torch.profiler records over `calls` calls of
+    fn(), each the most of five sessions.  A session now and then loses a
+    record, and a lost record only ever lowers a count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    named = other = 0
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        named = max(named, sum(name in e.name for e in events))
+        other = max(other, sum(name not in e.name for e in events))
+    return named, other
+
+
+def _vo_like_match_inputs(rng, n1, n2, cuda):
+    """u8 descriptors with the VO step's validity: valid slots in leading
+    blocks of each 1024-slot octave block (rows), all or most columns."""
+    d1 = torch.from_numpy(rng.integers(0, 256, (n1, 128), dtype=np.uint8)).to(cuda)
+    d2 = torch.from_numpy(rng.integers(0, 256, (n2, 128), dtype=np.uint8)).to(cuda)
+    v1 = torch.from_numpy(np.arange(n1) % 1024 < rng.integers(100, 300)).to(cuda)
+    v2 = torch.from_numpy(np.arange(n2) % 1024 < rng.integers(150, 1024)).to(cuda)
+    return d1, d2, v1, v2
+
+
+@pytest.mark.parametrize("n1,n2,single", [(8320, 2048, False), (256, 8320, False),
+                                          (256, 8320, True)])
+def test_best2_l2_one_launch_repeats_and_replays(cuda, n1, n2, single):
+    """K7 at both VO call shapes (and with a single valid row in a row
+    tile): bit-equal to its plain version, one CUDA launch a call, the same
+    bits on two calls, and captured in a CUDA graph and replayed 5 times
+    on new inputs, each replay equal to an eager call."""
+    rng = np.random.default_rng(n1 * 3 + n2 + single)
+    d1, d2, v1, v2 = _vo_like_match_inputs(rng, n1, n2, cuda)
+    if single:
+        v1 = torch.zeros_like(v1)
+        v1[130] = True
+    got = matchk.best2_l2(d1, d2, v2, v1)
+    want = matchk.best2_l2_ref(d1, d2, v2)
+    again = matchk.best2_l2(d1, d2, v2, v1)
+    for f, g, w, a in zip(("d1", "d2", "i1"), got, want, again):
+        assert torch.equal(g[v1], w[v1]), f"{f}: {int((g != w)[v1].sum())} valid rows differ"
+        assert not g[~v1].any() and torch.equal(g, a), f"{f}: invalid rows or a second call"
+    # one launch a call: only the kernel, at most once a call (the wrapper
+    # launches it once by construction), nothing else
+    reset_launch_counts()
+    named, other = _cuda_launches(lambda: matchk.best2_l2(d1, d2, v2, v1), "best2_l2_kernel")
+    assert other == 0 and 1 <= named <= 3 and matchk.best2_l2.launches == 16, (named, other)
+
+    static = [t.clone() for t in (d1, d2, v2, v1)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):             # warm-up on the capturing stream
+        for _ in range(2):
+            matchk.best2_l2(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = matchk.best2_l2(*static)
+    for _ in range(5):
+        new = _vo_like_match_inputs(rng, n1, n2, cuda)
+        new = (new[0], new[1], new[3], v1 if single else new[2])
+        for t, n in zip(static, new):
+            t.copy_(n)
+        graph.replay()
+        eager = matchk.best2_l2(*new)
+        torch.cuda.synchronize()
+        for f, g, w in zip(("d1", "d2", "i1"), out, eager):
+            assert torch.equal(g, w), f"replay {f}: {int((g != w).sum())} rows differ"
+
+
+def _mask_edge_octaves(rng, cfg, cuda):
+    """DoG stacks (5 planes) for K8's edge cases, one "octave" each: an odd
+    size; one smaller than a tile; plateaus (values on a coarse grid, so
+    neighbours are often equal: strictness decides); and isolated peaks
+    of exactly the strong threshold, one f32 step above it, and their
+    negatives (the threshold is strict).  The last two have widths that
+    are multiples of 4, so some of their tiles stage by 16-byte copies."""
+    thr = np.float32(0.8 * cfg.peak_thresh)
+    above = np.nextafter(thr, np.float32(np.inf))
+    odd = rng.normal(0, 3, (5, 47, 83)).astype(np.float32)
+    small = rng.normal(0, 3, (5, 17, 19)).astype(np.float32)
+    plateau = (rng.integers(-4, 5, (5, 80, 144)) * 0.9).astype(np.float32)
+    peaks = (rng.normal(0, 0.1, (5, 40, 72))).astype(np.float32)
+    for k, v in enumerate((thr, above, -thr, -above) * 6):
+        r, c = 6 + 5 * (k // 6), 6 + 10 * (k % 6)
+        peaks[2, r, c] = v
+    return [torch.from_numpy(a).to(cuda) for a in (odd, small, plateau, peaks)]
+
+
+def test_mask_kernel_edge_cases_and_graph_replay(cuda):
+    """K8 bit-equal to the plain stencil on odd sizes, an octave smaller
+    than one tile, plateaus and values exactly at the strong threshold;
+    captured in a CUDA graph and replayed 5 times on new DoGs, each replay
+    equal to an eager call."""
+    from sift_pyocl_tpu_torch import SiftConfig
+
+    cfg = SiftConfig()
+    rng = np.random.default_rng(21)
+    dogs = _mask_edge_octaves(rng, cfg, cuda)
+    got = maskk.extrema_masks(dogs, cfg)
+    want = maskk.extrema_masks_ref(dogs, cfg)
+    for o, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype == torch.bool and torch.equal(g, w), f"octave {o} differs"
+    assert int(want[3].sum()) == 12          # the peaks one step above the threshold
+    assert all(int(w.sum()) > 0 for w in want[:3])
+    reset_launch_counts()
+    named, other = _cuda_launches(lambda: maskk.extrema_masks(dogs, cfg), "mask_kernel")
+    assert other == 0 and 1 <= named <= 3 and maskk.extrema_masks.launches == 16, (named, other)
+
+    static = [d.clone() for d in dogs]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            maskk.extrema_masks(static, cfg)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = maskk.extrema_masks(static, cfg)
+    for _ in range(5):
+        new = _mask_edge_octaves(rng, cfg, cuda)
+        for t, n in zip(static, new):
+            t.copy_(n)
+        graph.replay()
+        eager = maskk.extrema_masks(new, cfg)
+        torch.cuda.synchronize()
+        for o, (g, w) in enumerate(zip(out, eager)):
+            assert torch.equal(g, w), f"replay: octave {o} differs"

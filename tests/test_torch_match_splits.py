@@ -1,0 +1,98 @@
+"""K7's column splits on the CPU: ``matchk.best2_split_merge`` (each split's
+best-2, merged in ascending split order by the kernel's rule) equals
+``best2_l2_ref`` bit for bit on random u8 descriptors, with the minimum
+tied inside one split and across two splits, an all-invalid split, every
+column invalid, and N2 not a multiple of the split width.  Port only: no
+JAX."""
+
+import numpy as np
+import pytest
+import torch
+
+from sift_pyocl_tpu_torch.ops.kernels import matchk
+
+N1 = 300
+
+
+def _data(n2: int, seed: int, p_valid: float = 0.8):
+    rng = np.random.default_rng(seed)
+    d1 = rng.integers(0, 256, (N1, 128), dtype=np.uint8)
+    d2 = rng.integers(0, 256, (n2, 128), dtype=np.uint8)
+    v2 = rng.uniform(size=n2) < p_valid
+    return d1, d2, v2
+
+
+def _check(d1, d2, v2, n_splits: int):
+    a, b, v = torch.from_numpy(d1), torch.from_numpy(d2), torch.from_numpy(v2)
+    want = matchk.best2_l2_ref(a, b, v)
+    got = matchk.best2_split_merge(a, b, v, n_splits)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return want
+
+
+@pytest.mark.parametrize("n2,n_splits", [(512, 2), (600, 3), (1000, 8), (257, 2), (97, 5),
+                                         (64, 64)])
+def test_random_descriptors(n2, n_splits):
+    _check(*_data(n2, n2 + n_splits), n_splits)
+
+
+def test_min_tied_inside_one_split():
+    d1, d2, v2 = _data(600, 1)
+    d2[[10, 40]] = d1[0]          # both in split 0 of 3 (200 columns each)
+    v2[[10, 40]] = True
+    d1_, d2_, i1 = _check(d1, d2, v2, 3)
+    assert int(i1[0]) == 10 and float(d1_[0]) == float(d2_[0]) == 0.0
+
+
+def test_min_tied_across_two_splits():
+    d1, d2, v2 = _data(600, 2)
+    d2[[450, 150, 350]] = d1[1]    # splits 2, 0 and 1
+    v2[[150, 350, 450]] = True
+    d1_, d2_, i1 = _check(d1, d2, v2, 3)
+    assert int(i1[1]) == 150 and float(d1_[1]) == float(d2_[1]) == 0.0
+    # and the kernel's own split width (SPLIT_COLS) on the same columns
+    _check(d1, d2, v2, -(-600 // matchk.SPLIT_COLS))
+
+
+def test_an_all_invalid_split():
+    d1, d2, v2 = _data(600, 3)
+    v2[200:400] = False
+    d2[300] = d1[2]               # an exact match in the invalid split
+    _, _, i1 = _check(d1, d2, v2, 3)
+    assert int(i1[2]) != 300
+
+
+def test_every_column_invalid():
+    d1, d2, v2 = _data(600, 4)
+    d1_, d2_, i1 = _check(d1, d2, np.zeros_like(v2), 3)
+    assert bool(torch.isinf(d1_).all()) and bool(torch.isinf(d2_).all())
+    assert not bool(i1.any())
+
+
+def test_one_valid_column_in_the_last_short_split():
+    d1, d2, v2 = _data(601, 5)
+    v2[:] = False
+    v2[600] = True                # the last split holds one column
+    d1_, d2_, i1 = _check(d1, d2, v2, 3)
+    assert bool((i1 == 600).all()) and bool(torch.isinf(d2_).all())
+
+
+def test_merge_rule_gives_the_lowest_column_in_any_order():
+    """The rule itself: merging the splits in any order gives the same
+    state, so the kernel's result does not depend on block order."""
+    d1, d2, v2 = _data(600, 6)
+    d2[[100, 300, 500]] = d1[3]
+    v2[[100, 300, 500]] = True
+    a, b, v = torch.from_numpy(d1), torch.from_numpy(d2), torch.from_numpy(v2)
+    parts = []
+    for c0 in range(0, 600, 200):
+        p = matchk.best2_l2_ref(a, b[c0:c0 + 200], v[c0:c0 + 200])
+        parts.append((p[0], p[1], p[2] + c0))
+    want = matchk.best2_l2_ref(a, b, v)
+    for order in ((0, 1, 2), (2, 1, 0), (1, 2, 0)):
+        out = parts[order[0]]
+        for k in order[1:]:
+            out = matchk._merge(out, parts[k])
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
