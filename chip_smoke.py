@@ -17,14 +17,15 @@
    events, beside the plain version, a PyTorch library call where one
    computes the same function, and the least time the card could take, and
    counts its CUDA launches and device time a call with torch.profiler
-   (cuda_events: the fullest of three sessions).  K2 (one cooperative
-   launch, at most 2 allowed) is held bit for bit to K2m's stacks
-   (per-level launches) on every small octave; K1's device time is printed
-   level by level; K3, K6 and K10a make one launch a call; K6 gives the
-   same bits on two calls, and its sample iterations a valid keypoint are
-   printed (the static window's against its support boxes'); K10a is also
-   checked and timed beside torch.nonzero on a full-capacity mask (octave
-   0's shape, density 1e-3, cap 2048, one tile past MAX_PER_TILE).
+   (cuda_events: the fullest of five sessions).  K2 (one cooperative
+   launch, at most 2 allowed) is held bit for bit to K2m's stacks (K2's
+   body, with mask items in its work list) on every small octave; K1's
+   device time is printed level by level; K3, K6 and K10a make one launch
+   a call; K6 gives the same bits on two calls, and its sample iterations
+   a valid keypoint are printed (the static window's against its support
+   boxes'); K10a is also checked and timed beside torch.nonzero on a
+   full-capacity mask (octave 0's shape, density 1e-3, cap 2048, one tile
+   past MAX_PER_TILE).
 4. Runs SiftPlan((1080, 1920), config=SLICE_CONFIG).keypoints for a few
    frames (the first slice's path, plain pyramid) with every launch counter
    reset just before, and holds its keypoints to the plain-version path.
@@ -60,9 +61,13 @@
    bit-equal to K8's and to the plain stencil's on those DoGs, all 7
    octaves; against their plain versions (plain ladder + stencil) the
    stacks within 1e-3 and no mask pixel different away from a decision;
-   timed beside K1 + K8, K2 + K8 and the plain versions.
+   K2m one CUDA launch a call and K1m at most 7; timed and profiled beside
+   K1 + K8, K2 + K8 and the plain versions.
 13. P7: the main path with SiftConfig(mask_backend="fused"): K1m and K2m
-   once a step, K1, K2 and K8 never, the plain stencil never called, K3-K6
+   once a step (their kernels gated per step: K2m's one cooperative
+   launch, K1m's six level launches and one mask launch; fewer CUDA
+   launches a step than the 2680 of K2m's per-level design), K1, K2 and
+   K8 never, the plain stencil never called, K3-K6
    once and K7 twice a step, every frame's keypoint buffer equal to the
    default run's, final pose within 1e-6; ms per step in turns (default,
    fused, fused, default), stage split and device time beside P1's and the
@@ -131,7 +136,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def cuda_events(fn, calls: int = 5, sessions: int = 3) -> list:
+def cuda_events(fn, calls: int = 5, sessions: int = 5) -> list:
     """The kernels, memsets and copies on the card that torch.profiler
     records over `calls` calls of fn() (after one more), from the one of
     `sessions` profiling sessions that recorded the most: a session now and
@@ -168,6 +173,16 @@ def launch_device_ms(fn, name: str, calls: int = 5) -> list:
     per = len(ev) // calls
     return [sum(ev[c * per + i].device_time_total for c in range(calls)) / 1e3 / calls
             for i in range(per)]
+
+
+def kernel_launch_ms(fn, name: str, calls: int = 5):
+    """(recorded launches a call, mean device ms a launch) of the kernels
+    named `name` in fn() (torch.profiler, cuda_events).  A lost record
+    lowers the count but not the mean, so for a kernel launched once a call
+    the mean is its device time a call even where profile_calls reads low."""
+    ev = [e for e in cuda_events(fn, calls) if name in e.name]
+    return len(ev) / calls, (sum(e.device_time_total for e in ev) / 1e3 / len(ev)
+                             if ev else float("nan"))
 
 
 def profile_calls(fn, wrapper_calls: int = 1, calls: int = 5):
@@ -282,7 +297,7 @@ def check_ladders(x: torch.Tensor, cfg, rec: Kernels) -> None:
     small = ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, cfg.downsample_mode)
     rsmall = ladder.small_octaves_ladder_ref(base, incs, n_oct - 1, cfg.scales,
                                              cfg.downsample_mode)
-    # K2 (one launch) against K2m (the per-level launches), bit for bit
+    # K2 against K2m (K2's body, with mask items in its work list), bit for bit
     eths = tuple(maskk.octave_edge_thresh(cfg, o) for o in range(1, n_oct))
     k2m = ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, cfg.downsample_mode,
                                       mask_cfg=(cfg.peak_thresh, eths, cfg.border_dist))
@@ -781,14 +796,17 @@ def check_vo_counts(init_counts, counts, extra=(), ladders=VO_KERNELS[:2]):
 # (and a copy) for K2 and three kernels (and a fill) for K3; K1's six level
 # launches; K6's one launch, where its wrapper launched 12 more; K7's one
 # launch a call (map and keyframe), where its wrapper cast both valid masks
-# first; K8's one launch on P1 ("mask_kernel" also names K1m's
-# blur_level_mask_kernel, which these two paths never launch).
-STEP_LAUNCHES = {"small_octaves_kernel": 1, "compact_kernel": 1, "downsample_kernel": 0,
+# first; K8's one launch on P1.  On P7, K2m is small_octaves_kernel_masks
+# (one launch, was 41.6 a call), and K1m is K1's six level launches and one
+# launch of K8's mask_kernel.
+STEP_LAUNCHES = {"small_octaves_kernel": 1, "compact_kernel": 1,
                  "blur_level_kernel": 6, "orient_desc_kernel": 1, "best2_l2_kernel": 2,
                  "mask_kernel": 0}
 STEP_LAUNCHES_P1 = {**STEP_LAUNCHES, "mask_kernel": 1}
-STEP_LAUNCHES_FUSED = {"small_octaves_kernel": 0, "compact_kernel": 1, "orient_desc_kernel": 1,
-                       "best2_l2_kernel": 2}
+STEP_LAUNCHES_FUSED = {**STEP_LAUNCHES, "mask_kernel": 1}
+# CUDA launches a P7 step with K2m's earlier per-level design (an H100 at
+# 1080x1920)
+P7_LAUNCHES_BEFORE = 2680
 
 
 def check_step_launches(tag: str, prof: dict, want: dict) -> None:
@@ -1338,8 +1356,16 @@ def check_fused_masks(x: torch.Tensor, rec: Kernels) -> None:
         maskk.extrema_masks([d for _, d in ladder.small_octaves_ladder(*args2)], cfg)
 
     ms_k1_k8, ms_k2_k8 = cuda_ms(k1_k8, 20), cuda_ms(k2_k8, 20)
-    print(f"unfused route of the same masks (CUDA events): K1 + K8 on octave 0 {ms_k1_k8:.4f} "
-          f"ms; K2 + K8 on octaves 1-{n_oct - 1} {ms_k2_k8:.4f} ms", flush=True)
+    (n_k1_k8, dev_k1_k8), (n_k2_k8, dev_k2_k8) = profile_calls(k1_k8), profile_calls(k2_k8)
+    # device ms a launch of each one-launch kernel, which a lost profiler
+    # record does not lower: K2m, and K2 and K8 on the same small octaves
+    per_launch = {"K2m": kernel_launch_ms(lambda: ladder.small_octaves_ladder_mask(*args2, mc),
+                                          "small_octaves_kernel_masks"),
+                  "K2": kernel_launch_ms(k2_k8, "small_octaves_kernel"),
+                  "K8 on octaves 1-6": kernel_launch_ms(k2_k8, "mask_kernel"),
+                  "K8 on octave 0": kernel_launch_ms(k1_k8, "mask_kernel")}
+    print("device ms a launch (recorded launches a call): " + ", ".join(
+        f"{k} {ms:.4f} ({n:g})" for k, (n, ms) in per_launch.items()), flush=True)
 
     h, w = SHAPE
     n_lv = len(incs)
@@ -1360,6 +1386,24 @@ def check_fused_masks(x: torch.Tensor, rec: Kernels) -> None:
                lambda: ladder.small_octaves_ladder_mask_ref(*args2, mc), 20,
                n_bytes=4 * (base.numel() + px * (2 * n_lv + 1)) + mask_px,
                ops=2 * 2 * sum(t.numel() for t in all_taps[1:]) * px + 70 * mask_px)
+    k1m, k2m = rec.rows["octave0_ladder_mask"], rec.rows["small_octaves_ladder_mask"]
+    table, blocks = ladder._small_plan(tuple(ladder._geometry(*base.shape, n_oct - 1)),
+                                       tuple(map(float, incs)), cfg.scales, x.device, bd)[:2]
+    print(f"K1m {k1m['ms']:.4f} ms (device {k1m['device_ms']:.4f}, CUDA launches a call "
+          f"{k1m['cuda_launches']:g}) beside K1 + K8 on octave 0 {ms_k1_k8:.4f} ms (device "
+          f"{dev_k1_k8:.4f}, {n_k1_k8:g}); K2m {k2m['ms']:.4f} ms (device {k2m['device_ms']:.4f}, "
+          f"{k2m['cuda_launches']:g}; {int(table[0])} steps on {blocks} blocks) beside K2 + K8 on "
+          f"octaves 1-{n_oct - 1} {ms_k2_k8:.4f} ms (device {dev_k2_k8:.4f}, {n_k2_k8:g})",
+          flush=True)
+    k1m["unfused"] = {"ms": ms_k1_k8, "device_ms": dev_k1_k8, "cuda_launches": n_k1_k8,
+                      "k8_device_ms_per_launch": per_launch["K8 on octave 0"][1]}
+    k2m["unfused"] = {"ms": ms_k2_k8, "device_ms": dev_k2_k8, "cuda_launches": n_k2_k8,
+                      "k2_device_ms_per_launch": per_launch["K2"][1],
+                      "k8_device_ms_per_launch": per_launch["K8 on octaves 1-6"][1]}
+    k2m["device_ms_per_launch"] = per_launch["K2m"][1]
+    # a lost profiler record only lowers a count
+    assert 0 < k2m["cuda_launches"] <= 1, f"K2m made {k2m['cuda_launches']} CUDA launches a call"
+    assert 0 < k1m["cuda_launches"] <= 7, f"K1m made {k1m['cuda_launches']} CUDA launches a call"
 
 
 def check_vo_fused(base: dict, p1: dict) -> dict:
@@ -1399,6 +1443,8 @@ def check_vo_fused(base: dict, p1: dict) -> dict:
 
     prof = profiling.device_profile(one, 2)
     check_step_launches("P7", prof, STEP_LAUNCHES_FUSED)
+    assert prof["kernel_launches_per_frame"] < P7_LAUNCHES_BEFORE, \
+        f"P7: {prof['kernel_launches_per_frame']} CUDA launches a step"
     print(f"P7: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
           f"mask's, final pose {gap:.3g} apart", flush=True)
     for tag, turn_cfg in (("default", SiftConfig()), ("fused", cfg), ("fused", cfg),

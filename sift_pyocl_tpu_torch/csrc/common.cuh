@@ -7,10 +7,10 @@
 // value in the kernel's parameter block.
 #define SIFT_MAX_OCT 32
 
-// The strong DoG extremum test of oracle.local_maxmin, shared by K8
-// (maskk.cu) and the in-ladder masks of K1/K2 (ladder.cu), so that both run
-// one arithmetic.  n[p][y][x] holds DoG planes s-1..s+1, rows r-1..r+1 and
-// columns c-1..c+1 around the tested value v = n[1][1][1].  True iff |v| >
+// The strong DoG extremum test of oracle.local_maxmin, run by the extrema
+// mask tile body (extrema_tile.cuh) that K8, K1m and K2m share.
+// n[p][y][x] holds DoG planes s-1..s+1, rows r-1..r+1 and columns c-1..c+1
+// around the tested value v = n[1][1][1].  True iff |v| >
 // strong_thresh (0.8 peak_thresh), v is strictly greater (or strictly
 // smaller) than all 26 neighbours, and the 2x2 spatial Hessian of plane s
 // passes det > 0 and det >= (eth*tr)*tr.  Every sum follows the plain

@@ -39,10 +39,9 @@
 //     of the previous level; the device's shared-memory limit is queried
 //     once a device, each instance's attribute set once.
 // Each output still sums its taps in ascending order from 0.0f, one
-// rounding per operation (the library is built with --fmad=false), so the
-// stacks are bit-equal to those of the mask forms, which keep the earlier
-// body, and K9 is one launch of the same kernel without the DoG, bit-equal
-// to K1's levels.  What bounds it now: within a level all blocks stage,
+// rounding per operation (the library is built with --fmad=false), and K9
+// is one launch of the same kernel without the DoG, bit-equal to K1's
+// levels.  What bounds it now: within a level all blocks stage,
 // then sum, then write at about the same time (one wave), so a level's
 // bytes and its issue overlap little.  Taps come from the caller's device
 // buffer; the pyramid still routes octave 0 per level wherever the JAX
@@ -75,46 +74,54 @@
 // through L2 (__ldcg: the read-only cache is not coherent with writes made
 // during a kernel), each tile's input window staged in shared memory by
 // independent loads, so that a tile waits on L2 once rather than once a row.
-// Each pixel's arithmetic is the level kernel's, operation by
-// operation, so K2's stacks are bit-equal to those of K2m, which keeps the
-// per-level launches.  The other way to the barrier, a thread-block cluster
-// holding an octave's plane pair in distributed shared memory (octave 2 is
-// 518 KB a plane, octave 3 130 KB) with cluster.sync(), fits only from
-// octave 2 or 3 on and would still need a grid-wide step for octave 1 (2 MB
-// a plane), i.e. two launch forms, where one grid barrier serves every
-// octave.  What remains on the card is the steps' latency: on an H100
+// Each pixel's arithmetic is the level kernel's, operation by operation
+// (the plain ladder's order of sums).  The other way to the barrier, a
+// thread-block cluster holding an octave's plane pair in distributed shared
+// memory (octave 2 is 518 KB a plane, octave 3 130 KB) with cluster.sync(),
+// fits only from octave 2 or 3 on and would still need a grid-wide step for
+// octave 1 (2 MB a plane), i.e. two launch forms, where one grid barrier
+// serves every octave.  What remains on the card is the steps' latency: on an H100
 // (chip_smoke.py's K2 floor, 20 steps of one tile each) about 4 us a step,
 // a barrier plus one tile's chain of L2 loads and tap loops.
 //
 // K1m and K2m, the mask forms (mask_cfg of the TPU kernels,
 // ladder0.py:113-167 and ladder.py:225-311, SiftConfig(mask_backend=
 // "fused")): the same ladders, plus each octave's border-stripped
-// (n_levels-2, H-2bd, W-2bd) uint8 0/1 extrema mask, in K8's layout
-// (maskk.cu), from common.cuh's sift_is_extremum, so the masks equal K8's
-// and the plain stencil's bit for bit.  Mask plane p is centred on DoG p+1
-// and needs DoGs p..p+2 with a one-pixel halo; in the launch that writes
-// DoG l, that halo belongs to neighbouring blocks.  Design: lag by one
-// level.  The launch that writes DoG l also tests plane l-3 (DoGs l-3..l-1,
-// all written by earlier launches on the stream), so planes 0..n_levels-4
-// ride on the blur launches and one tail launch per octave (mask_kernel)
-// tests the last plane; K2m keeps the per-level launches and a downsample
-// launch between octaves.  Recomputing the DoG halo inside each block was the
-// other choice; it would widen the horizontal pass past the warp's 32
-// columns and change the blur kernel, where the lag leaves the blur and DoG
-// arithmetic exactly as in K1/K2 (bit-equal by construction).  The mask
-// forms launch their own instance of the earlier level body
-// (blur_level_mask_kernel) for every level, so the kernel of K1 and K9
-// carries no mask argument or branch.  The mask
-// reads its 27 neighbours through the read-only cache from planes written
-// one to three launches before, which at 1080x1920 (three 8.3 MB planes)
-// still sit in the 50 MB L2; the TPU kernels' reason to fuse, keeping the
-// DoG ring out of HBM, holds here only as far as L2 holds it.  Each mask
-// byte is written once: K1m moves K1's bytes plus 6.2 MB of mask at
-// 1080x1920.
+// (n_levels-2, H-2bd, W-2bd) uint8 0/1 extrema mask, in K8's layout.  Both
+// run K8's tile body (extrema_tile.cuh), so the masks equal K8's and the plain
+// stencil's bit for bit, and both run K1's and K2's own blur code, so the
+// stacks equal K1's and K2's by construction.
+//   - K1m: K1's level launches, then one launch of K8's kernel over octave
+//     0's DoG stack on the same stream (7 launches at the default config).
+//     What it saves over K1 + K8 is one wrapper call: the mask launch
+//     takes what K8 takes on octave 0 (0.034 device ms at 1080x1920 on an
+//     H100, chip_smoke.py).  Folding the mask into K1's last level launches
+//     would need the DoG halos of neighbouring blocks, i.e. the lagged
+//     design this form replaced.
+//   - K2m: K2's one cooperative launch (small_octaves_kernel_masks, K2's
+//     body with kMask set), whose work list also holds one mask item an
+//     octave, on K8's 32 x 64 mask tiles, all in one step after the last
+//     blur pass (21 steps for 6 octaves of 5 levels, K2's 20 and one).  A
+//     step lasts as long as its slowest tile, and a mask tile outlasts a
+//     small octave's blur tile: each octave's item at the first step after
+//     its own last pass lengthened six steps (0.202 device ms against 0.182
+//     on an H100 at 1080x1920, tools/ab_fused_ladders.py).  A mask tile
+//     reads DoGs written by other blocks in earlier steps, so it reads them
+//     through L2 (extrema_tile.cuh's kL2 form), in the shared memory after the
+//     taps: the launch takes the larger of the blur tile's and the mask
+//     tile's shared memory (50 KB at the default config: the whole 5-plane
+//     stack, as K8), and the kernel is held to 128 registers, which keeps
+//     K2's two blocks an SM.  What bounds it is K2's: the steps' latency,
+//     and the mask step's two rounds of tiles on 264 blocks (349 tiles).
+// The TPU kernels fused the mask to keep the DoG ring out of HBM; here the
+// DoGs are written to device memory either way (the detector reads them),
+// so what the fusion saves is launches and, for K2m, the mask's own pass
+// over the small octaves' DoGs, which it reads while they sit in L2.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
+#include "extrema_tile.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -128,60 +135,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// The plane a mask-form launch tests: DoGs p..p+2 of one (n, H, W) stack
-// (d points at DoG p) into its border-stripped mask plane m.
-struct MaskPlane {
-  const float* d;
-  unsigned char* m;
-  int bd;
-  float strong_thresh;
-  float eth;
-};
-
-// Mask plane `mp` at this thread's pixels of the TW x TH tile at (r0, c):
-// rows r0 + threadIdx.y, r0 + threadIdx.y + TY, ... of column c, those
-// inside the border window.
-__device__ __forceinline__ void mask_tile(const MaskPlane& mp, int H, int W, int r0, int c) {
-  const int bd = mp.bd;
-  if (c < bd || c >= W - bd) return;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const int Wm = W - 2 * bd;
-  for (int i = threadIdx.y; i < TH; i += TY) {
-    const int r = r0 + i;
-    if (r >= H - bd) break;
-    if (r < bd) continue;
-    float n[3][3][3];
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const float* row = mp.d + p * plane + static_cast<size_t>(r + dy - 1) * W + (c - 1);
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) n[p][dy][dx] = __ldg(row + dx);
-      }
-    }
-    mp.m[static_cast<size_t>(r - bd) * Wm + (c - bd)] =
-        sift_is_extremum(n, mp.strong_thresh, mp.eth) ? 1 : 0;
-  }
-}
-
-// The tail launch of a mask-form octave: the last mask plane alone, on the
-// level kernel's tile grid.
-__global__ void __launch_bounds__(TW * TY) mask_kernel(MaskPlane mp, int H, int W) {
-  mask_tile(mp, H, W, blockIdx.y * TH, blockIdx.x * TW + threadIdx.x);
-}
-
 // The earlier level body: one blur level on the TW x TH tile of this block,
-// and with kMask the lagged mask plane `mp` (where mp.m is set) on the same
-// tile.  The mask forms run it for every level; blur_level_any_kernel, the
-// kMask = false instance, takes the tap counts blur_level_kernel<K> has no
-// instance of.
-template <bool kMask>
-__device__ __forceinline__ void blur_level_tile(const float* __restrict__ src,
-                                                float* __restrict__ dst,
-                                                float* __restrict__ dog, int H, int W,
-                                                const float* __restrict__ taps, int K,
-                                                const MaskPlane& mp) {
+// for the tap counts blur_level_kernel<K> has no instance of.
+__global__ void __launch_bounds__(TW * TY)
+blur_level_any_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                      float* __restrict__ dog, int H, int W,
+                      const float* __restrict__ taps, int K) {
   extern __shared__ float smem[];
   float* st = smem;                         // K taps
   float* hb = smem + ((K + 3) & ~3);        // (TH + 2*half) x TW
@@ -210,20 +169,6 @@ __device__ __forceinline__ void blur_level_tile(const float* __restrict__ src,
     dst[at] = acc;
     if (dog != nullptr) dog[at] = acc - src[at];
   }
-  if constexpr (kMask) {
-    if (mp.m != nullptr) mask_tile(mp, H, W, r0, c);
-  }
-}
-
-constexpr MaskPlane NO_MASK = {nullptr, nullptr, 0, 0.0f, 0.0f};
-
-// K1's and K9's level for a tap count that blur_level_kernel has no
-// instance of (any K): the mask forms' body without the mask.
-__global__ void __launch_bounds__(TW * TY)
-blur_level_any_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                      float* __restrict__ dog, int H, int W,
-                      const float* __restrict__ taps, int K) {
-  blur_level_tile<false>(src, dst, dog, H, W, taps, K, MaskPlane{});
 }
 
 // K1's and K9's level body (see the note at the top): an LW x LH output
@@ -324,47 +269,18 @@ __global__ void __launch_bounds__(LNT) blur_level_kernel(const float* __restrict
   }
 }
 
-// K1m/K2m's level launch: the blur level and the lagged mask plane `mp`.
-__global__ void __launch_bounds__(TW * TY)
-blur_level_mask_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                       float* __restrict__ dog, int H, int W,
-                       const float* __restrict__ taps, int K, MaskPlane mp) {
-  blur_level_tile<true>(src, dst, dog, H, W, taps, K, mp);
-}
-
-// Next octave's base from level `scales`: shrink (every other pixel) or
-// the 2x2 mean (rows paired first, then columns, each pair 0.5*a + 0.5*b;
-// on an odd edge the last row or column pairs with itself), ceil-sized.
-__global__ void downsample_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                                  int H, int W, int bin) {
-  const int Wo = (W + 1) / 2, Ho = (H + 1) / 2;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= Ho || j >= Wo) return;
-  const int r = 2 * i, c = 2 * j;
-  float v;
-  if (!bin) {
-    v = src[static_cast<size_t>(r) * W + c];
-  } else {
-    const int r1 = min(r + 1, H - 1), c1 = min(c + 1, W - 1);
-    const float* a = src + static_cast<size_t>(r) * W;
-    const float* b = src + static_cast<size_t>(r1) * W;
-    const float y0 = 0.5f * a[c] + 0.5f * b[c];
-    const float y1 = 0.5f * a[c1] + 0.5f * b[c1];
-    v = 0.5f * y0 + 0.5f * y1;
-  }
-  dst[static_cast<size_t>(i) * Wo + j] = v;
-}
-
 // K2's work list, as ops/kernels/ladder.py::schedule_table lays it out
 // (int32): n_steps, then the first item of each step (n_steps + 1 entries),
 // then ITEM_INTS per item.  Item fields: octave, level (the pass writes
 // level + 1 from level), H, W, tile height, tiles per row, the item's tile
 // range [tile_start, tile_end) within its step, tap offset, tap count, ds
 // (1: write the next octave's base from the level written, 2: from the
-// level read -- scales == 0).  Octave 0's first pass reads base1 and writes
-// it as level 0.
-constexpr int ITEM_INTS = 11;
+// level read -- scales == 0), mask.  Octave 0's first pass reads base1 and
+// writes it as level 0.  A mask item (mask = 1, K2m only) is the extrema
+// mask of the octave's whole DoG stack on extrema_tile.cuh's tiles: tile height
+// sift_mask::TH, tiles_x mask tiles across the border-stripped width, no
+// taps.
+constexpr int ITEM_INTS = 12;
 constexpr int MAX_TH = 64;   // the tallest tile the schedule picks
 
 struct SmallOctaves {
@@ -376,20 +292,29 @@ struct SmallOctaves {
   const int* table;
   float* blurs[SIFT_MAX_OCT];
   float* dogs[SIFT_MAX_OCT];
+  // K2m: each octave's (n_dogs - 2, H - 2bd, W - 2bd) mask and edge threshold
+  unsigned char* masks[SIFT_MAX_OCT];
+  float eths[SIFT_MAX_OCT];
+  int n_dogs;
+  int bd;
+  float strong_thresh;
 };
 
-// Shared memory of small_octaves_kernel: the taps, the tile's input window
-// ((MAX_TH + 2*max_half) x (TW + 2*max_half), clamped to the plane's
-// edges), the horizontal pass's (MAX_TH + 2*max_half) x TW sums and the
-// MAX_TH x TW output tile a downsample reads.
-size_t small_octaves_smem(int n_taps, int max_half) {
+// Shared memory of small_octaves_kernel: the taps, then either a blur
+// tile's input window ((MAX_TH + 2*max_half) x (TW + 2*max_half), clamped
+// to the plane's edges), the horizontal pass's (MAX_TH + 2*max_half) x TW
+// sums and the MAX_TH x TW output tile a downsample reads, or (K2m,
+// n_dogs > 0) a mask tile's plane slots and mask tiles, whichever is larger.
+size_t small_octaves_smem(int n_taps, int max_half, int n_dogs) {
   const size_t rows = MAX_TH + 2 * static_cast<size_t>(max_half);
-  return sizeof(float) * (((n_taps + 3) & ~3) + rows * (TW + 2 * static_cast<size_t>(max_half)) +
-                          rows * TW + static_cast<size_t>(MAX_TH) * TW);
+  const size_t blur = sizeof(float) * (rows * (TW + 2 * static_cast<size_t>(max_half)) +
+                                       rows * TW + static_cast<size_t>(MAX_TH) * TW);
+  const size_t mask = n_dogs > 0 ? sift_mask::smem_bytes(sift_mask::slots(n_dogs)) : 0;
+  return sizeof(float) * ((n_taps + 3) & ~3) + (blur > mask ? blur : mask);
 }
 
 // One tile (`lt`-th of its item) of one blur pass of K2, with the
-// arithmetic of blur_level_tile.  The block first stages the tile's whole
+// arithmetic of blur_level_any_kernel.  The block first stages the tile's whole
 // input window in shared memory through L2 (levels written in this launch
 // are not read through the non-coherent read-only cache), a batch of
 // independent loads a thread, so that the tile waits on L2 once and not
@@ -478,8 +403,10 @@ __device__ __forceinline__ void small_octave_tile(const SmallOctaves& a, const i
   }
   if (ds) {
     // the next octave's base over this tile's area (th and c0 even, so each
-    // 2x2 block, edge pairs included, lies inside the tile), as
-    // downsample_kernel computes it
+    // 2x2 block, edge pairs included, lies inside the tile): shrink, or the
+    // 2x2 mean (rows paired first, then columns, each pair 0.5*a + 0.5*b; on
+    // an odd edge the last row or column pairs with itself), as the plain
+    // ladder's downsample_octave
     __syncthreads();
     const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
     float* next = a.blurs[o + 1];
@@ -502,11 +429,27 @@ __device__ __forceinline__ void small_octave_tile(const SmallOctaves& a, const i
   __syncthreads();                          // shared memory is reused by the next tile
 }
 
-__global__ void __launch_bounds__(TW * TY) small_octaves_kernel(SmallOctaves a) {
-  extern __shared__ float smem[];
+// One tile (`lt`-th) of a mask item of K2m: extrema_tile.cuh's body on the
+// octave's DoG stack, read through L2 (other blocks wrote it in earlier
+// steps), in the shared memory `ring` after the taps.
+__device__ __forceinline__ void small_octave_extrema_tile(const SmallOctaves& a, const int* it,
+                                                       int lt, float* ring) {
+  const int o = it[0], tiles_x = it[5];
+  sift_mask::extrema_tile<true>(a.dogs[o], a.n_dogs, sift_mask::slots(a.n_dogs), it[2], it[3],
+                                a.bd, a.strong_thresh, a.eths[o], a.masks[o],
+                                (lt / tiles_x) * sift_mask::TH, (lt % tiles_x) * sift_mask::TW,
+                                ring, threadIdx.y * TW + threadIdx.x);
+  __syncthreads();                          // shared memory is reused by the next tile
+}
+
+// The body of K2 (kMask = false) and K2m (kMask = true: the work list also
+// holds mask items).
+template <bool kMask>
+__device__ __forceinline__ void small_octaves_body(const SmallOctaves& a) {
+  extern __shared__ __align__(16) float smem16[];
   const int rows = MAX_TH + 2 * a.max_half;
-  float* st = smem;
-  float* win = st + ((a.n_taps + 3) & ~3);
+  float* st = smem16;
+  float* win = st + ((a.n_taps + 3) & ~3);  // 16-byte aligned: a mask tile's ring
   float* hb = win + rows * (TW + 2 * a.max_half);
   float* otile = hb + rows * TW;
   const int tid = threadIdx.y * TW + threadIdx.x;
@@ -522,10 +465,33 @@ __global__ void __launch_bounds__(TW * TY) small_octaves_kernel(SmallOctaves a) 
       int i = i0;
       while (t >= items[i * ITEM_INTS + 7]) ++i;
       const int* it = items + i * ITEM_INTS;
+      if constexpr (kMask) {
+        if (it[11]) {
+          small_octave_extrema_tile(a, it, t - it[6], win);
+          continue;
+        }
+      }
       small_octave_tile(a, it, t - it[6], st, win, hb, otile);
     }
     if (s + 1 < n_steps) grid.sync();
   }
+}
+
+__global__ void __launch_bounds__(TW * TY) small_octaves_kernel(SmallOctaves a) {
+  small_octaves_body<false>(a);
+}
+
+// K2m, held to 128 registers so that two blocks an SM stay resident, as
+// K2's (left free, ptxas gave it 167).
+__global__ void __launch_bounds__(TW * TY, 2) small_octaves_kernel_masks(SmallOctaves a) {
+  small_octaves_body<true>(a);
+}
+
+// K2's kernel, or K2m's.
+template <bool kMask>
+constexpr auto small_octaves_fn() {
+  if constexpr (kMask) return small_octaves_kernel_masks;
+  else return small_octaves_kernel;
 }
 
 size_t level_smem(int K) {
@@ -595,99 +561,86 @@ cudaError_t launch_level(const float* src, float* dst, float* dog, int H, int W,
   }
 }
 
-// One level launch: K1's and K9's kernel, or with `mp` the mask forms'
-// (blur_level_mask_kernel, which also tests mask plane mp->m where set).
+// One level launch of K1's and K9's kernel.
 cudaError_t blur_level(const float* src, float* dst, float* dog, int H, int W,
-                       const float* taps, int K, cudaStream_t s,
-                       const MaskPlane* mp = nullptr) {
+                       const float* taps, int K, cudaStream_t s) {
   if (K < 1 || (K & 1) == 0 || H < 1 || W < 1) return cudaErrorInvalidValue;
   size_t max_smem = 0;
   cudaError_t e = max_block_smem(&max_smem);
   if (e != cudaSuccess) return e;
-  if (mp == nullptr) return launch_level<3>(src, dst, dog, H, W, taps, K, s, max_smem);
-  const size_t smem = level_smem(K);
-  if (smem > max_smem) return cudaErrorInvalidValue;
-  static bool done[64] = {};
-  e = allow_smem(blur_level_mask_kernel, smem, done);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  blur_level_mask_kernel<<<grid, dim3(TW, TY), smem, s>>>(src, dst, dog, H, W, taps, K, *mp);
-  return cudaGetLastError();
+  return launch_level<3>(src, dst, dog, H, W, taps, K, s, max_smem);
 }
 
-// Mask form of an octave: where its (n_levels-2, H-2bd, W-2bd) mask goes,
-// and the octave's thresholds.  mask == nullptr: no mask (K1, K9).
-struct OctaveMask {
-  unsigned char* mask;
-  int bd;
-  float strong_thresh;
-  float eth;
-};
-
-// levels 1..n_levels of one octave; blurs[0] already holds the base.  With
-// om.mask, the launch that writes DoG l >= 3 also tests mask plane l-3, and
-// a tail launch tests plane n_levels-3 (the lag by one level, see above).
-cudaError_t octave_levels(float* blurs, float* dogs, int H, int W, const float* taps,
-                          const int* offsets, const int* sizes, int tap0, int n_levels,
-                          cudaStream_t s, const OctaveMask& om) {
+// K1: level 0 the pre-blur of img, then levels 1..n_levels and their DoGs.
+cudaError_t octave0(const float* img, float* blurs, float* dogs, int H, int W,
+                    const float* taps, const int* offsets, const int* sizes, int n_levels,
+                    cudaStream_t s) {
+  cudaError_t e = blur_level(img, blurs, nullptr, H, W, taps + offsets[0], sizes[0], s);
   const size_t plane = static_cast<size_t>(H) * W;
-  if (om.mask != nullptr && (n_levels < 3 || om.bd < 1 || H <= 2 * om.bd || W <= 2 * om.bd))
+  for (int l = 0; l < n_levels && e == cudaSuccess; ++l)
+    e = blur_level(blurs + l * plane, blurs + (l + 1) * plane, dogs + l * plane, H, W,
+                   taps + offsets[1 + l], sizes[1 + l], s);
+  return e;
+}
+
+// The arguments of K2 and K2m's cooperative launch.
+cudaError_t small_octaves_args(int n_oct, const void* const* blurs, const void* const* dogs,
+                               const void* base1, const void* taps, int n_taps, int max_half,
+                               const void* table, int bin, SmallOctaves* a) {
+  if (n_oct < 1 || n_oct > SIFT_MAX_OCT || n_taps < 1 || max_half < 0)
     return cudaErrorInvalidValue;
-  const size_t mplane = om.mask == nullptr ? 0
-      : static_cast<size_t>(H - 2 * om.bd) * (W - 2 * om.bd);
-  auto plane_of = [&](int p) {
-    return MaskPlane{dogs + p * plane, om.mask + p * mplane, om.bd, om.strong_thresh, om.eth};
-  };
-  for (int l = 0; l < n_levels; ++l) {
-    const MaskPlane mp = l >= 3 ? plane_of(l - 3) : NO_MASK;
-    cudaError_t e = blur_level(blurs + l * plane, blurs + (l + 1) * plane,
-                               dogs + l * plane, H, W, taps + offsets[tap0 + l],
-                               sizes[tap0 + l], s, om.mask != nullptr ? &mp : nullptr);
-    if (e != cudaSuccess) return e;
-  }
-  if (om.mask != nullptr) {
-    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-    mask_kernel<<<grid, dim3(TW, TY), 0, s>>>(plane_of(n_levels - 3), H, W);
-    return cudaGetLastError();
+  *a = SmallOctaves{};
+  a->bin = bin;
+  a->n_taps = n_taps;
+  a->max_half = max_half;
+  a->base1 = static_cast<const float*>(base1);
+  a->taps = static_cast<const float*>(taps);
+  a->table = static_cast<const int*>(table);
+  for (int o = 0; o < n_oct; ++o) {
+    a->blurs[o] = static_cast<float*>(const_cast<void*>(blurs[o]));
+    a->dogs[o] = static_cast<float*>(const_cast<void*>(dogs[o]));
   }
   return cudaSuccess;
 }
 
-cudaError_t octave0(const float* img, float* blurs, float* dogs, int H, int W,
-                    const float* taps, const int* offsets, const int* sizes, int n_levels,
-                    cudaStream_t s, const OctaveMask& om) {
-  cudaError_t e = blur_level(img, blurs, nullptr, H, W, taps + offsets[0], sizes[0], s,
-                             om.mask != nullptr ? &NO_MASK : nullptr);
+// One cooperative launch of K2's kernel (kMask = false) or K2m's on
+// `blocks` blocks.
+template <bool kMask>
+cudaError_t launch_small_octaves(SmallOctaves& a, int blocks, cudaStream_t s) {
+  if (blocks < 1) return cudaErrorInvalidValue;
+  const size_t smem = small_octaves_smem(a.n_taps, a.max_half, kMask ? a.n_dogs : 0);
+  cudaError_t e = cudaFuncSetAttribute(small_octaves_fn<kMask>(),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  return octave_levels(blurs, dogs, H, W, taps, offsets, sizes, 1, n_levels, s, om);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(small_octaves_fn<kMask>()),
+                                  dim3(blocks), dim3(TW, TY), args, smem, s);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
-// K2m: every small octave level by level (K2's earlier per-level form, with the
-// lagged mask), each next base by a downsample launch.
-cudaError_t small_octaves_mask(int n_oct, const void* const* blurs, const void* const* dogs,
-                               void* const* masks, const int* hs, const int* ws,
-                               const float* taps, const int* offsets, const int* sizes,
-                               int n_levels, int scales, int bin, int bd, float strong_thresh,
-                               const float* eths, cudaStream_t s) {
-  if (n_oct < 1 || scales < 0 || scales > n_levels) return cudaErrorInvalidValue;
-  for (int o = 0; o < n_oct; ++o) {
-    float* b = static_cast<float*>(const_cast<void*>(blurs[o]));
-    const OctaveMask om{static_cast<unsigned char*>(masks[o]), bd, strong_thresh, eths[o]};
-    cudaError_t e = octave_levels(b, static_cast<float*>(const_cast<void*>(dogs[o])),
-                                  hs[o], ws[o], taps, offsets, sizes, 0, n_levels, s, om);
-    if (e != cudaSuccess) return e;
-    if (o + 1 < n_oct) {
-      if (hs[o + 1] != (hs[o] + 1) / 2 || ws[o + 1] != (ws[o] + 1) / 2)
-        return cudaErrorInvalidValue;
-      const dim3 blk(32, 8);
-      const dim3 grid((ws[o + 1] + 31) / 32, (hs[o + 1] + 7) / 8);
-      downsample_kernel<<<grid, blk, 0, s>>>(
-          b + static_cast<size_t>(scales) * hs[o] * ws[o],
-          static_cast<float*>(const_cast<void*>(blurs[o + 1])), hs[o], ws[o], bin);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return e;
-    }
-  }
+// Blocks of K2's (kMask = false) or K2m's cooperative launch: as many as
+// fit on the card at once, at most two an SM.
+template <bool kMask>
+cudaError_t small_octaves_grid(size_t smem, int* blocks) {
+  int dev = 0, sms = 0, max_smem = 0, per_sm = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(small_octaves_fn<kMask>(),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, small_octaves_fn<kMask>(),
+                                                      TW * TY, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = sms * min(per_sm, 2);
   return cudaSuccess;
 }
 
@@ -703,22 +656,26 @@ extern "C" int sift_octave0_ladder(const void* img, void* blurs, void* dogs, int
                                    int n_levels, void* stream) {
   return octave0(static_cast<const float*>(img), static_cast<float*>(blurs),
                  static_cast<float*>(dogs), H, W, static_cast<const float*>(taps), offsets,
-                 sizes, n_levels, static_cast<cudaStream_t>(stream),
-                 OctaveMask{nullptr, 0, 0.0f, 0.0f});
+                 sizes, n_levels, static_cast<cudaStream_t>(stream));
 }
 
 // K1m.  K1, plus mask: (n_levels - 2, H - 2bd, W - 2bd) uint8, the extrema
 // mask of octave 0 at strong_thresh (0.8 peak_thresh) and edge threshold
-// eth.  Needs n_levels >= 3, bd >= 1 and H, W > 2bd.
+// eth: K1's launches, then one launch of K8's kernel on the DoG stack.
+// Needs n_levels >= 3, bd >= 1 and H, W > 2bd.
 extern "C" int sift_octave0_ladder_mask(const void* img, void* blurs, void* dogs, void* mask,
                                         int H, int W, const void* taps, const int* offsets,
                                         const int* sizes, int n_levels, int bd,
                                         float strong_thresh, float eth, void* stream) {
-  if (mask == nullptr) return cudaErrorInvalidValue;
-  return octave0(static_cast<const float*>(img), static_cast<float*>(blurs),
-                 static_cast<float*>(dogs), H, W, static_cast<const float*>(taps), offsets,
-                 sizes, n_levels, static_cast<cudaStream_t>(stream),
-                 OctaveMask{static_cast<unsigned char*>(mask), bd, strong_thresh, eth});
+  if (mask == nullptr || n_levels < 3 || bd < 1 || H <= 2 * bd || W <= 2 * bd)
+    return cudaErrorInvalidValue;
+  const int e = sift_octave0_ladder(img, blurs, dogs, H, W, taps, offsets, sizes, n_levels,
+                                    stream);
+  if (e != cudaSuccess) return e;
+  const void* d = dogs;
+  const long long at = 0;
+  return sift_extrema_masks(1, &d, &H, &W, &eth, &at, n_levels, bd, strong_thresh, mask,
+                            stream);
 }
 
 // K9.  src, dst: (H, W) f32; taps: device f32, K of them (odd).  dst is src
@@ -730,35 +687,22 @@ extern "C" int sift_separable_blur(const void* src, void* dst, int H, int W, con
                     static_cast<const float*>(taps), K, static_cast<cudaStream_t>(stream));
 }
 
-// Blocks of K2's cooperative launch: as many as fit on the card at once, at
-// most two an SM, for taps of n_taps floats and half-width max_half.
-extern "C" int sift_small_octaves_ladder_grid(int n_taps, int max_half, int* blocks) {
-  if (n_taps < 1 || max_half < 0 || blocks == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = small_octaves_smem(n_taps, max_half);
-  int dev = 0, sms = 0, max_smem = 0, per_sm = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  if (!coop) return cudaErrorNotSupported;
-  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(small_octaves_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, small_octaves_kernel, TW * TY,
-                                                      smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = sms * min(per_sm, 2);
-  return cudaSuccess;
+// Blocks of K2's cooperative launch (n_dogs = 0), or of K2m's for octaves
+// of n_dogs DoG planes: as many as fit on the card at once, at most two an
+// SM, for taps of n_taps floats and half-width max_half.
+extern "C" int sift_small_octaves_ladder_grid(int n_taps, int max_half, int n_dogs,
+                                              int* blocks) {
+  if (n_taps < 1 || max_half < 0 || n_dogs < 0 || blocks == nullptr)
+    return cudaErrorInvalidValue;
+  const size_t smem = small_octaves_smem(n_taps, max_half, n_dogs);
+  return n_dogs > 0 ? small_octaves_grid<true>(smem, blocks)
+                    : small_octaves_grid<false>(smem, blocks);
 }
 
 // K2.  n_oct octaves with sizes ceil-halved from base1's (H, W); blurs[o]:
 // (n_levels + 1, h_o, w_o) f32, dogs[o]: (n_levels, h_o, w_o) f32, all
-// written here (level 0 of the first from base1, of the others by downsample,
-// bin != 0: 2x2 mean, else shrink, of the octave before's level `scales`).
+// written here (level 0 of the first from base1, of the others from the
+// octave before's level `scales`: bin != 0, its 2x2 mean, else shrink).
 // taps: the n_levels increments' n_taps taps back to back, max_half their
 // largest half-width; table: the work list of small_octaves_schedule on the
 // device; blocks: sift_small_octaves_ladder_grid's count (or fewer).  One
@@ -768,43 +712,35 @@ extern "C" int sift_small_octaves_ladder(int n_oct, const void* const* blurs,
                                          const void* taps, int n_taps, int max_half,
                                          const void* table, int bin, int blocks,
                                          void* stream) {
-  if (n_oct < 1 || n_oct > SIFT_MAX_OCT || n_taps < 1 || max_half < 0 || blocks < 1)
-    return cudaErrorInvalidValue;
-  SmallOctaves a = {};
-  a.bin = bin;
-  a.n_taps = n_taps;
-  a.max_half = max_half;
-  a.base1 = static_cast<const float*>(base1);
-  a.taps = static_cast<const float*>(taps);
-  a.table = static_cast<const int*>(table);
-  for (int o = 0; o < n_oct; ++o) {
-    a.blurs[o] = static_cast<float*>(const_cast<void*>(blurs[o]));
-    a.dogs[o] = static_cast<float*>(const_cast<void*>(dogs[o]));
-  }
-  const size_t smem = small_octaves_smem(n_taps, max_half);
-  cudaError_t e = cudaFuncSetAttribute(small_octaves_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+  SmallOctaves a;
+  cudaError_t e = small_octaves_args(n_oct, blurs, dogs, base1, taps, n_taps, max_half, table,
+                                     bin, &a);
   if (e != cudaSuccess) return e;
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(small_octaves_kernel),
-                                  dim3(blocks), dim3(TW, TY), args, smem,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_small_octaves<false>(a, blocks, static_cast<cudaStream_t>(stream));
 }
 
-// K2m.  K2, plus masks[o]: (n_levels - 2, hs[o] - 2bd, ws[o] - 2bd) uint8,
-// octave o's extrema mask at strong_thresh and its edge threshold eths[o].
+// K2m.  K2, plus masks[o]: (n_dogs - 2, h_o - 2bd, w_o - 2bd) uint8, octave
+// o's extrema mask at strong_thresh and its edge threshold eths[o]; n_dogs
+// is n_levels, table holds the mask items (small_octaves_schedule with
+// mask_bd = bd) and blocks is the grid entry's count for n_dogs.  One
+// cooperative launch.
 extern "C" int sift_small_octaves_ladder_mask(int n_oct, const void* const* blurs,
                                               const void* const* dogs, void* const* masks,
-                                              const int* hs, const int* ws, const void* taps,
-                                              const int* offsets, const int* sizes,
-                                              int n_levels, int scales, int bin, int bd,
-                                              float strong_thresh, const float* eths,
-                                              void* stream) {
-  if (masks == nullptr || eths == nullptr) return cudaErrorInvalidValue;
-  return small_octaves_mask(n_oct, blurs, dogs, masks, hs, ws, static_cast<const float*>(taps),
-                            offsets, sizes, n_levels, scales, bin, bd, strong_thresh, eths,
-                            static_cast<cudaStream_t>(stream));
+                                              const void* base1, const void* taps, int n_taps,
+                                              int max_half, const void* table, int bin,
+                                              int n_dogs, int bd, float strong_thresh,
+                                              const float* eths, int blocks, void* stream) {
+  if (masks == nullptr || eths == nullptr || n_dogs < 3 || bd < 1) return cudaErrorInvalidValue;
+  SmallOctaves a;
+  cudaError_t e = small_octaves_args(n_oct, blurs, dogs, base1, taps, n_taps, max_half, table,
+                                     bin, &a);
+  if (e != cudaSuccess) return e;
+  for (int o = 0; o < n_oct; ++o) {
+    a.masks[o] = static_cast<unsigned char*>(masks[o]);
+    a.eths[o] = eths[o];
+  }
+  a.n_dogs = n_dogs;
+  a.bd = bd;
+  a.strong_thresh = strong_thresh;
+  return launch_small_octaves<true>(a, blocks, static_cast<cudaStream_t>(stream));
 }

@@ -14,7 +14,9 @@ versions are the plain pyramid's (``ops.pyramid.octave0_ladder_ref`` and
 With ``mask_cfg`` (the TPU kernels' argument of that name, behind
 ``SiftConfig(mask_backend="fused")``) each octave also gets its extrema
 mask from inside the ladder, as a third value: K1m ``octave0_ladder_mask``
-and K2m ``small_octaves_ladder_mask``, which count their launches apart
+(K1's launches, then K8's mask kernel on octave 0) and K2m
+``small_octaves_ladder_mask`` (K2's one launch, whose work list also holds
+a mask item an octave on K8's tiles), which count their launches apart
 from K1's and K2's.  The JAX kernels return the mask with garbage borders;
 these return it border-stripped, (scales, H - 2bd, W - 2bd) bool, as K8
 and the plain stencil do, so ``mask_cfg`` carries ``bd`` as its third
@@ -169,6 +171,9 @@ def _check_small(base1: torch.Tensor, increments, n_oct: int, scales: int, ds_mo
 # warps a block (csrc/ladder.cu)
 TW, TY = 32, 8
 TILE_HEIGHTS = (64, 32, 16, 8)
+# K2m's mask items run K8's tile body: MASK_TH x MASK_TW mask pixels a tile
+# (csrc/extrema_tile.cuh)
+MASK_TH, MASK_TW = 32, 64
 
 
 class LadderItem(NamedTuple):
@@ -176,7 +181,11 @@ class LadderItem(NamedTuple):
     `level`, over tiles [tile_start, tile_end) of its step (``tiles_x``
     across, ``th`` rows each), taps [tap_off, tap_off + K); ds 1 writes the
     next octave's base from the level written, 2 from the level read
-    (scales == 0).  Octave 0's pass 0 reads base1 and writes it as level 0."""
+    (scales == 0).  Octave 0's pass 0 reads base1 and writes it as level 0.
+    With ``mask`` 1 (K2m), the octave's extrema mask over its whole DoG
+    stack instead: ``level`` is the number of passes it follows (the DoG
+    planes), tiles of MASK_TH x MASK_TW mask pixels (``tiles_x`` across the
+    border-stripped width), no taps."""
     octave: int
     level: int
     H: int
@@ -188,6 +197,7 @@ class LadderItem(NamedTuple):
     tap_off: int
     K: int
     ds: int
+    mask: int = 0
 
 
 def _tile_height(h: int, w: int, half: int, n_blocks: int) -> int:
@@ -203,12 +213,19 @@ def _tile_height(h: int, w: int, half: int, n_blocks: int) -> int:
 
 
 def small_octaves_schedule(geo: Sequence[Tuple[int, int]], tap_sizes: Sequence[int],
-                           scales: int, n_blocks: int) -> List[List[LadderItem]]:
+                           scales: int, n_blocks: int,
+                           mask_bd: Optional[int] = None) -> List[List[LadderItem]]:
     """K2's work list: steps of blur passes, each pass depending only on
     passes of earlier steps.  Octave o's pass l (level l+1 from level l)
     runs at step start(o) + l, where start(0) = 0 and octave o+1 starts one
     step after the pass that writes its base (level `scales` of octave o,
-    or level 0 read by pass 0 when scales == 0), so octaves overlap."""
+    or level 0 read by pass 0 when scales == 0), so octaves overlap.  With
+    ``mask_bd`` (K2m's border), one more step after the last pass holds
+    every octave's mask item.  (A step lasts as long as its slowest tile, and
+    a mask tile outlasts a small octave's blur tile: each octave's item at
+    the first step after its own last pass lengthened six steps, 0.202
+    device ms against 0.182 on an H100 at 1080x1920's small octaves,
+    ``tools/ab_fused_ladders.py``.)"""
     n_lv = len(tap_sizes)
     if n_lv < 1 or not 0 <= scales <= n_lv:
         raise ValueError(f"need >= 1 increment and 0 <= scales <= {n_lv}, got {scales}")
@@ -223,13 +240,20 @@ def small_octaves_schedule(geo: Sequence[Tuple[int, int]], tap_sizes: Sequence[i
         for l in range(n_lv):
             ds = (2 if scales == 0 else 1) if o + 1 < len(geo) and l == ds_pass else 0
             steps.setdefault(start + l, []).append(
-                (o, l, h, w, th, tiles_x, tiles, offsets[l], tap_sizes[l], ds))
+                (o, l, h, w, th, tiles_x, tiles, offsets[l], tap_sizes[l], ds, 0))
         start += ds_pass + 1
+    if mask_bd is not None:
+        last = len(steps)
+        for o, (h, w) in enumerate(geo):
+            mx = math.ceil((w - 2 * mask_bd) / MASK_TW)
+            steps.setdefault(last, []).append(
+                (o, n_lv, h, w, MASK_TH, mx, mx * math.ceil((h - 2 * mask_bd) / MASK_TH),
+                 0, 0, 0, 1))
     out = []
     for s in range(len(steps)):
         items, t = [], 0
-        for o, l, h, w, th, tiles_x, tiles, off, k, ds in steps[s]:
-            items.append(LadderItem(o, l, h, w, th, tiles_x, t, t + tiles, off, k, ds))
+        for o, l, h, w, th, tiles_x, tiles, off, k, ds, mask in steps[s]:
+            items.append(LadderItem(o, l, h, w, th, tiles_x, t, t + tiles, off, k, ds, mask))
             t += tiles
         out.append(items)
     return out
@@ -246,20 +270,42 @@ def schedule_table(steps: List[List[LadderItem]]) -> np.ndarray:
 
 @lru_cache(maxsize=32)
 def _small_plan(geo: Tuple[Tuple[int, int], ...], increments: Tuple[float, ...], scales: int,
-                device: torch.device):
+                device: torch.device, mask_bd: Optional[int] = None):
     """(device table, blocks, taps, tap count, largest half-width) of K2's
-    launch for these octaves and sigmas on `device`."""
+    launch for these octaves and sigmas on `device`; with ``mask_bd``,
+    K2m's (the work list with its mask items, the grid for its shared
+    memory)."""
     taps, _, sizes = _taps_table(increments, device)
     sizes = list(sizes)
     half = max((k - 1) // 2 for k in sizes)
     blocks = ctypes.c_int(0)
-    fn = _build.function("sift_small_octaves_ladder_grid", [ctypes.c_int, ctypes.c_int,
-                                                            ctypes.c_void_p])
+    ci = ctypes.c_int
+    fn = _build.function("sift_small_octaves_ladder_grid", [ci, ci, ci, ctypes.c_void_p])
+    n_dogs = 0 if mask_bd is None else len(sizes)
     with torch.cuda.device(device):
-        _build.check(fn(sum(sizes), half, ctypes.byref(blocks)), "small_octaves_ladder")
-    steps = small_octaves_schedule(geo, sizes, scales, blocks.value)
+        _build.check(fn(sum(sizes), half, n_dogs, ctypes.byref(blocks)), "small_octaves_ladder")
+    steps = small_octaves_schedule(geo, sizes, scales, blocks.value, mask_bd)
     table = torch.as_tensor(schedule_table(steps), device=device)
     return table, blocks.value, taps, sum(sizes), half
+
+
+def _small_args(base1: torch.Tensor, increments: Sequence[float], n_oct: int, scales: int,
+                ds_mode: str, mask_bd: Optional[int] = None):
+    """What K2's and K2m's C entries share: the octave geometry, the plan,
+    the allocated stacks and the leading ctypes arguments (n_oct, blur and
+    DoG pointers, then base1, taps, tap count, half-width, table, bin).
+    `base1` is contiguous, and the caller holds it until the launch."""
+    dev = base1.device
+    geo = _geometry(*base1.shape, n_oct)
+    table, blocks, taps, n_taps, half = _small_plan(tuple(geo), tuple(map(float, increments)),
+                                                    scales, dev, mask_bd)
+    blurs, dogs = _allocate(geo, len(increments), dev)
+    vp = ctypes.c_void_p
+    lead = (n_oct, (vp * n_oct)(*[b.data_ptr() for b in blurs]),
+            (vp * n_oct)(*[d.data_ptr() for d in dogs]))
+    rest = (_build.ptr(base1), _build.ptr(taps), n_taps, half, _build.ptr(table),
+            int(ds_mode == "bin"))
+    return geo, blocks, blurs, dogs, lead, rest
 
 
 def small_octaves_ladder(base1: torch.Tensor, increments: Sequence[float], n_oct: int,
@@ -275,21 +321,13 @@ def small_octaves_ladder(base1: torch.Tensor, increments: Sequence[float], n_oct
     _check_small(base1, increments, n_oct, scales, ds_mode)
     if not on_cuda(base1):
         return small_octaves_ladder_ref(base1, increments, n_oct, scales, ds_mode)
-    dev = base1.device
-    n = len(increments)
-    geo = _geometry(*base1.shape, n_oct)
-    table, blocks, taps, n_taps, half = _small_plan(tuple(geo), tuple(map(float, increments)),
-                                                    scales, dev)
     base1 = base1.contiguous()
-    blurs, dogs = _allocate(geo, n, dev)
+    _, blocks, blurs, dogs, lead, rest = _small_args(base1, increments, n_oct, scales, ds_mode)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("sift_small_octaves_ladder",
                          [ci, vp, vp, vp, vp, ci, ci, vp, ci, ci, vp])
-    bp = (vp * n_oct)(*[b.data_ptr() for b in blurs])
-    dp = (vp * n_oct)(*[d.data_ptr() for d in dogs])
-    with torch.cuda.device(dev):
-        err = fn(n_oct, bp, dp, _build.ptr(base1), _build.ptr(taps), n_taps, half,
-                 _build.ptr(table), int(ds_mode == "bin"), blocks, _build.stream_of(base1))
+    with torch.cuda.device(base1.device):
+        err = fn(*lead, *rest, blocks, _build.stream_of(base1))
     _build.check(err, "small_octaves_ladder")
     small_octaves_ladder.launches += 1
     return list(zip(blurs, dogs))
@@ -318,23 +356,18 @@ def small_octaves_ladder_mask(base1: torch.Tensor, increments: Sequence[float], 
     if not on_cuda(base1):
         return small_octaves_ladder_mask_ref(base1, increments, n_oct, scales, ds_mode, mask_cfg)
     dev = base1.device
-    taps, offsets, sizes = _taps_table(tuple(map(float, increments)), dev)
-    blurs, dogs = _allocate(geo, n, dev)
+    base1 = base1.contiguous()
+    geo, blocks, blurs, dogs, lead, rest = _small_args(base1, increments, n_oct, scales,
+                                                       ds_mode, bd)
     masks = [torch.empty((n - 2, h - 2 * bd, w - 2 * bd), dtype=torch.uint8, device=dev)
              for h, w in geo]
-    blurs[0][0].copy_(base1)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.function("sift_small_octaves_ladder_mask",
-                         [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, vp, vp])
-    bp = (vp * n_oct)(*[b.data_ptr() for b in blurs])
-    dp = (vp * n_oct)(*[d.data_ptr() for d in dogs])
+                         [ci, vp, vp, vp, vp, vp, ci, ci, vp, ci, ci, ci, cf, vp, ci, vp])
     mp = (vp * n_oct)(*[m.data_ptr() for m in masks])
-    hs = (ci * n_oct)(*[h for h, _ in geo])
-    ws = (ci * n_oct)(*[w for _, w in geo])
     ec = (cf * n_oct)(*map(float, eths))
     with torch.cuda.device(dev):
-        err = fn(n_oct, bp, dp, mp, hs, ws, _build.ptr(taps), offsets, sizes, n, scales,
-                 int(ds_mode == "bin"), bd, float(0.8 * peak), ec, _build.stream_of(base1))
+        err = fn(*lead, mp, *rest, n, bd, float(0.8 * peak), ec, blocks, _build.stream_of(base1))
     _build.check(err, "small_octaves_ladder_mask")
     small_octaves_ladder_mask.launches += 1
     return [(b, d, m.view(torch.bool)) for b, d, m in zip(blurs, dogs, masks)]

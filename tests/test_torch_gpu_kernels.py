@@ -512,9 +512,10 @@ def test_compaction_and_small_octaves_replay_in_a_cuda_graph(cuda):
     ((541, 963), 6, 3, "shrink"), ((541, 963), 6, 2, "bin"), ((135, 241), 1, 3, "bin"),
     ((135, 241), 1, 2, "shrink"), ((77, 131), 3, 3, "bin"), ((77, 131), 3, 2, "shrink")])
 def test_small_octaves_ladder_is_k2m_bit_for_bit(cuda, shape, n_oct, scales, mode):
-    """K2 in one launch: its blur and DoG stacks bit-equal to K2m's (which
-    keeps the per-level launches) and within 1e-3 of the plain ladder, at
-    odd sizes, one and six octaves, scales 2 and 3, both downsamples."""
+    """K2 in one launch: its blur and DoG stacks bit-equal to K2m's (K2's
+    body, whose work list also holds mask items) and within 1e-3 of the
+    plain ladder, at odd sizes, one and six octaves, scales 2 and 3, both
+    downsamples."""
     from sift_pyocl_tpu_torch import SiftConfig
 
     cfg = SiftConfig(scales=scales, downsample_mode=mode)
@@ -611,8 +612,8 @@ LADDER_SHAPES = [(135, 241), (77, 131), (7, 11)]   # odd; the last below a tap h
 @pytest.mark.parametrize("scales", [2, 3, 4])
 @pytest.mark.parametrize("shape", LADDER_SHAPES)
 def test_octave0_ladder_is_k1m_and_k9_bit_for_bit(cuda, shape, scales):
-    """K1 (staged, unrolled level body) bit-equal to K1m's stacks (which
-    keep the earlier level body) and to the same levels through K9, and
+    """K1 (staged, unrolled level body) bit-equal to K1m's stacks (K1's
+    launches, then K8's mask kernel) and to the same levels through K9, and
     within 1e-3 of the plain ladder, at odd sizes, a plane smaller than a
     tap half-width, scales 2, 3 and 4 (up to 39 taps)."""
     from sift_pyocl_tpu_torch import SiftConfig
@@ -818,3 +819,140 @@ def test_mask_kernel_edge_cases_and_graph_replay(cuda):
         torch.cuda.synchronize()
         for o, (g, w) in enumerate(zip(out, eager)):
             assert torch.equal(g, w), f"replay: octave {o} differs"
+
+
+@pytest.mark.parametrize("mode", ["shrink", "bin"])
+@pytest.mark.parametrize("scales", [2, 3, 4])
+def test_fused_masks_match_stencil_and_k8(cuda, scales, mode):
+    """K1m's and K2m's masks bit-equal to the plain stencil and to K8 on
+    their own DoGs, and their stacks bit-equal to K1's and K2's, at scales
+    2, 3 and 4 (4 to 6 DoG planes: K8's tile holds the whole stack), both
+    downsamples, odd sizes and octaves smaller than one 32 x 64 mask tile
+    (77x131's octaves 1-2, 23x37's octave 1)."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops import pyramid as tp
+
+    cfg = SiftConfig(scales=scales, downsample_mode=mode, mask_backend="fused")
+    pre, incs, bd = tp.pre_blur_sigma(cfg), cfg.sigma_increments(), cfg.border_dist
+    n_hits = 0
+    for shape, n_oct in (((135, 241), None), ((77, 131), 3), ((23, 37), 2)):
+        n_oct = n_oct or cfg.n_octaves(shape)
+        img = torch.from_numpy(synthetic_scene(shape, n_blobs=20, seed=7 + scales)).to(cuda)
+        x = tp.normalize_image(img)
+        b0, d0, m0 = ladder.octave0_ladder(
+            x, pre, incs, mask_cfg=(cfg.peak_thresh, maskk.octave_edge_thresh(cfg, 0), bd))
+        kb0, kd0 = ladder.octave0_ladder(x, pre, incs)
+        assert torch.equal(b0, kb0) and torch.equal(d0, kd0), shape
+        base = tp.downsample_octave(b0[cfg.scales], mode)
+        eths = tuple(maskk.octave_edge_thresh(cfg, o) for o in range(1, n_oct))
+        small = ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, mode,
+                                            mask_cfg=(cfg.peak_thresh, eths, bd))
+        for o, ((b, d, _), (kb, kd)) in enumerate(zip(
+                small, ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, mode))):
+            assert torch.equal(b, kb) and torch.equal(d, kd), (shape, o + 1)
+        dogs = [d0] + [d for _, d, _ in small]
+        masks = [m0] + [m for _, _, m in small]
+        assert len(masks) == n_oct and all(m.shape[0] == scales for m in masks)
+        k8 = maskk.extrema_masks(dogs, cfg)
+        for o, (m, k, d) in enumerate(zip(masks, k8, dogs)):
+            st = maskk.extrema_mask(d, cfg, o)
+            assert m.dtype == torch.bool and torch.equal(m, st), \
+                f"{shape} octave {o}: {int((m != st).sum())} pixels differ from the stencil"
+            assert torch.equal(m, k), f"{shape} octave {o}: differs from K8"
+            n_hits += int(m.sum())
+    assert n_hits > 10
+
+
+def test_fused_ladders_launch_once_and_replay_in_a_cuda_graph(cuda):
+    """K2m is one CUDA launch a call (its cooperative kernel, nothing else)
+    and K1m at most seven (K1's six level launches and K8's mask kernel),
+    counted by torch.profiler (each count the most of five sessions, since
+    a session may lose a record); both captured in a CUDA graph and
+    replayed 5 times on new images, every replay bit-equal to an eager
+    call."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops import pyramid as tp
+
+    cfg = SiftConfig(mask_backend="fused")
+    shape = (271, 483)
+    n_oct = cfg.n_octaves(shape)
+    pre, incs, bd = tp.pre_blur_sigma(cfg), cfg.sigma_increments(), cfg.border_dist
+    mc0 = (cfg.peak_thresh, maskk.octave_edge_thresh(cfg, 0), bd)
+    mc = (cfg.peak_thresh, tuple(maskk.octave_edge_thresh(cfg, o) for o in range(1, n_oct)), bd)
+    rng = np.random.default_rng(31)
+
+    def new_image():
+        scene = synthetic_scene(shape, n_blobs=30, seed=int(rng.integers(1 << 30)))
+        return tp.normalize_image(torch.from_numpy(scene).to(cuda))
+
+    x = new_image()
+    base = tp.downsample_octave(ladder.octave0_ladder(x, pre, incs)[0][cfg.scales], "shrink")
+    reset_launch_counts()
+    k2m = lambda: ladder.small_octaves_ladder(base, incs, n_oct - 1, cfg.scales, "shrink", mc)
+    named, other = _cuda_launches(k2m, "small_octaves_kernel")
+    assert other == 0 and 1 <= named <= 3, (named, other)
+    assert ladder.small_octaves_ladder_mask.launches == 16
+    k1m = lambda: ladder.octave0_ladder(x, pre, incs, mc0)
+    blur, not_blur = _cuda_launches(k1m, "blur_level_kernel")
+    mask, not_mask = _cuda_launches(k1m, "mask_kernel")
+    assert 1 <= mask <= 3 and not_blur <= 3 and blur <= 6 * 3 and not_mask <= 6 * 3, \
+        (blur, not_blur, mask, not_mask)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):             # warm-up on the capturing stream
+        for _ in range(2):
+            k1m()
+            k2m()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out1 = k1m()
+        out2 = k2m()
+    for _ in range(5):
+        nx = new_image()
+        nbase = tp.downsample_octave(ladder.octave0_ladder(nx, pre, incs)[0][cfg.scales], "shrink")
+        x.copy_(nx)
+        base.copy_(nbase)
+        graph.replay()
+        want1 = ladder.octave0_ladder(nx, pre, incs, mc0)
+        want2 = ladder.small_octaves_ladder(nbase, incs, n_oct - 1, cfg.scales, "shrink", mc)
+        torch.cuda.synchronize()
+        for g, w in zip(out1, want1):
+            assert torch.equal(g, w), "K1m replay"
+        for o, (gs, ws) in enumerate(zip(out2, want2)):
+            for g, w in zip(gs, ws):
+                assert torch.equal(g, w), f"K2m replay, octave {o + 1}"
+
+
+def test_small_octaves_mask_reads_no_stale_data(cuda):
+    """K2m reads DoGs that other blocks wrote earlier in the same launch:
+    called on buffers that just held other data (a K2m call on another
+    image, then junk of the same sizes: NaN, +-inf, 1e30), it gives the
+    masks of a call on a fresh pool, equal to the stencil on its DoGs."""
+    from sift_pyocl_tpu_torch import SiftConfig
+
+    cfg = SiftConfig(mask_backend="fused")
+    incs, bd = cfg.sigma_increments(), cfg.border_dist
+    shape, n_oct = (540, 960), 6
+    mc = (cfg.peak_thresh, tuple(maskk.octave_edge_thresh(cfg, o) for o in range(1, n_oct + 1)),
+          bd)
+    rng = np.random.default_rng(41)
+    bases = [torch.from_numpy(synthetic_scene(shape, n_blobs=60, seed=s)).to(cuda) / 255.0
+             for s in (1, 2, 3)]
+    fresh = [[m.clone() for _, _, m in ladder.small_octaves_ladder(b, incs, n_oct, 3, "shrink",
+                                                                   mc)]
+             for b in bases]
+    torch.cuda.synchronize()
+    for i, b in enumerate(bases):
+        other = ladder.small_octaves_ladder(bases[(i + 1) % 3], incs, n_oct, 3, "shrink", mc)
+        shapes = [t.shape for oct_ in other for t in oct_]
+        del other
+        junk = [torch.full(s, float(rng.choice([np.nan, np.inf, -np.inf, 1e30])), device=cuda)
+                for s in shapes]
+        del junk
+        got = ladder.small_octaves_ladder(b, incs, n_oct, 3, "shrink", mc)
+        torch.cuda.synchronize()
+        for o, ((_, d, m), f) in enumerate(zip(got, fresh[i])):
+            assert torch.equal(m, f), f"image {i}, octave {o + 1}: masks differ on a reused pool"
+            assert torch.equal(m, maskk.stencil_mask(d, cfg.peak_thresh, mc[1][o], bd))
