@@ -12,8 +12,9 @@
    octave-0 sigmas) within 1e-3, K3 and K10a (compaction), K8 (extrema
    masks, all 7 octaves; one launch a call) and K7 (best-2 matching, both
    calls of a VO step, each timed and profiled; one launch a call, the same
-   bits on two calls) exactly, K4/K10b (refinement) with the same accepts
-   and floats within 1e-5, K5, K6, K11a and K11b as in their tests.  Times each with CUDA
+   bits on two calls) exactly, K4/K10b (refinement, straight from K3's /
+   K10a's output; one launch a call) bit for bit, K5, K6, K11a and K11b as
+   in their tests.  Times each with CUDA
    events, beside the plain version, a PyTorch library call where one
    computes the same function, and the least time the card could take, and
    counts its CUDA launches and device time a call with torch.profiler
@@ -35,8 +36,11 @@
    twice a frame; the same run with plain=True agrees (keypoint counts,
    tracking, final camera centre, rotation).  Prints ms per step, the stage
    split, device time and launches per step, and host syncs per step; gates
-   the per-step CUDA launches of K1's, K2's, K3's, K6's and K7's kernels and
-   K8's (STEP_LAUNCHES, from torch.profiler; P1 and P7 likewise).
+   the per-step CUDA launches of K1's, K2's, K3's, K4's, K6's and K7's
+   kernels and K8's (STEP_LAUNCHES, from torch.profiler; P1 and P7
+   likewise), and each path's total at least the plain decode's launches
+   (measured in step 3) below that of the host-decode design
+   (LAUNCHES_BEFORE).
 6. P1: the same VO run with SiftConfig(mask_backend="pallas"): K8 once,
    K1-K6 once and K7 twice a step, every frame's keypoint buffer equal to
    the default run's and the final pose within 1e-6 of it; ms per step,
@@ -65,8 +69,7 @@
    K1 + K8, K2 + K8 and the plain versions.
 13. P7: the main path with SiftConfig(mask_backend="fused"): K1m and K2m
    once a step (their kernels gated per step: K2m's one cooperative
-   launch, K1m's six level launches and one mask launch; fewer CUDA
-   launches a step than the 2680 of K2m's per-level design), K1, K2 and
+   launch, K1m's six level launches and one mask launch), K1, K2 and
    K8 never, the plain stencil never called, K3-K6
    once and K7 twice a step, every frame's keypoint buffer equal to the
    default run's, final pose within 1e-6; ms per step in turns (default,
@@ -389,24 +392,34 @@ def check_keypoint_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
                      library=lambda: [torch.nonzero(m) for m in masks])
     assert row["cuda_launches"] == 1, f"K3 made {row['cuda_launches']} CUDA launches a call"
 
-    # K4: same accepts, same floats (same operation order, no FMA contraction)
+    # K4, straight from K3's output: bit-equal to its plain version (same
+    # decode, same operation order, no FMA contraction)
     idx, written, _ = got
-    s, r, c, valid = decode_compacted(dogs, masks, caps, idx, written, cfg.border_dist)
-    args = (dogs, s, r, c, valid, caps, cfg.border_dist, cfg.peak_thresh, cfg.max_interp_moves)
+    args = (dogs, masks, caps, idx, written, cfg.border_dist, cfg.peak_thresh,
+            cfg.max_interp_moves)
     got = refine.refine_multi(*args)
     want = refine.refine_multi_ref(*args)
-    assert torch.equal(got[4], want[4]), "refine accept flags differ"
-    acc = want[4] > 0
-    err = max(float((g[acc] - w[acc]).abs().max()) for g, w in zip(got[:4], want[:4]))
-    assert err <= 1e-5, f"refine differs by {err}"
-    n_valid = int(valid.sum())
-    # least work: one 19-sample solve (about 120 operations) per valid candidate
-    rec.record("refine_multi", "sift_pyocl_tpu_torch/csrc/refine.cu",
-               f"{ROOT}/ops/pallas/refine.py:334", err,
-               lambda: refine.refine_multi(*args), lambda: refine.refine_multi_ref(*args), 50,
-               n_bytes=n_slots * (13 + 20) + n_valid * 19 * 4, ops=n_valid * 120)
-    fs, fr, fc = got[0], got[1], got[2]
-    kvalid = (got[4] > 0) & valid
+    torch.cuda.synchronize()
+    for f, g, w in zip(("s_int", "fs", "fr", "fc", "peak", "keep"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), f"K4's {f} differs from its plain version"
+    err = max(float((g - w).abs().max()) for g, w in zip(got[1:5], want[1:5]))
+    n_valid = int(written.sum())
+    # least work: idx and written read once, the six outputs (21 bytes a
+    # slot) written once, one 19-sample solve (about 120 operations) per
+    # valid candidate
+    row = rec.record("refine_multi", "sift_pyocl_tpu_torch/csrc/refine.cu",
+                     f"{ROOT}/ops/pallas/refine.py:334", err,
+                     lambda: refine.refine_multi(*args), lambda: refine.refine_multi_ref(*args),
+                     50, n_bytes=n_slots * (4 + 21) + 4 * len(caps) + n_valid * 19 * 4,
+                     ops=n_valid * 120)
+    assert row["cuda_launches"] == 1, f"K4 made {row['cuda_launches']} CUDA launches a call"
+    # what the launches a step fall by: the plain decode the kernel took in
+    row["decode_cuda_launches"] = profile_calls(
+        lambda: decode_compacted(dogs, masks, caps, idx, written, cfg.border_dist))[0]
+    print(f"refine_multi: bit-equal to its plain version, {n_valid} valid candidates, "
+          f"{int(want[5].sum())} kept; the plain decode it replaces makes "
+          f"{row['decode_cuda_launches']:g} CUDA launches", flush=True)
+    s, fs, fr, fc, _, kvalid = got
 
     # K5: mag within 1e-5, ori within 1e-5 modulo 2 pi
     got = gradpad.grad_atlas(blurs, cfg.scales)
@@ -491,7 +504,6 @@ def check_mask_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
     """K8 over all octaves, K10a and K10b on octave 0, against their plain
     versions at the shapes of their paths (P1, P2)."""
     from sift_pyocl_tpu_torch.models.sift import octave_capacities
-    from sift_pyocl_tpu_torch.ops.detect import decode_compacted
     from sift_pyocl_tpu_torch.ops.kernels import compact, maskk, refine
     from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
 
@@ -534,20 +546,21 @@ def check_mask_kernels(x: torch.Tensor, cfg, rec: Kernels) -> None:
     print(f"torch.nonzero on the same mask: device {row['library_device_ms']:.4f} ms", flush=True)
     row.update(check_full_compaction(mask.shape, cap, x.device))
 
-    s, r, c, valid = decode_compacted(dogs[:1], [mask], [cap], got[0], got[1].reshape(1),
-                                      cfg.border_dist)
-    args = (dogs[0], s, r, c, valid, cfg.border_dist, cfg.peak_thresh, cfg.max_interp_moves)
+    # K10b, straight from K10a's output: bit-equal to its plain version
+    args = (dogs[0], mask, got[0], got[1], cfg.border_dist, cfg.peak_thresh,
+            cfg.max_interp_moves)
     got = refine.refine_octave(*args)
     ref = refine.refine_octave_ref(*args)
-    assert torch.equal(got[4], ref[4]), "K10b accept flags differ"
-    acc = ref[4] > 0
-    err = max(float((g[acc] - w[acc]).abs().max()) for g, w in zip(got[:4], ref[:4]))
-    assert err <= 1e-5, f"K10b differs by {err}"
-    n_valid = int(valid.sum())
-    rec.record("refine_octave", "sift_pyocl_tpu_torch/csrc/refine.cu",
-               f"{ROOT}/ops/pallas/refine.py:394", err,
-               lambda: refine.refine_octave(*args), lambda: refine.refine_octave_ref(*args), 50,
-               n_bytes=cap * (13 + 20) + n_valid * 19 * 4, ops=n_valid * 120)
+    torch.cuda.synchronize()
+    for f, g, w in zip(("s_int", "fs", "fr", "fc", "peak", "keep"), got, ref):
+        assert g.dtype == w.dtype and torch.equal(g, w), f"K10b's {f} differs from the plain one"
+    err = max(float((g - w).abs().max()) for g, w in zip(got[1:5], ref[1:5]))
+    n_valid = int(args[3])
+    row = rec.record("refine_octave", "sift_pyocl_tpu_torch/csrc/refine.cu",
+                     f"{ROOT}/ops/pallas/refine.py:394", err,
+                     lambda: refine.refine_octave(*args), lambda: refine.refine_octave_ref(*args),
+                     50, n_bytes=cap * (4 + 21) + 4 + n_valid * 19 * 4, ops=n_valid * 120)
+    assert row["cuda_launches"] == 1, f"K10b made {row['cuda_launches']} CUDA launches a call"
 
 
 def check_full_compaction(shape, cap: int, dev) -> dict:
@@ -796,27 +809,34 @@ def check_vo_counts(init_counts, counts, extra=(), ladders=VO_KERNELS[:2]):
 # (and a copy) for K2 and three kernels (and a fill) for K3; K1's six level
 # launches; K6's one launch, where its wrapper launched 12 more; K7's one
 # launch a call (map and keyframe), where its wrapper cast both valid masks
-# first; K8's one launch on P1.  On P7, K2m is small_octaves_kernel_masks
-# (one launch, was 41.6 a call), and K1m is K1's six level launches and one
-# launch of K8's mask_kernel.
+# first; K8's one launch on P1; K4's one launch, where its wrapper cast the
+# valid mask and its caller decoded K3's output in ~100 small launches.  On
+# P7, K2m is small_octaves_kernel_masks (one launch, was 41.6 a call), and
+# K1m is K1's six level launches and one launch of K8's mask_kernel.
 STEP_LAUNCHES = {"small_octaves_kernel": 1, "compact_kernel": 1,
                  "blur_level_kernel": 6, "orient_desc_kernel": 1, "best2_l2_kernel": 2,
-                 "mask_kernel": 0}
+                 "mask_kernel": 0, "refine_kernel": 1}
 STEP_LAUNCHES_P1 = {**STEP_LAUNCHES, "mask_kernel": 1}
 STEP_LAUNCHES_FUSED = {**STEP_LAUNCHES, "mask_kernel": 1}
-# CUDA launches a P7 step with K2m's earlier per-level design (an H100 at
-# 1080x1920)
-P7_LAUNCHES_BEFORE = 2680
+# CUDA launches a step with the host-side decode before K4 (this script on
+# an H100 at 1080x1920): the main path, P1 and P7 (2680 with K2m's earlier
+# per-level design before that).
+LAUNCHES_BEFORE = {"main path": 3548, "P1": 2639, "P7": 2639}
 
 
-def check_step_launches(tag: str, prof: dict, want: dict) -> None:
+def check_step_launches(tag: str, prof: dict, want: dict, decode_launches: float) -> None:
     """Gate a VO path's per-step launches of each kernel in `want` (from the
-    device profile of its warm steps), and print the step's total."""
+    device profile of its warm steps), and its total: at least
+    `decode_launches` (the plain decode's CUDA launches, measured in this
+    run) below LAUNCHES_BEFORE[tag]."""
     by_name = prof.pop("launches_by_name_per_frame")
     got = {k: sum(n for name, n in by_name.items() if k in name) for k in want}
-    print(f"{tag}: CUDA launches a step {prof['kernel_launches_per_frame']:.0f}; "
-          f"of the redesigned kernels {got}", flush=True)
+    total = prof["kernel_launches_per_frame"]
+    print(f"{tag}: CUDA launches a step {total:.0f} (was {LAUNCHES_BEFORE[tag]}, the "
+          f"decode alone {decode_launches:g}); of the redesigned kernels {got}", flush=True)
     assert got == want, f"{tag}: launches a step {got}, want {want}"
+    assert total <= LAUNCHES_BEFORE[tag] - decode_launches, \
+        f"{tag}: {total} CUDA launches a step, not {decode_launches} below {LAUNCHES_BEFORE[tag]}"
 
 
 def check_tracked(outs, vo):
@@ -826,10 +846,11 @@ def check_tracked(outs, vo):
         assert torch.isfinite(o.R).all() and torch.isfinite(o.t).all(), f"frame {i + 1}: pose"
 
 
-def check_vo(dev) -> dict:
+def check_vo(dev, decode_launches: float) -> dict:
     """The main path: vo_init + VO_STEPS vo_step at 1080x1920, defaults.
     Returns what P1 is compared with: the frames, K, counts, every frame's
-    keypoint buffer, the outputs, step ms, stage split and device profile."""
+    keypoint buffer, the outputs, step ms, stage split, device profile and
+    `decode_launches` (check_step_launches)."""
     from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_step
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts
     from sift_pyocl_tpu_torch.utils import profiling
@@ -880,7 +901,7 @@ def check_vo(dev) -> dict:
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
     prof = profiling.device_profile(one, 2)
-    check_step_launches("main path", prof, STEP_LAUNCHES)
+    check_step_launches("main path", prof, STEP_LAUNCHES, decode_launches)
     print("vo_step device profile:", json.dumps(prof), flush=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -897,7 +918,8 @@ def check_vo(dev) -> dict:
     for line in sorted(set(syncs)):
         print("  sync:", line[:160])
     return {"imgs": imgs, "K": K, "counts": counts, "bufs": bufs, "outs": outs,
-            "step_ms": step_ms, "stages": stages, "profile": prof}
+            "step_ms": step_ms, "stages": stages, "profile": prof,
+            "decode_launches": decode_launches}
 
 
 def check_vo_k8(base: dict) -> dict:
@@ -932,7 +954,7 @@ def check_vo_k8(base: dict) -> dict:
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
     prof = profiling.device_profile(one, 2)
-    check_step_launches("P1", prof, STEP_LAUNCHES_P1)
+    check_step_launches("P1", prof, STEP_LAUNCHES_P1, base["decode_launches"])
     print(f"P1: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
           f"mask's, final pose {gap:.3g} apart", flush=True)
     # the two mask backends in turns (default, K8, K8, default) in this one
@@ -1442,9 +1464,7 @@ def check_vo_fused(base: dict, p1: dict) -> dict:
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
     prof = profiling.device_profile(one, 2)
-    check_step_launches("P7", prof, STEP_LAUNCHES_FUSED)
-    assert prof["kernel_launches_per_frame"] < P7_LAUNCHES_BEFORE, \
-        f"P7: {prof['kernel_launches_per_frame']} CUDA launches a step"
+    check_step_launches("P7", prof, STEP_LAUNCHES_FUSED, base["decode_launches"])
     print(f"P7: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
           f"mask's, final pose {gap:.3g} apart", flush=True)
     for tag, turn_cfg in (("default", SiftConfig()), ("fused", cfg), ("fused", cfg),
@@ -1595,7 +1615,7 @@ def main() -> int:
     check_matcher(detect_and_describe(x, SiftConfig()), rec)
     check_blur(x, rec)
     check_slice_frontend(img, x, dev)
-    base = check_vo(dev)
+    base = check_vo(dev, rec.rows["refine_multi"]["decode_cuda_launches"])
     p1 = check_vo_k8(base)
     p2 = check_per_octave(img, dev)
     check_buckets(img, x, dev)

@@ -1,35 +1,44 @@
-// K4: iterative subpixel refinement of every octave's candidates in one call.
+// K4: iterative subpixel refinement of every octave's candidates in one call,
+// straight from the compaction's output.
 //
 // Replaces sift_pyocl_tpu/ops/pallas/refine.py::refine_atlas_pallas and,
 // called with one octave, refine_pallas (K10b), which took the octave's
 // pad_dogs copy.
-// Per candidate (s, r, c): up to max_moves re-centring moves while an
-// in-plane offset exceeds 0.6 (moves clamped to [bd, H-bd) x [bd, W-bd)),
-// then a 3x3 adjugate solve of the DoG Hessian at the final position.
-// Accept iff |det| > 1e-30, |peak| > peak_thresh and every |offset| <= 1.5.
-// The arithmetic follows the Pallas kernel's formulas operation by
-// operation (the library is built with --fmad=false), so the plain PyTorch
-// version in ops/kernels/refine.py gives the same bits.
+// Each slot decodes its own candidate from K3's (or K10a's) flat mask index,
+// as ops/kernels/refine.py::decode_compacted does: octave o owns slots
+// [capoff[o], capoff[o+1]), the first written[o] of them valid, and a valid
+// slot's index into the octave's (S-2, H-2bd, W-2bd) mask gives (s, r, c).
+// Per candidate: up to max_moves re-centring moves while an in-plane offset
+// exceeds 0.6 (moves clamped to [bd, H-bd) x [bd, W-bd)), then the 3x3
+// adjugate solve of the DoG Hessian at the final position.  Accept iff
+// |det| > 1e-30, |peak| > peak_thresh and every |offset| <= 1.5.  The
+// arithmetic follows the Pallas kernel's formulas operation by operation
+// (the library is built with --fmad=false), so the plain PyTorch version in
+// ops/kernels/refine.py gives the same bits.
 //
-// What bounds it on the card: latency.  A few thousand candidates, each a
-// serial chain of at most six 19-sample gathers and solves; the DoG bytes
-// touched are a few KB per candidate.  One thread per candidate reads its
-// samples straight from the octave's own DoG stack (they sit in L2 after
-// the extrema mask read them), so none of the TPU kernel's atlas padding
-// and aligned 24x256 window DMAs are needed; the early exit on convergence
-// ends most chains after one solve.
+// What bounds it on the card: latency.  A few thousand slots, each a serial
+// chain of 19-sample gathers and solves; the DoG bytes touched are a few KB a
+// candidate, some 120 operations a solve.  Tensor cores, TMA and wgmma have
+// no role.  The design shortens the chain: one round trip for the slot's
+// index and its octave's count (issued together), one for a solve's 19
+// samples (all issued before the first is used), and no solve twice -- the
+// last solve of the move loop is the result, and a move that the border
+// clamps to nothing ends the loop, since every later solve would repeat it.
+// Samples are read straight from each octave's own DoG stack (L2 holds them
+// after the extrema mask read them), with none of the TPU kernel's atlas
+// padding and aligned window DMAs.
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 128;
+constexpr int MAX_NT = 256;
 
 struct RefineMeta {
   int n_oct;
   const float* dogs[SIFT_MAX_OCT];  // (S+2, H, W) DoG stack of each octave
   int H[SIFT_MAX_OCT];
   int W[SIFT_MAX_OCT];
-  int capoff[SIFT_MAX_OCT + 1];     // first candidate slot of each octave
+  int capoff[SIFT_MAX_OCT + 1];     // first slot of each octave
 };
 
 struct Solve {
@@ -38,21 +47,28 @@ struct Solve {
 };
 
 // Gradient, Hessian and offset at scale plane s (1 <= s <= S), pixel (r, c).
-__device__ Solve solve_at(const float* d, int H, int W, int s, int r, int c) {
+__device__ __forceinline__ Solve solve_at(const float* __restrict__ d, int H, int W, int s,
+                                          int r, int c) {
   const long long plane = static_cast<long long>(H) * W;
-  const float* w0 = d + (s - 1) * plane + static_cast<long long>(r) * W + c;
-  const float* w1 = w0 + plane;
+  const float* w1 = d + s * plane + static_cast<long long>(r) * W + c;
+  const float* w0 = w1 - plane;
   const float* w2 = w1 + plane;
-  const float c0 = w0[0], c1 = w1[0], c2 = w2[0];
+  // the 19 samples, all loaded before the first is used
+  const float c0 = __ldg(w0), c1 = __ldg(w1), c2 = __ldg(w2);
+  const float up = __ldg(w1 - W), dn = __ldg(w1 + W), lf = __ldg(w1 - 1), rt = __ldg(w1 + 1);
+  const float ul = __ldg(w1 - W - 1), ur = __ldg(w1 - W + 1);
+  const float dl = __ldg(w1 + W - 1), dr = __ldg(w1 + W + 1);
+  const float up0 = __ldg(w0 - W), dn0 = __ldg(w0 + W), lf0 = __ldg(w0 - 1), rt0 = __ldg(w0 + 1);
+  const float up2 = __ldg(w2 - W), dn2 = __ldg(w2 + W), lf2 = __ldg(w2 - 1), rt2 = __ldg(w2 + 1);
   const float gs = 0.5f * (c2 - c0);
-  const float gr = 0.5f * (w1[W] - w1[-W]);
-  const float gc = 0.5f * (w1[1] - w1[-1]);
+  const float gr = 0.5f * (dn - up);
+  const float gc = 0.5f * (rt - lf);
   const float hss = (c2 + c0) - 2.0f * c1;
-  const float hrr = (w1[W] + w1[-W]) - 2.0f * c1;
-  const float hcc = (w1[1] + w1[-1]) - 2.0f * c1;
-  const float hsr = 0.25f * ((w2[W] - w2[-W]) - (w0[W] - w0[-W]));
-  const float hsc = 0.25f * ((w2[1] - w2[-1]) - (w0[1] - w0[-1]));
-  const float hrc = 0.25f * (((w1[W + 1] - w1[W - 1]) - w1[-W + 1]) + w1[-W - 1]);
+  const float hrr = (dn + up) - 2.0f * c1;
+  const float hcc = (rt + lf) - 2.0f * c1;
+  const float hsr = 0.25f * ((dn2 - up2) - (dn0 - up0));
+  const float hsc = 0.25f * ((rt2 - lf2) - (rt0 - lf0));
+  const float hrc = 0.25f * (((dr - dl) - ur) + ul);
   const float a = hss, b = hsr, cc = hsc, dd = hrr, e = hrc, f = hcc;
   const float det = (a * (dd * f - e * e) - b * (b * f - e * cc)) + cc * (b * e - dd * cc);
   Solve out;
@@ -65,26 +81,32 @@ __device__ Solve solve_at(const float* d, int H, int W, int s, int r, int c) {
   return out;
 }
 
-__global__ void __launch_bounds__(NT) refine_kernel(
-    RefineMeta m, int n, const int* __restrict__ s_in, const int* __restrict__ r_in,
-    const int* __restrict__ c_in, const unsigned char* __restrict__ valid, int bd,
-    float peak_thresh, int max_moves, float* fs, float* fr, float* fc,
-    float* peak, int* accept) {
-  const int k = blockIdx.x * NT + threadIdx.x;
+__global__ void __launch_bounds__(MAX_NT) refine_kernel(
+    RefineMeta m, int n, const int* __restrict__ idx, const int* __restrict__ written, int bd,
+    float peak_thresh, int max_moves, int* __restrict__ s_out, float* __restrict__ fs,
+    float* __restrict__ fr, float* __restrict__ fc, float* __restrict__ peak,
+    unsigned char* __restrict__ keep) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
-  if (!valid[k]) {
-    fs[k] = 0.f; fr[k] = 0.f; fc[k] = 0.f; peak[k] = 0.f; accept[k] = 0;
-    return;
-  }
   int o = 0;
   while (o + 1 < m.n_oct && k >= m.capoff[o + 1]) ++o;
+  const int id = __ldg(idx + k);
+  const int n_written = __ldg(written + o);
   const int H = m.H[o], W = m.W[o];
-  const int s = s_in[k];
-  int r = r_in[k], c = c_in[k];
-  // A converged candidate would re-solve the same pixel on every remaining
-  // move, so leaving the loop early gives the same result as running all.
+  if (k - m.capoff[o] >= n_written) {
+    // the plain decode's invalid slot: index 0, so scale 1; zeros elsewhere
+    s_out[k] = 1;
+    fs[k] = 0.f; fr[k] = 0.f; fc[k] = 0.f; peak[k] = 0.f; keep[k] = 0;
+    return;
+  }
+  const int Wm = W - 2 * bd;
+  const int Pm = (H - 2 * bd) * Wm;
+  const int s = id / Pm + 1;
+  const int rem = id % Pm;
+  int r = rem / Wm + bd;
+  int c = rem % Wm + bd;
+  Solve q = solve_at(m.dogs[o], H, W, s, r, c);
   for (int it = 0; it < max_moves; ++it) {
-    const Solve q = solve_at(m.dogs[o], H, W, s, r, c);
     if (fabsf(q.orr) <= 0.6f && fabsf(q.oc) <= 0.6f) break;
     int dr = q.orr > 0.6f ? 1 : (q.orr < -0.6f ? -1 : 0);
     int dc = q.oc > 0.6f ? 1 : (q.oc < -0.6f ? -1 : 0);
@@ -92,32 +114,37 @@ __global__ void __launch_bounds__(NT) refine_kernel(
     if (dr < 0 && r - 1 < bd) dr = 0;
     if (dc > 0 && c + 1 >= W - bd) dc = 0;
     if (dc < 0 && c - 1 < bd) dc = 0;
+    if (dr == 0 && dc == 0) break;  // clamped: every later solve is this one
     r += dr;
     c += dc;
+    q = solve_at(m.dogs[o], H, W, s, r, c);
   }
-  const Solve q = solve_at(m.dogs[o], H, W, s, r, c);
   const bool acc = q.ok && fabsf(q.peak) > peak_thresh && fabsf(q.os) <= 1.5f &&
                    fabsf(q.orr) <= 1.5f && fabsf(q.oc) <= 1.5f;
+  s_out[k] = s;
   fs[k] = static_cast<float>(s) + q.os;
   fr[k] = static_cast<float>(r) + q.orr;
   fc[k] = static_cast<float>(c) + q.oc;
   peak[k] = q.peak;
-  accept[k] = acc ? 1 : 0;
+  keep[k] = acc ? 1 : 0;
 }
 
 }  // namespace
 
 // dogs: n_oct device pointers to contiguous (S+2, H[o], W[o]) f32 stacks;
-// caps: candidate slots per octave (octave o owns slots
-// [sum(caps[:o]), sum(caps[:o+1]))); s, r, c int32 and valid uint8 per slot,
-// r and c octave-local.  Outputs: fs, fr, fc, peak f32 and accept int32.
+// caps: slots per octave (octave o owns slots [sum(caps[:o]),
+// sum(caps[:o+1]))); idx: int32 flat indices into each octave's (S-2,
+// H-2bd, W-2bd) mask, octave o's first written[o] slots valid (written:
+// int32 per octave), as the compaction leaves them on the device.
+// out: one buffer for n = sum(caps) slots: s_int int32, then fs, fr, fc,
+// peak f32, each n values, then one keep byte a slot (21 bytes a slot).
+// threads: block size, a multiple of 32 up to 256.
 extern "C" int sift_refine_multi(int n_oct, const void* const* dogs, const int* hs,
-                                 const int* ws, const int* caps, const void* s,
-                                 const void* r, const void* c, const void* valid,
-                                 int bd, float peak_thresh, int max_moves,
-                                 void* fs, void* fr, void* fc, void* peak,
-                                 void* accept, void* stream) {
-  if (n_oct < 1 || n_oct > SIFT_MAX_OCT) return cudaErrorInvalidValue;
+                                 const int* ws, const int* caps, const void* idx,
+                                 const void* written, int bd, float peak_thresh, int max_moves,
+                                 int threads, void* out, void* stream) {
+  if (n_oct < 1 || n_oct > SIFT_MAX_OCT || threads < 32 || threads > MAX_NT || threads % 32)
+    return cudaErrorInvalidValue;
   RefineMeta m = {};
   m.n_oct = n_oct;
   int n = 0;
@@ -130,11 +157,12 @@ extern "C" int sift_refine_multi(int n_oct, const void* const* dogs, const int* 
   }
   m.capoff[n_oct] = n;
   if (n > 0) {
-    refine_kernel<<<(n + NT - 1) / NT, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-        m, n, static_cast<const int*>(s), static_cast<const int*>(r),
-        static_cast<const int*>(c), static_cast<const unsigned char*>(valid), bd,
-        peak_thresh, max_moves, static_cast<float*>(fs), static_cast<float*>(fr),
-        static_cast<float*>(fc), static_cast<float*>(peak), static_cast<int*>(accept));
+    int* s_out = static_cast<int*>(out);
+    float* f = static_cast<float*>(out);
+    unsigned char* keep = static_cast<unsigned char*>(out) + 20LL * n;
+    refine_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        m, n, static_cast<const int*>(idx), static_cast<const int*>(written), bd, peak_thresh,
+        max_moves, s_out, f + n, f + 2LL * n, f + 3LL * n, f + 4LL * n, keep);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,7 +39,7 @@ import torch
 from ..config import SiftConfig
 from ..oracle import KP_DTYPE
 from ..ops import resolve_device
-from ..ops.detect import detect_all_octaves, detect_octave, detect_octave_pallas
+from ..ops.detect import detect_all_slots, detect_octave, detect_octave_pallas
 from ..ops.kernels.gradpad import grad_atlas, grad_atlas_ref
 from ..ops.kernels.window import orient_desc_fused, orient_desc_fused_ref, slot_octave_geometry
 from ..ops.orient_desc import (_desc_window_for_sigma, _desc_window_size,
@@ -136,12 +136,11 @@ def _describe_octaves_multi(octaves, caps: List[int], cfg: SiftConfig,
     octave; the extrema masks are `masks` where given (fused)."""
     max_ori = cfg.max_ori
     blurs = [b for b, _ in octaves]
-    detected = detect_all_octaves([d for _, d in octaves], cfg, caps, plain=plain, masks=masks)
+    (s_cat, fs_cat, fr_cat, fc_cat, _, valid_cat), _ = detect_all_slots(
+        [d for _, d in octaves], cfg, caps, plain=plain, masks=masks)
     atlas = grad_atlas_ref if (plain or cfg.grad_backend == "xla") else grad_atlas
     mag_a, ori_a, row_starts = atlas(blurs, cfg.scales)
 
-    kps_l = [k for k, _ in detected]
-    s_cat, fs_cat, fr_cat, fc_cat, _, valid_cat = (torch.cat(f) for f in zip(*kps_l))
     sigma_cat = cfg.init_sigma * 2.0 ** (fs_cat / cfg.scales)
     fused = orient_desc_fused_ref if plain else orient_desc_fused
     geom = slot_octave_geometry(caps, row_starts, blurs)
@@ -170,8 +169,8 @@ def _describe_octaves_multi(octaves, caps: List[int], cfg: SiftConfig,
                              for o, cap in enumerate(caps)])
     counts = []
     off = 0
-    for kps, cap in zip(kps_l, caps):
-        counts.append(torch.stack([kps.valid.sum().to(torch.int32),
+    for cap in caps:
+        counts.append(torch.stack([valid_cat[off : off + cap].sum().to(torch.int32),
                                    ok[off : off + cap].sum().to(torch.int32)]))
         off += cap
 

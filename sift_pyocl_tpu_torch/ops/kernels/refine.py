@@ -2,79 +2,133 @@
 
 Port of ``sift_pyocl_tpu/ops/pallas/refine.py``: ``refine_atlas_pallas``
 (K4, every octave in one launch, here ``refine_multi``) and
-``refine_pallas`` (K10b, one octave, here ``refine_octave``); both launch
-the kernel of ``csrc/refine.cu``.  Candidates of octave o occupy slots
-[sum(caps[:o]), sum(caps[:o+1])) with octave-local (s, r, c); the kernel
-reads each octave's own DoG stack, so the TPU's padded DoG atlas (and
-``pad_dogs``) and the per-candidate clamp-bound arrays become the octave's
-(H, W) and ``border_dist``.
+``refine_pallas`` (K10b, one octave, here ``refine_octave``); both are one
+launch of the kernel of ``csrc/refine.cu``.  They take the compaction's
+output as it lies on the device (K3's or K10a's ``idx`` and ``written``):
+octave o owns slots [sum(caps[:o]), sum(caps[:o+1])), its first
+``written[o]`` valid, each an index into the octave's border-stripped
+(S-2, H-2bd, W-2bd) extrema mask.  The kernel decodes each slot itself
+(``decode_compacted`` is that decode in plain PyTorch) and reads each
+octave's own DoG stack, so the TPU's padded DoG atlas (and ``pad_dogs``)
+and the per-candidate clamp-bound arrays become the octave's (H, W) and
+``border_dist``.
+
+Both return (s_int int32, fs, fr, fc, peak f32, keep bool), each one value
+a slot, in the field order of ``ops.detect.RefinedKeypoints``; fr and fc
+are octave-local, keep is accept && valid, and an invalid slot gives
+s_int 1 and zeros.  On the card they are views of one allocation.  The
+ctypes arguments are cached per layout (DoG shapes, caps, border), so a
+warm call builds none.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from .. import _build, on_cuda
 
-Refined = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+Refined = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                torch.Tensor]
+
+# Threads a block of the kernel (a multiple of 32, at most 256): 32 spreads
+# the valid slots over the most SMs, and measured fastest on the H100
+# (tools/ab_refine_cuda.py).
+THREADS = 32
 
 
-def _check(octave_dogs, s, r, c, valid, caps) -> None:
+def _check(octave_dogs, masks, caps, idx, written, border_dist) -> None:
+    if not octave_dogs or len(octave_dogs) != len(caps) or len(masks) != len(caps):
+        raise ValueError("need one DoG stack, one mask and one capacity per octave")
+    if border_dist < 1:
+        raise ValueError("border_dist must be >= 1")
     n = int(sum(caps))
-    if len(octave_dogs) != len(caps):
-        raise ValueError("need one capacity per octave")
-    for t in (s, r, c, valid):
-        if t.shape != (n,):
-            raise ValueError(f"candidate arrays must be ({n},), got {tuple(t.shape)}")
-    for d in octave_dogs:
+    if idx.dtype != torch.int32 or idx.shape != (n,):
+        raise ValueError(f"idx must be ({n},) int32, got {tuple(idx.shape)} {idx.dtype}")
+    if written.dtype != torch.int32 or written.numel() != len(caps):
+        raise ValueError(f"written must hold {len(caps)} int32, got {tuple(written.shape)} "
+                         f"{written.dtype}")
+    bd = border_dist
+    for d, m in zip(octave_dogs, masks):
         if d.dtype != torch.float32 or d.ndim != 3 or d.shape[0] < 3:
             raise ValueError("DoG stacks must be (S+2, H, W) float32")
-        if d.device != s.device:
-            raise ValueError("DoG stacks and candidates must lie on one device")
+        want = (d.shape[0] - 2, d.shape[1] - 2 * bd, d.shape[2] - 2 * bd)
+        if tuple(m.shape) != want or min(want) < 1:
+            raise ValueError(f"the compacted mask must be (S-2, H-2bd, W-2bd) = {want} for "
+                             f"DoGs {tuple(d.shape)}, got {tuple(m.shape)}")
+        if d.device != idx.device or written.device != idx.device:
+            raise ValueError("DoG stacks and the compaction's output must lie on one device")
 
 
-def _launch(dogs, s, r, c, valid, caps, border_dist, peak_thresh, max_moves) -> Refined:
-    """One launch of ``csrc/refine.cu`` (the work of K4 and K10b)."""
-    dogs = [d.contiguous() for d in dogs]
-    n_oct = len(dogs)
-    s32, r32, c32 = (t.to(torch.int32).contiguous() for t in (s, r, c))
-    v8 = valid.to(torch.uint8).contiguous()
-    n = s32.numel()
-    fs, fr, fc, peak = (torch.empty(n, dtype=torch.float32, device=s.device)
-                        for _ in range(4))
-    accept = torch.empty(n, dtype=torch.int32, device=s.device)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sift_refine_multi",
-                         [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ctypes.c_float, ci,
-                          vp, vp, vp, vp, vp, vp])
-    ptrs = (vp * n_oct)(*[d.data_ptr() for d in dogs])
-    hs = (ci * n_oct)(*[d.shape[1] for d in dogs])
-    ws = (ci * n_oct)(*[d.shape[2] for d in dogs])
-    caps_c = (ci * n_oct)(*[int(x) for x in caps])
-    with torch.cuda.device(s.device):
-        err = fn(n_oct, ptrs, hs, ws, caps_c, _build.ptr(s32), _build.ptr(r32),
-                 _build.ptr(c32), _build.ptr(v8), int(border_dist), float(peak_thresh),
-                 int(max_moves), _build.ptr(fs), _build.ptr(fr), _build.ptr(fc),
-                 _build.ptr(peak), _build.ptr(accept), _build.stream_of(s32))
+class _Layout(NamedTuple):
+    """What a call needs apart from its data pointers, for one set of DoG
+    and mask shapes, caps and border (checked once, when it is made): the
+    bound C function, its ctypes arrays and the output's field sizes."""
+    fn: ctypes._CFuncPtr
+    ptrs: ctypes.Array          # refilled with the DoG pointers at each call
+    hs: ctypes.Array
+    ws: ctypes.Array
+    caps: ctypes.Array
+    n: int
+    split: List[int]            # words of s_int, fs, fr, fc, peak and keep
+
+
+_layouts: Dict[tuple, _Layout] = {}
+
+
+def _launch(dogs, masks, caps, idx, written, border_dist, peak_thresh, max_moves) -> Refined:
+    """One launch of ``csrc/refine.cu`` (the work of K4 and K10b).  A warm
+    call (shapes, caps and border seen before) builds no ctypes array and
+    checks only types, devices, lengths and contiguity."""
+    key = (tuple(d.shape for d in dogs), tuple(m.shape for m in masks), tuple(caps), border_dist)
+    lay = _layouts.get(key)
+    if lay is None:
+        _check(dogs, masks, caps, idx, written, border_dist)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        n_oct, n = len(dogs), int(sum(caps))
+        fn = _build.function("sift_refine_multi", [ci, vp, vp, vp, vp, vp, vp, ci,
+                                                   ctypes.c_float, ci, ci, vp, vp])
+        lay = _Layout(fn=fn, ptrs=(vp * n_oct)(), hs=(ci * n_oct)(*[d.shape[1] for d in dogs]),
+                      ws=(ci * n_oct)(*[d.shape[2] for d in dogs]),
+                      caps=(ci * n_oct)(*[int(c) for c in caps]), n=n,
+                      split=[n] * 5 + [(n + 3) // 4])
+        _layouts[key] = lay
+    dev = idx.get_device()
+    if (idx.dtype != torch.int32 or written.dtype != torch.int32 or idx.numel() != lay.n
+            or written.numel() != len(dogs) or written.get_device() != dev
+            or not (idx.is_contiguous() and written.is_contiguous())
+            or any(d.dtype != torch.float32 or d.get_device() != dev or not d.is_contiguous()
+                   for d in dogs)):
+        _check(dogs, masks, caps, idx, written, border_dist)
+        raise ValueError("refine: DoG stacks, idx and written must be contiguous")
+    for o, d in enumerate(dogs):
+        lay.ptrs[o] = d.data_ptr()
+    buf = torch.empty(sum(lay.split), dtype=torch.float32, device=idx.device)
+    with torch.cuda.device(dev):
+        err = lay.fn(len(dogs), lay.ptrs, lay.hs, lay.ws, lay.caps, idx.data_ptr(),
+                     written.data_ptr(), border_dist, peak_thresh, max_moves, THREADS,
+                     buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "refine")
-    return fs, fr, fc, peak, accept
+    s_int, fs, fr, fc, peak, keep = buf.split(lay.split)
+    keep = keep.view(torch.bool)
+    return (s_int.view(torch.int32), fs, fr, fc, peak,
+            keep if lay.n % 4 == 0 else keep[:lay.n])
 
 
-def refine_multi(octave_dogs: Sequence[torch.Tensor], s: torch.Tensor, r: torch.Tensor,
-                 c: torch.Tensor, valid: torch.Tensor, caps: Sequence[int],
+def refine_multi(octave_dogs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+                 caps: Sequence[int], idx: torch.Tensor, written: torch.Tensor,
                  border_dist: int, peak_thresh: float, max_moves: int = 5) -> Refined:
-    """K4: refine every octave's candidates in one launch.
+    """K4: refine every octave's compacted candidates in one launch.
 
-    Returns (fs, fr, fc, peak) float32 and accept int32, each (sum(caps),);
-    fr and fc are octave-local; invalid slots give zeros."""
-    _check(octave_dogs, s, r, c, valid, caps)
-    if not on_cuda(s):
-        return refine_multi_ref(octave_dogs, s, r, c, valid, caps, border_dist,
+    `masks` are the (S-2, H-2bd, W-2bd) masks that K3 compacted into
+    (idx (sum(caps),) int32, written (n_oct,) int32); only their shapes are
+    read.  Returns (s_int, fs, fr, fc, peak, keep), each (sum(caps),)."""
+    if not on_cuda(idx):
+        return refine_multi_ref(octave_dogs, masks, caps, idx, written, border_dist,
                                 peak_thresh, max_moves)
-    out = _launch(octave_dogs, s, r, c, valid, caps, border_dist, peak_thresh, max_moves)
+    out = _launch(octave_dogs, masks, caps, idx, written, border_dist, peak_thresh, max_moves)
     refine_multi.launches += 1
     return out
 
@@ -82,22 +136,50 @@ def refine_multi(octave_dogs: Sequence[torch.Tensor], s: torch.Tensor, r: torch.
 refine_multi.launches = 0
 
 
-def refine_octave(dogs: torch.Tensor, s: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
-                  valid: torch.Tensor, border_dist: int, peak_thresh: float,
+def refine_octave(dogs: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
+                  written: torch.Tensor, border_dist: int, peak_thresh: float,
                   max_moves: int = 5) -> Refined:
     """K10b, port of ``sift_pyocl_tpu/ops/pallas/refine.py::refine_pallas``:
-    refine one octave's candidates (a single-octave launch of K4's kernel,
-    on the unpadded (S+2, H, W) stack).  Same outputs as ``refine_multi``
-    with one octave; fr and fc are octave-local."""
-    _check([dogs], s, r, c, valid, [s.shape[0]])
-    if not on_cuda(s):
-        return refine_octave_ref(dogs, s, r, c, valid, border_dist, peak_thresh, max_moves)
-    out = _launch([dogs], s, r, c, valid, [s.shape[0]], border_dist, peak_thresh, max_moves)
+    refine one octave's candidates as K10a left them (idx (cap,) int32,
+    written () int32), on the unpadded (S+2, H, W) stack: a single-octave
+    launch of K4's kernel.  Same outputs as ``refine_multi`` with one
+    octave."""
+    if not on_cuda(idx):
+        return refine_octave_ref(dogs, mask, idx, written, border_dist, peak_thresh, max_moves)
+    out = _launch([dogs], [mask], [idx.shape[0]], idx, written, border_dist, peak_thresh,
+                  max_moves)
     refine_octave.launches += 1
     return out
 
 
 refine_octave.launches = 0
+
+
+def decode_compacted(octave_dogs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+                     caps: Sequence[int], idx_all: torch.Tensor, written: torch.Tensor,
+                     bd: int) -> Tuple[torch.Tensor, ...]:
+    """Compacted flat mask indices -> refine candidates, in plain PyTorch
+    (the decode that the kernel does in each thread).
+
+    Maps octave o's slice of ``idx_all`` (flat row-major indices into its
+    (S-2, H-2bd, W-2bd) mask) to (scale, row, col), octave-local.  Returns
+    (s, r, c, valid), each (sum(caps),); an invalid slot decodes index 0,
+    (1, bd, bd)."""
+    _check(octave_dogs, masks, caps, idx_all, written, bd)
+    s_l, r_l, c_l, v_l = [], [], [], []
+    off = 0
+    for o, (mask, cap) in enumerate(zip(masks, caps)):
+        _, Hm, Wm = mask.shape
+        idx = idx_all[off : off + cap].long()
+        off += cap
+        valid = torch.arange(cap, device=idx.device) < written.reshape(-1)[o]
+        idx = torch.where(valid, idx, 0)
+        rem = idx % (Hm * Wm)
+        s_l.append((idx // (Hm * Wm) + 1).to(torch.int32))
+        r_l.append((rem // Wm + bd).to(torch.int32))
+        c_l.append((rem % Wm + bd).to(torch.int32))
+        v_l.append(valid)
+    return torch.cat(s_l), torch.cat(r_l), torch.cat(c_l), torch.cat(v_l)
 
 
 def _solve_at(d: torch.Tensor, s, r, c):
@@ -131,11 +213,13 @@ def _solve_at(d: torch.Tensor, s, r, c):
     return os_, or_, oc_, peak, ok
 
 
-def refine_octave_ref(dogs: torch.Tensor, s: torch.Tensor, r: torch.Tensor,
-                      c: torch.Tensor, valid: torch.Tensor, border_dist: int,
-                      peak_thresh: float, max_moves: int = 5) -> Refined:
-    """Plain PyTorch version of ``refine_octave`` (same outputs, same bits)."""
-    _check([dogs], s, r, c, valid, [s.shape[0]])
+def refine_candidates_ref(dogs: torch.Tensor, s: torch.Tensor, r: torch.Tensor,
+                          c: torch.Tensor, valid: torch.Tensor, border_dist: int,
+                          peak_thresh: float, max_moves: int = 5
+                          ) -> Tuple[torch.Tensor, ...]:
+    """The refinement of decoded candidates (s, r, c, valid) of one (S+2, H,
+    W) stack in plain PyTorch: (fs, fr, fc, peak) f32 and accept && valid
+    (bool), zeros at invalid slots."""
     bd = border_dist
     S2, H, W = dogs.shape
     v = valid.bool()
@@ -159,21 +243,29 @@ def refine_octave_ref(dogs: torch.Tensor, s: torch.Tensor, r: torch.Tensor,
            & (or_.abs() <= 1.5) & (oc_.abs() <= 1.5) & v)
     zero = torch.zeros_like(peak)
     return (torch.where(v, s_.float() + os_, zero), torch.where(v, r_.float() + or_, zero),
-            torch.where(v, c_.float() + oc_, zero), torch.where(v, peak, zero),
-            acc.to(torch.int32))
+            torch.where(v, c_.float() + oc_, zero), torch.where(v, peak, zero), acc)
 
 
-def refine_multi_ref(octave_dogs: Sequence[torch.Tensor], s: torch.Tensor, r: torch.Tensor,
-                     c: torch.Tensor, valid: torch.Tensor, caps: Sequence[int],
+def refine_multi_ref(octave_dogs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+                     caps: Sequence[int], idx: torch.Tensor, written: torch.Tensor,
                      border_dist: int, peak_thresh: float, max_moves: int = 5) -> Refined:
     """Plain PyTorch version of ``refine_multi`` (same outputs, same bits):
-    ``refine_octave_ref`` over each octave's slots."""
-    _check(octave_dogs, s, r, c, valid, caps)
+    ``decode_compacted``, then ``refine_candidates_ref`` over each
+    octave's slots."""
+    s, r, c, valid = decode_compacted(octave_dogs, masks, caps, idx, written, border_dist)
     outs = []
     off = 0
     for d, cap in zip(octave_dogs, caps):
         sl = slice(off, off + int(cap))
         off += int(cap)
-        outs.append(refine_octave_ref(d, s[sl], r[sl], c[sl], valid[sl], border_dist,
-                                      peak_thresh, max_moves))
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+        outs.append(refine_candidates_ref(d, s[sl], r[sl], c[sl], valid[sl], border_dist,
+                                          peak_thresh, max_moves))
+    return (s, *(torch.cat(parts) for parts in zip(*outs)))
+
+
+def refine_octave_ref(dogs: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
+                      written: torch.Tensor, border_dist: int, peak_thresh: float,
+                      max_moves: int = 5) -> Refined:
+    """Plain PyTorch version of ``refine_octave`` (same outputs, same bits)."""
+    return refine_multi_ref([dogs], [mask], [idx.shape[0]], idx, written, border_dist,
+                            peak_thresh, max_moves)

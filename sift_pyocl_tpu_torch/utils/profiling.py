@@ -42,7 +42,6 @@ import dataclasses
 
 from ..config import SLICE_CONFIG, SiftConfig
 from ..models.sift import SiftPlan, octave_capacities
-from ..ops.detect import decode_compacted
 from ..ops.kernels import compact_masks_multi, grad_atlas, orient_desc_fused, refine_multi
 from ..ops.kernels.maskk import extrema_masks, extrema_masks_ref
 from ..ops.kernels.window import slot_octave_geometry
@@ -77,16 +76,14 @@ def _stage_frame(host_img, cfg: SiftConfig, caps, dev, t: dict) -> None:
     else:
         masks = _timed(lambda: extrema_masks_ref(dogs, cfg), t, "extrema_mask")
     idx, wr, _ = _timed(lambda: compact_masks_multi(masks, caps), t, "K3 compact")
-    s, r, c, valid = _timed(
-        lambda: decode_compacted(dogs, masks, caps, idx, wr, cfg.border_dist), t, "decode")
-    fs, fr, fc, _, accept = _timed(
-        lambda: refine_multi(dogs, s, r, c, valid, caps, cfg.border_dist,
+    s, fs, fr, fc, _, keep = _timed(
+        lambda: refine_multi(dogs, masks, caps, idx, wr, cfg.border_dist,
                              cfg.peak_thresh, cfg.max_interp_moves), t, "K4 refine")
     mag, ori, rows = _timed(lambda: grad_atlas(blurs, cfg.scales), t, "K5 grad_atlas")
 
     def window_args():
         return (mag, ori, s, fr, fc, cfg.init_sigma * 2.0 ** (fs / cfg.scales),
-                (accept > 0) & valid, _desc_window_size(cfg), cfg.max_ori,
+                keep, _desc_window_size(cfg), cfg.max_ori,
                 *slot_octave_geometry(caps, rows, blurs))
 
     args = _timed(window_args, t, "window args")

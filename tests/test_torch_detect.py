@@ -27,7 +27,8 @@ from sift_pyocl_tpu_torch.ops.kernels.compact import (MAX_PER_TILE, TILE, compac
                                                       compact_masks_multi,
                                                       compact_masks_multi_ref)
 from sift_pyocl_tpu_torch.ops.kernels.maskk import extrema_masks, extrema_masks_ref
-from sift_pyocl_tpu_torch.ops.kernels.refine import refine_multi, refine_octave
+from sift_pyocl_tpu_torch.ops.kernels.refine import (refine_candidates_ref, refine_multi,
+                                                     refine_octave)
 from sift_pyocl_tpu_torch.utils.convert import to_torch
 
 
@@ -108,40 +109,120 @@ def test_extrema_mask_matches_jax(dogs160, double):
     assert td.octave_edge_thresh(SiftConfig(double_im_size=True), 1) == SiftConfig().edge_thresh1
 
 
-def test_refinement_matches_jax_kernel(dogs160, scene160):
-    """Same accepts; fs/fc/peak within 1e-5 and fr within one atlas-row ulp
-    (the port follows the Pallas kernel's operation order; XLA on the CPU
-    may still fuse differently)."""
-    cfg, dogs = dogs160
-    caps = [c for c, _ in j_caps(scene160.shape, cfg)]
+def _jax_atlas_refine(dogs, masks, caps, cfg):
+    """K4's reference: the JAX compaction (interpret mode), its decode and
+    refine_atlas_pallas in interpret mode.  Returns the compaction's
+    (idx, written), the decoded (s, valid), the JAX outputs (fs, fr, fc,
+    peak, accept) with fr octave-local, and the ulp of the largest atlas row
+    a kept candidate refined to."""
     jdogs = [jnp.asarray(d) for d in dogs]
-    masks = [jd.extrema_mask(d, cfg, o) for o, d in enumerate(jdogs)]
-    idx, written, _ = j_compact(masks, caps, interpret=True)
+    jmasks = [jnp.asarray(m) for m in masks]
+    idx, written, _ = j_compact(jmasks, caps, interpret=True)
     atlas, row_starts = build_dog_atlas(jdogs)
     s, r_a, c, valid, rlo, rhi, clo, chi = jd.decode_compacted(
-        jdogs, masks, caps, row_starts, idx, written, cfg.border_dist)
+        jdogs, jmasks, caps, row_starts, idx, written, cfg.border_dist)
     want = [np.asarray(x) for x in refine_atlas_pallas(
         atlas, s, r_a, c, valid, rlo, rhi, clo, chi, peak_thresh=cfg.peak_thresh,
         max_moves=cfg.max_interp_moves, interpret=True)]
-    r_local = np.asarray(r_a) - np.repeat(row_starts, caps)
-    got = [x.numpy() for x in refine_multi(
-        to_torch(dogs), to_torch(np.asarray(s)), torch.from_numpy(r_local),
-        to_torch(np.asarray(c)), to_torch(np.asarray(valid)), caps, cfg.border_dist,
-        cfg.peak_thresh, cfg.max_interp_moves)]
-    v = np.asarray(valid)
-    assert v.sum() > 5
-    np.testing.assert_array_equal(got[4][v], want[4][v])
-    acc = v & (want[4] > 0)
-    assert acc.sum() > 5
-    for g, w in zip((got[0], got[2], got[3]), (want[0], want[2], want[3])):
-        np.testing.assert_allclose(g[acc], w[acc], atol=1e-5, rtol=0)
+    kept = np.asarray(valid) & (want[4] > 0)
     # The JAX kernel adds the row offset to an ATLAS row and the caller
     # subtracts the octave's start afterwards, so its fr carries one f32
     # rounding at the atlas row's magnitude; the port's octave rows do not.
-    atlas_ulp = float(np.spacing(np.float32(want[1][acc].max())))
-    want_fr = want[1] - np.repeat(row_starts, caps)
-    np.testing.assert_allclose(got[1][acc], want_fr[acc], atol=max(1e-5, atlas_ulp), rtol=0)
-    assert not got[4][~v].any()
+    atlas_ulp = float(np.spacing(np.float32(want[1][kept].max()))) if kept.any() else 0.0
+    want[1] = want[1] - np.repeat(row_starts, caps)
+    return ((np.array(idx), np.array(written)), (np.asarray(s), np.asarray(valid)), want,
+            atlas_ulp)
+
+
+def _assert_refined_like_jax(got, s, v, want, fr_atol, label=""):
+    """The port's (s_int, fs, fr, fc, peak, keep) against the JAX kernel's
+    outputs: keep equal to accept at valid slots and False elsewhere, s_int
+    the decode's, fs/fc/peak within 1e-5 and fr within `fr_atol` at kept
+    slots.  Returns the number of kept slots."""
+    got = [x.numpy() for x in got]
+    assert got[5].dtype == np.bool_
+    np.testing.assert_array_equal(got[5][v], want[4][v] > 0, err_msg=label)
+    assert not got[5][~v].any(), label
+    np.testing.assert_array_equal(got[0][v], s[v], err_msg=label)
+    acc = v & (want[4] > 0)
+    for f, g, w in zip(("fs", "fr", "fc", "peak"), got[1:5], want[:4]):
+        np.testing.assert_allclose(g[acc], w[acc], atol=fr_atol if f == "fr" else 1e-5, rtol=0,
+                                   err_msg=f"{label} {f}")
+    return int(acc.sum())
+
+
+def test_refinement_matches_jax_kernel(dogs160, scene160):
+    """K4's plain version, fed the JAX compaction's idx/written as they are,
+    against refine_atlas_pallas on the JAX decode: same accepts; fs/fc/peak
+    within 1e-5 and fr within one atlas-row ulp (the port follows the
+    Pallas kernel's operation order; XLA on the CPU may still fuse
+    differently)."""
+    cfg, dogs = dogs160
+    caps = [c for c, _ in j_caps(scene160.shape, cfg)]
+    masks = [np.asarray(jd.extrema_mask(jnp.asarray(d), cfg, o)) for o, d in enumerate(dogs)]
+    (idx, written), (s, v), want, atlas_ulp = _jax_atlas_refine(dogs, masks, caps, cfg)
+    got = refine_multi(to_torch(dogs), [torch.from_numpy(np.array(m)) for m in masks], caps,
+                       torch.from_numpy(idx), torch.from_numpy(written), cfg.border_dist,
+                       cfg.peak_thresh, cfg.max_interp_moves)
+    assert v.sum() > 5
+    assert _assert_refined_like_jax(got, s, v, want, max(1e-5, atlas_ulp)) > 5
+
+
+def _edge_octaves(cfg):
+    """Three odd-sized DoG octaves (5 planes) and masks for K4/K10b's edge
+    cases: octave 0 a quadratic bowl centred outside the plane (plus noise),
+    so moves run into the clamp, with its mask's four border rows and
+    columns set (candidates on the clamp border) and more set bits than
+    its cap (written == cap); octave 1 an empty mask (written == 0);
+    octave 2 noise with a sparse mask.  Returns (dogs, masks, caps)."""
+    rng = np.random.default_rng(17)
+    bd = cfg.border_dist
+    shapes = [(5, 37, 53), (5, 23, 19), (5, 17, 29)]
+    dogs, masks = [], []
+    for o, (S, H, W) in enumerate(shapes):
+        noise = rng.normal(0, 4.0 if o == 2 else 0.05, (S, H, W))
+        if o == 0:
+            s_, r_, c_ = np.meshgrid(np.arange(S), np.arange(H), np.arange(W), indexing="ij")
+            bowl = 0.2 * ((r_ + 9.0) ** 2 + (c_ - W - 7.0) ** 2) - 3.0 * (s_ - 2.2) ** 2
+            noise = bowl + noise
+        dogs.append(noise.astype(np.float32))
+        m = np.zeros((S - 2, H - 2 * bd, W - 2 * bd), bool)
+        if o == 0:
+            m[:, [0, -1], :] = True
+            m[:, :, [0, -1]] = True
+        elif o == 2:
+            m = rng.random(m.shape) < 0.05
+        masks.append(m)
+    return dogs, masks, [64, 16, 48]
+
+
+def test_refinement_edge_cases_match_jax_kernel():
+    """K4's plain version against refine_atlas_pallas (interpret mode) on
+    odd octave sizes, an octave at written == cap (its mask overflows),
+    one at written == 0, and candidates on the clamp border that the moves
+    push against it; K10b's against refine_pallas(pad_dogs(...)) on each
+    octave alone."""
+    cfg = JaxConfig(kp_per_octave_cap=256)
+    dogs, masks, caps = _edge_octaves(cfg)
+    bd = cfg.border_dist
+    (idx, written), (s, v), want, atlas_ulp = _jax_atlas_refine(dogs, masks, caps, cfg)
+    assert written.tolist()[:2] == [caps[0], 0] and 0 < written[2] < caps[2]
+    got = refine_multi(to_torch(dogs), [torch.from_numpy(np.array(m)) for m in masks], caps,
+                       torch.from_numpy(idx), torch.from_numpy(written), bd, cfg.peak_thresh,
+                       cfg.max_interp_moves)
+    assert _assert_refined_like_jax(got, s, v, want, max(1e-5, atlas_ulp), "K4") > 5
+    for o, (d, m, cap) in enumerate(zip(dogs, masks, caps)):
+        jidx, jwr, _ = compact_mask_pallas(jnp.asarray(m), cap, interpret=True)
+        tidx, twr = torch.from_numpy(np.array(jidx)), torch.from_numpy(np.array(jwr))
+        s1, r1, c1, v1 = td.decode_compacted([to_torch(d)], [torch.from_numpy(m)], [cap], tidx,
+                                             twr, bd)
+        want1 = [np.asarray(x) for x in refine_pallas(
+            pad_dogs(jnp.asarray(d)), *(jnp.asarray(t.numpy()) for t in (s1, r1, c1, v1)),
+            H=d.shape[1], W=d.shape[2], bd=bd, peak_thresh=cfg.peak_thresh,
+            max_moves=cfg.max_interp_moves, interpret=True)]
+        got1 = refine_octave(to_torch(d), torch.from_numpy(m), tidx, twr, bd, cfg.peak_thresh,
+                             cfg.max_interp_moves)
+        _assert_refined_like_jax(got1, s1.numpy(), v1.numpy(), want1, 1e-5, f"K10b octave {o}")
 
 
 def test_decode_and_detect_all_octaves(dogs160, scene160):
@@ -260,10 +341,11 @@ def test_single_mask_compaction_matches_jax_kernel(case):
 
 
 def test_octave_refinement_matches_jax_kernel(dogs160):
-    """K10b's plain version against refine_pallas(pad_dogs(...)) in
-    interpret mode on the candidates of the octave that has the most: same
-    accepts, floats within the 1e-5 of the atlas test (fr included: both
-    are octave rows)."""
+    """K10b's plain version, fed K10a's idx/written as they are, against
+    refine_pallas(pad_dogs(...)) in interpret mode on the decoded
+    candidates of the octave that has the most: same accepts, floats
+    within the 1e-5 of the atlas test (fr included: both are octave
+    rows)."""
     cfg, dogs = dogs160
     tcfg = SiftConfig(**dataclasses.asdict(cfg))
     masks = [td.extrema_mask(to_torch(d), tcfg, o) for o, d in enumerate(dogs)]
@@ -272,21 +354,92 @@ def test_octave_refinement_matches_jax_kernel(dogs160):
     _, H, W = d.shape
     bd, cap = cfg.border_dist, 256
     idx, written, _ = compact_mask(mask, cap)
-    s, r, c, valid = td.decode_compacted([d], [mask], [cap], idx, written.reshape(1), bd)
+    s, r, c, valid = td.decode_compacted([to_torch(d)], [mask], [cap], idx, written, bd)
     want = [np.asarray(x) for x in refine_pallas(
         pad_dogs(jnp.asarray(d)), *(jnp.asarray(t.numpy()) for t in (s, r, c, valid)),
         H=H, W=W, bd=bd, peak_thresh=cfg.peak_thresh, max_moves=cfg.max_interp_moves,
         interpret=True)]
-    got = [x.numpy() for x in refine_octave(to_torch(d), s, r, c, valid, bd, cfg.peak_thresh,
-                                            cfg.max_interp_moves)]
+    got = refine_octave(to_torch(d), mask, idx, written, bd, cfg.peak_thresh,
+                        cfg.max_interp_moves)
     v = valid.numpy()
     assert v.sum() > 5
-    np.testing.assert_array_equal(got[4][v], want[4][v])
-    acc = v & (want[4] > 0)
-    assert acc.sum() > 5
-    for g, w in zip(got[:4], want[:4]):
-        np.testing.assert_allclose(g[acc], w[acc], atol=1e-5, rtol=0)
-    assert not got[4][~v].any()
+    assert _assert_refined_like_jax(got, s.numpy(), v, want, 1e-5) > 5
+
+
+def _detect_before(tdogs, tcfg, caps):
+    """detect_all_octaves and detect_octave_pallas as they were composed
+    before the refinement took the compaction's output: the plain masks
+    and compactions, decode_compacted and the plain refinement of the
+    decoded candidates, keep = accept & valid per octave."""
+    bd = tcfg.border_dist
+    masks = [td.extrema_mask(d, tcfg, o) for o, d in enumerate(tdogs)]
+    idx, written, total = compact_masks_multi_ref(masks, caps)
+    s, r, c, valid = td.decode_compacted(tdogs, masks, caps, idx, written, bd)
+    multi, single = [], []
+    off = 0
+    for o, (d, cap) in enumerate(zip(tdogs, caps)):
+        sl = slice(off, off + cap)
+        off += cap
+        fs, fr, fc, peak, acc = refine_candidates_ref(d, s[sl], r[sl], c[sl], valid[sl], bd,
+                                                      tcfg.peak_thresh, tcfg.max_interp_moves)
+        multi.append((td.RefinedKeypoints(s[sl], fs, fr, fc, peak, acc & valid[sl]), total[o]))
+        i1, w1, t1 = compact_mask(masks[o], cap)
+        s1, r1, c1, v1 = td.decode_compacted([d], [masks[o]], [cap], i1, w1.reshape(1), bd)
+        fs, fr, fc, peak, acc = refine_candidates_ref(d, s1, r1, c1, v1, bd, tcfg.peak_thresh,
+                                                      tcfg.max_interp_moves)
+        single.append((td.RefinedKeypoints(s1, fs, fr, fc, peak, acc & v1), t1))
+    return multi, single
+
+
+def test_detection_bits_unchanged(dogs160, scene160):
+    """detect_all_octaves and detect_octave_pallas (plain versions, as on the
+    CPU) give the same bits as the decode-then-refine composition they
+    replace, octave by octave, field by field; the multi-launch path's
+    whole-slot outputs are those octaves end to end."""
+    cfg, dogs = dogs160
+    tcfg = SiftConfig(**dataclasses.asdict(cfg))
+    caps = [c for c, _ in j_caps(scene160.shape, cfg)]
+    tdogs = to_torch(dogs)
+    multi, single = _detect_before(tdogs, tcfg, caps)
+    got = td.detect_all_octaves(tdogs, tcfg, caps)
+    whole, total = td.detect_all_slots(tdogs, tcfg, caps)
+    assert len(got) == len(multi) == len(dogs)
+    for o, ((k, t), (bk, bt)) in enumerate(zip(got, multi)):
+        assert int(t) == int(bt) == int(total[o])
+        for f, a, b in zip(k._fields, k, bk):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"octave {o}: {f}"
+    for f, a, parts in zip(whole._fields, whole, zip(*(k for k, _ in multi))):
+        assert torch.equal(a, torch.cat(parts)), f
+    for o, (d, cap) in enumerate(zip(tdogs, caps)):
+        k, t = td.detect_octave_pallas(d, tcfg, o, cap)
+        bk, bt = single[o]
+        assert int(t) == int(bt)
+        for f, a, b in zip(k._fields, k, bk):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"per-octave {o}: {f}"
+    assert sum(int(k.valid.sum()) for k, _ in got) > 5
+
+
+def test_refine_wrappers_check_the_compaction_layout(dogs160):
+    """The wrappers refuse masks of another shape than the (S-2, H-2bd,
+    W-2bd) the in-thread decode assumes, idx or written of the wrong type
+    or length, and a border of 0."""
+    cfg, dogs = dogs160
+    tcfg = SiftConfig(**dataclasses.asdict(cfg))
+    d = to_torch(dogs[0])
+    bd = tcfg.border_dist
+    mask = td.extrema_mask(d, tcfg, 0)
+    idx, written, _ = compact_mask(mask, 64)
+    args = (tcfg.peak_thresh, tcfg.max_interp_moves)
+    with pytest.raises(ValueError, match="mask"):
+        refine_octave(d, mask[:, 1:], idx, written, bd, *args)
+    with pytest.raises(ValueError, match="idx"):
+        refine_octave(d, mask, idx.long(), written, bd, *args)
+    with pytest.raises(ValueError, match="written"):
+        refine_multi([d], [mask], [64], idx, torch.zeros(2, dtype=torch.int32), bd, *args)
+    with pytest.raises(ValueError, match="border"):
+        refine_octave(d, mask, idx, written, 0, *args)
+    out = refine_octave(d, mask, idx, written, bd, *args)
+    assert [t.dtype for t in out] == [torch.int32] + [torch.float32] * 4 + [torch.bool]
 
 
 def test_wrappers_refuse_other_devices():

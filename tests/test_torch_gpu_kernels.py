@@ -14,7 +14,7 @@ import torch
 
 from sift_pyocl_tpu_torch import SLICE_CONFIG, detect_and_describe
 from sift_pyocl_tpu_torch.models.sift import octave_capacities, to_keypoint_records
-from sift_pyocl_tpu_torch.ops.detect import decode_compacted, extrema_mask
+from sift_pyocl_tpu_torch.ops.detect import extrema_mask
 from sift_pyocl_tpu_torch.ops.kernels import (compact, conv, gradpad, ladder, launch_counts,
                                               maskk, matchk, refine, reset_launch_counts, window)
 from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
@@ -50,10 +50,14 @@ def test_compact_and_refine_kernels_match_plain(stage_inputs):
     want = compact.compact_masks_multi_ref(masks, caps)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    s, r, c, valid = decode_compacted(dogs, masks, caps, got[0], got[1], CFG.border_dist)
-    args = (dogs, s, r, c, valid, caps, CFG.border_dist, CFG.peak_thresh, CFG.max_interp_moves)
-    for g, w in zip(refine.refine_multi(*args), refine.refine_multi_ref(*args)):
-        assert torch.equal(g, w)
+    args = (dogs, masks, caps, got[0], got[1], CFG.border_dist, CFG.peak_thresh,
+            CFG.max_interp_moves)
+    out = refine.refine_multi(*args)
+    for g, w in zip(out, refine.refine_multi_ref(*args)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(out[5].sum()) > 10
+    # one CUDA launch a call, straight from K3's output: nothing else
+    assert _cuda_launches(lambda: refine.refine_multi(*args), "refine_kernel") == (3, 0)
 
 
 def test_grad_and_window_kernels_match_plain(stage_inputs):
@@ -68,10 +72,9 @@ def test_grad_and_window_kernels_match_plain(stage_inputs):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     mag, ori, row_starts = got
     idx, wr, _ = compact.compact_masks_multi(masks, caps)
-    s, r, c, valid = decode_compacted(dogs, masks, caps, idx, wr, CFG.border_dist)
-    fs, fr, fc, _, acc = refine.refine_multi(dogs, s, r, c, valid, caps, CFG.border_dist,
-                                             CFG.peak_thresh, CFG.max_interp_moves)
-    args = (mag, ori, s, fr, fc, CFG.init_sigma * 2.0 ** (fs / CFG.scales), (acc > 0) & valid,
+    s, fs, fr, fc, _, keep = refine.refine_multi(dogs, masks, caps, idx, wr, CFG.border_dist,
+                                                 CFG.peak_thresh, CFG.max_interp_moves)
+    args = (mag, ori, s, fr, fc, CFG.init_sigma * 2.0 ** (fs / CFG.scales), keep,
             _desc_window_size(CFG), CFG.max_ori,
             *window.slot_octave_geometry(caps, row_starts, blurs))
     ak, okk, rk = window.orient_desc_fused(*args)
@@ -131,11 +134,12 @@ def test_per_octave_kernels_are_exact(stage_inputs):
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
     assert int(want[1]) > 5
-    s, r, c, valid = decode_compacted([dogs[o]], [masks[o]], [caps[o]], got[0],
-                                      got[1].reshape(1), CFG.border_dist)
-    args = (dogs[o], s, r, c, valid, CFG.border_dist, CFG.peak_thresh, CFG.max_interp_moves)
+    args = (dogs[o], masks[o], got[0], got[1], CFG.border_dist, CFG.peak_thresh,
+            CFG.max_interp_moves)
     for g, w in zip(refine.refine_octave(*args), refine.refine_octave_ref(*args)):
-        assert torch.equal(g, w)
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # one CUDA launch a call, straight from K10a's output: nothing else
+    assert _cuda_launches(lambda: refine.refine_octave(*args), "refine_kernel") == (3, 0)
     per_octave = detect_and_describe(img, dataclasses.replace(CFG, kp_multi_launch=False))
     multi = detect_and_describe(img, dataclasses.replace(CFG, grad_backend="xla"))
     for f in per_octave._fields:
@@ -386,10 +390,10 @@ def test_mode_arguments_compute_one_function(stage_inputs):
         compact.compact_masks_multi(masks, caps, extract_mode="scan")
     blurs = [b for b, _ in octaves]
     mag, ori, row_starts = gradpad.grad_atlas(blurs, CFG.scales)
-    s, r, c, valid = decode_compacted(dogs, masks, caps, want[0], want[1], CFG.border_dist)
-    fs, fr, fc, _, acc = refine.refine_multi(dogs, s, r, c, valid, caps, CFG.border_dist,
-                                             CFG.peak_thresh, CFG.max_interp_moves)
-    args = (mag, ori, s, fr, fc, CFG.init_sigma * 2.0 ** (fs / CFG.scales), (acc > 0) & valid,
+    s, fs, fr, fc, _, keep = refine.refine_multi(dogs, masks, caps, want[0], want[1],
+                                                 CFG.border_dist, CFG.peak_thresh,
+                                                 CFG.max_interp_moves)
+    args = (mag, ori, s, fr, fc, CFG.init_sigma * 2.0 ** (fs / CFG.scales), keep,
             _desc_window_size(CFG), CFG.max_ori,
             *window.slot_octave_geometry(caps, row_starts, blurs))
     for g, w in zip(window.orient_desc_fused(*args, reduce_mode="colsum"),
@@ -508,6 +512,90 @@ def test_compaction_and_small_octaves_replay_in_a_cuda_graph(cuda):
             assert torch.equal(gb, wb) and torch.equal(gd, wd)
 
 
+def _refine_edge_octaves(rng, cfg, cuda):
+    """DoG stacks and masks for K4/K10b's edge cases (numpy, seeded): four
+    odd-sized octaves of 5 planes; octave 0 a quadratic bowl centred
+    outside the plane (plus noise), so moves run into the clamp, its mask's
+    border rows and columns set and more bits than its cap (written ==
+    cap); octave 1 an empty mask (written == 0); octaves 2 and 3 noise with
+    sparse masks, octave 3's mask one 3 x 3 plane.  Returns (dogs, masks,
+    caps)."""
+    bd = cfg.border_dist
+    shapes = [(5, 37, 53), (5, 23, 19), (5, 17, 29), (5, 13, 13)]
+    dogs, masks = [], []
+    for o, (S, H, W) in enumerate(shapes):
+        d = rng.normal(0, 0.05 if o == 0 else 4.0, (S, H, W))
+        m = np.zeros((S - 2, H - 2 * bd, W - 2 * bd), bool)
+        if o == 0:
+            s_, r_, c_ = np.meshgrid(np.arange(S), np.arange(H), np.arange(W), indexing="ij")
+            d += 0.2 * ((r_ + 9.0) ** 2 + (c_ - W - 7.0) ** 2) - 3.0 * (s_ - 2.2) ** 2
+            m[:, [0, -1], :] = True
+            m[:, :, [0, -1]] = True
+        elif o > 1:
+            m = rng.random(m.shape) < 0.1
+        dogs.append(torch.from_numpy(d.astype(np.float32)).to(cuda))
+        masks.append(torch.from_numpy(m).to(cuda))
+    return dogs, masks, [64, 16, 48, 16]
+
+
+def test_refine_kernels_edge_cases_and_graph_replay(cuda):
+    """K4 and K10b straight from K3's / K10a's output, bit-equal to their
+    plain versions on odd octave sizes, an octave at written == cap, one at
+    written == 0 and candidates on the clamp border; one CUDA launch a
+    call; then K3 + K4 and K10a + K10b captured in one CUDA graph and
+    replayed 5 times on new DoGs and masks, each replay equal to an eager
+    call."""
+    from sift_pyocl_tpu_torch import SiftConfig
+
+    cfg = SiftConfig()
+    bd, pt, mm = cfg.border_dist, cfg.peak_thresh, cfg.max_interp_moves
+    rng = np.random.default_rng(23)
+    dogs, masks, caps = _refine_edge_octaves(rng, cfg, cuda)
+    idx, wr, _ = compact.compact_masks_multi(masks, caps)
+    assert wr.tolist()[:2] == [caps[0], 0] and int(wr[2]) > 0
+    reset_launch_counts()
+    got = refine.refine_multi(dogs, masks, caps, idx, wr, bd, pt, mm)
+    want = refine.refine_multi_ref(dogs, masks, caps, idx, wr, bd, pt, mm)
+    for f, g, w in zip(("s_int", "fs", "fr", "fc", "peak", "keep"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), f"K4 {f} differs"
+    assert int(want[5].sum()) > 3 and refine.refine_multi.launches == 1
+    for o, (d, m, cap) in enumerate(zip(dogs, masks, caps)):
+        i1, w1, _ = compact.compact_mask(m, cap)
+        for g, w in zip(refine.refine_octave(d, m, i1, w1, bd, pt, mm),
+                        refine.refine_octave_ref(d, m, i1, w1, bd, pt, mm)):
+            assert g.dtype == w.dtype and torch.equal(g, w), f"K10b octave {o} differs"
+    assert refine.refine_octave.launches == len(dogs)
+    assert _cuda_launches(lambda: refine.refine_multi(dogs, masks, caps, idx, wr, bd, pt, mm),
+                          "refine_kernel") == (3, 0)
+
+    def both(ds, ms):
+        i, w, _ = compact.compact_masks_multi(ms, caps)
+        i0, w0, _ = compact.compact_mask(ms[0], caps[0])
+        return (refine.refine_multi(ds, ms, caps, i, w, bd, pt, mm),
+                refine.refine_octave(ds[0], ms[0], i0, w0, bd, pt, mm))
+
+    static_d, static_m = [d.clone() for d in dogs], [m.clone() for m in masks]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):             # warm-up on the capturing stream
+        for _ in range(2):
+            both(static_d, static_m)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = both(static_d, static_m)
+    for i in range(5):
+        new_d, new_m, _ = _refine_edge_octaves(rng, cfg, cuda)
+        for t, n in zip(static_d + static_m, new_d + new_m):
+            t.copy_(n)
+        graph.replay()
+        eager = both(new_d, new_m)
+        torch.cuda.synchronize()
+        for k, (g_out, w_out) in enumerate(zip(out, eager)):
+            for g, w in zip(g_out, w_out):
+                assert torch.equal(g, w), f"replay {i}: {('K4', 'K10b')[k]} differs"
+
+
 @pytest.mark.parametrize("shape,n_oct,scales,mode", [
     ((541, 963), 6, 3, "shrink"), ((541, 963), 6, 2, "bin"), ((135, 241), 1, 3, "bin"),
     ((135, 241), 1, 2, "shrink"), ((77, 131), 3, 3, "bin"), ((77, 131), 3, 2, "shrink")])
@@ -543,10 +631,9 @@ def _k6_args(stage_inputs, win: int, max_ori: int, corners: bool = True):
     blurs = [b for b, _ in octaves]
     mag, ori, row_starts = gradpad.grad_atlas(blurs, CFG.scales)
     idx, wr, _ = compact.compact_masks_multi(masks, caps)
-    s, r, c, valid = decode_compacted(dogs, masks, caps, idx, wr, CFG.border_dist)
-    fs, fr, fc, _, acc = refine.refine_multi(dogs, s, r, c, valid, caps, CFG.border_dist,
-                                             CFG.peak_thresh, CFG.max_interp_moves)
-    fr, fc, kvalid = fr.clone(), fc.clone(), (acc > 0) & valid
+    s, fs, fr, fc, _, kvalid = refine.refine_multi(dogs, masks, caps, idx, wr, CFG.border_dist,
+                                                   CFG.peak_thresh, CFG.max_interp_moves)
+    fr, fc = fr.clone(), fc.clone()
     if corners:
         off = 0
         for o, cap in enumerate(caps):
