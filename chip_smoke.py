@@ -84,7 +84,21 @@
    another frame): descriptors /512 (exact sums) and /255 (rounded sums),
    d1/d2 within a stated tolerance of the plain version, i1 equal outside
    near-ties (counted); timed beside torch.mm + torch.topk.
-16. Prints a JSON line of per-kernel results (16 rows, launches from the
+16. Phase A, the reference library's API at 1080x1920 (frames: crops of
+   the VO scene, the reference at (32, 32)): LinearAlign recovers a (-3,
+   +5) translation (matrix within 0.02, offset within 0.3 px, interior
+   median error < 2) and a 2 deg / 1.02x affine made with the port's warp;
+   shift_only + double_check; relative over 4 frames drifting 2 px (within
+   0.8 px); orsa (every returned match an inlier, < 9 px^2);
+   MatchPlan(metric="L2") one K7 launch a match_index, indices equal to the
+   CPU's; K1-K6 once per align call (counters reset just before it).
+   Prints ms per warm align call (host image in, host result out) and its
+   split (keypoints, match, fit, warp), the L1 matcher's launches and
+   device time, and the host synchronisations of one call.
+17. Phase B: the invariance battery (utils/invariance.py) through the port
+   at 256x256: both scenes, all 9 cases against FLOORS, the double_im_size
+   zoom fence and the angle fence.
+18. Prints a JSON line of per-kernel results (16 rows, launches from the
    path that runs each kernel, cuda_launches and device_ms a wrapper call
    from the profiler), then, as its last line, {"ok": true, "device": {...}}.
 
@@ -839,6 +853,21 @@ def check_step_launches(tag: str, prof: dict, want: dict, decode_launches: float
         f"{tag}: {total} CUDA launches a step, not {decode_launches} below {LAUNCHES_BEFORE[tag]}"
 
 
+def host_syncs(fn) -> list:
+    """The host synchronisations fn() makes (sync debug mode)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the first detection also brings a notice that the mode is a prototype
+    return [str(c.message).splitlines()[0] for c in caught
+            if "called a synchronizing" in str(c.message)
+            and not str(c.message).startswith("Synchronization debug mode")]
+
+
 def check_tracked(outs, vo):
     for i, o in enumerate(outs):
         assert bool(o.tracked), f"frame {i + 1} not tracked"
@@ -903,17 +932,7 @@ def check_vo(dev, decode_launches: float) -> dict:
     prof = profiling.device_profile(one, 2)
     check_step_launches("main path", prof, STEP_LAUNCHES, decode_launches)
     print("vo_step device profile:", json.dumps(prof), flush=True)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            one()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    # the first detection also brings a notice that the mode is a prototype
-    syncs = [str(c.message).splitlines()[0] for c in caught
-             if "called a synchronizing" in str(c.message)
-             and not str(c.message).startswith("Synchronization debug mode")]
+    syncs = host_syncs(one)
     print(f"host synchronisations in one vo_step: {len(syncs)}", flush=True)
     for line in sorted(set(syncs)):
         print("  sync:", line[:160])
@@ -1585,6 +1604,226 @@ def check_matcher_f32(bufs, rec: Kernels) -> dict:
     return counts
 
 
+# The API path (phase A): frames are crops of the VO phases' scene, the
+# reference frame the crop at (32, 32); users stabilise 1080p video against
+# a reference frame.
+API_SCENE = (1144, 1984)
+API_ORIGIN = (32, 32)
+API_CALLS = 5
+FRONTEND = ("octave0_ladder", "small_octaves_ladder", "compact_masks_multi", "refine_multi",
+            "grad_atlas", "orient_desc_fused")
+
+
+def api_crop(base, dy: int = 0, dx: int = 0) -> np.ndarray:
+    y, x = API_ORIGIN[0] + dy, API_ORIGIN[1] + dx
+    return np.ascontiguousarray(base[y:y + SHAPE[0], x:x + SHAPE[1]])
+
+
+def counted_align(la, img, **kw):
+    """One align call with every launch counter reset just before it; K1-K6
+    once, K7 never (the default metric is L1)."""
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = la.align(img, return_all=True, **kw)
+    counts = launch_counts()
+    for name in FRONTEND:
+        assert counts[name] == 1, f"align({kw}): {name} launched {counts[name]} times"
+    assert counts["best2_l2"] == 0, f"align({kw}): K7 launched {counts['best2_l2']} times"
+    assert out is not None, f"align({kw}) found too few matches"
+    return out
+
+
+def check_api_align(dev) -> dict:
+    """Phase A: LinearAlign and MatchPlan at 1080x1920 on the card, the
+    reference library's API (tests/test_align.py's tolerances): translation,
+    a 2 deg / 1.02x affine, shift_only with double_check, relative over 4
+    frames, orsa, MatchPlan(metric="L2") on K7 against the CPU's indices,
+    K1-K6 once per align call; ms per warm align call and its split."""
+    from sift_pyocl_tpu_torch import LinearAlign, MatchPlan, affine_warp, fit_affine
+    from sift_pyocl_tpu_torch.ops.kernels import matchk, reset_launch_counts
+    from sift_pyocl_tpu_torch.utils.testimage import synthetic_scene
+
+    base = synthetic_scene(API_SCENE, n_blobs=200, seed=0)
+    ref = api_crop(base)
+    img = api_crop(base, -3, 5)                 # (dy, dx) = (-3, +5)
+    want_off = np.array([3.0, -5.0])            # ref -> img: (-dy, -dx)
+    interior = (slice(64, -64), slice(64, -64))
+    t = time.perf_counter()
+    la = LinearAlign(ref, device=dev)
+    print(f"LinearAlign{SHAPE} init (kernels built, reference keypoints): "
+          f"{1e3 * (time.perf_counter() - t):.1f} ms, {len(la.ref_kp)} reference keypoints",
+          flush=True)
+
+    out = counted_align(la, img)
+    err = float(np.median(np.abs(out["result"][interior] - ref[interior])))
+    print(f"translation: {len(out['matches'])} matches, matrix {out['matrix'].tolist()}, "
+          f"offset {out['offset'].tolist()} (want {want_off.tolist()}), interior median "
+          f"error {err:.4f}", flush=True)
+    np.testing.assert_allclose(out["matrix"], np.eye(2), atol=0.02)
+    np.testing.assert_allclose(out["offset"], want_off, atol=0.3)
+    assert err < 2.0, err
+
+    # a known affine: img(p) = ref(M p + off) about the centre, so the fit
+    # (ref -> img) recovers inv(M) and -inv(M) off
+    th = math.radians(2.0)
+    M = 1.02 * np.array([[math.cos(th), -math.sin(th)], [math.sin(th), math.cos(th)]])
+    c = (np.array(SHAPE, float) - 1) / 2
+    off = c - M @ c
+    warped = affine_warp(ref, M, off, device=dev).cpu().numpy()
+    aff = counted_align(la, warped)
+    Minv = np.linalg.inv(M)
+    err_a = float(np.median(np.abs(aff["result"][interior] - ref[interior])))
+    print(f"affine (2 deg, 1.02x): {len(aff['matches'])} matches, matrix error "
+          f"{np.abs(aff['matrix'] - Minv).max():.3g}, offset error "
+          f"{np.abs(aff['offset'] + Minv @ off).max():.3g} px, interior median error "
+          f"{err_a:.4f}", flush=True)
+    np.testing.assert_allclose(aff["matrix"], Minv, atol=0.02)
+    np.testing.assert_allclose(aff["offset"], -Minv @ off, atol=0.3)
+
+    sh = counted_align(la, img, shift_only=True, double_check=True)
+    print(f"shift_only + double_check: {len(sh['matches'])} matches, offset "
+          f"{sh['offset'].tolist()}", flush=True)
+    np.testing.assert_allclose(sh["offset"], want_off, atol=0.3)
+    assert len(sh["matches"]) <= len(out["matches"])
+
+    rel = LinearAlign(ref, device=dev)
+    rel_off = []
+    for k in range(1, 5):                       # 2 px a frame to the right
+        o = counted_align(rel, api_crop(base, 0, 2 * k), shift_only=True, relative=True)
+        rel_off.append(o["offset"].tolist())
+        assert abs(o["offset"][1] + 2.0 * k) < 0.8 and abs(o["offset"][0]) < 0.8, (k, o["offset"])
+    print(f"relative over 4 frames: composed offsets {rel_off}", flush=True)
+
+    orsa = counted_align(la, img, orsa=True, seed=0)
+    kp = la.sift.keypoints(img)
+    m = orsa["matches"]
+    p_ref = np.stack([la.ref_kp["y"][m[:, 0]], la.ref_kp["x"][m[:, 0]]], 1)
+    p_img = np.stack([kp["y"][m[:, 1]], kp["x"][m[:, 1]]], 1)
+    resid = np.sum((p_ref @ np.asarray(orsa["matrix"]).T + orsa["offset"] - p_img) ** 2, 1)
+    print(f"orsa: {len(m)} of {len(out['matches'])} matches kept, worst squared residual "
+          f"{resid.max():.4f} px^2, offset {orsa['offset'].tolist()}", flush=True)
+    assert len(m) >= 4 and np.all(resid < 9.0 + 1e-3)
+    np.testing.assert_allclose(orsa["offset"], want_off, atol=0.3)
+
+    # MatchPlan(metric="L2"): one K7 launch a match_index, the CPU's indices
+    l2 = MatchPlan(metric="L2", device=dev)
+    idx_l2 = None
+    for _ in range(2):
+        reset_launch_counts()
+        idx_l2 = l2.match_index(la.ref_kp, kp)
+        assert matchk.best2_l2.launches == 1, f"K7 launched {matchk.best2_l2.launches} times"
+    want_l2 = MatchPlan(metric="L2", device="cpu").match_index(la.ref_kp, kp)
+    np.testing.assert_array_equal(idx_l2, want_l2)
+    want_l1 = MatchPlan(device="cpu").match_index(la.ref_kp, kp)
+    np.testing.assert_array_equal(la.match_plan.match_index(la.ref_kp, kp), want_l1)
+    print(f"MatchPlan L2: {len(idx_l2)} matches, one K7 launch a call, equal to the CPU's; "
+          f"L1 (default): {len(want_l1)} matches, equal to the CPU's", flush=True)
+
+    # ms per warm align call (host image in, host result out) and its split
+    counted_align(la, img)
+    torch.cuda.synchronize()
+    align_ms = []
+    for _ in range(API_CALLS):
+        t = time.perf_counter()
+        la.align(img, return_all=True)
+        torch.cuda.synchronize()
+        align_ms.append(1e3 * (time.perf_counter() - t))
+
+    def host_ms(fn, calls=API_CALLS):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / calls
+
+    p_r = np.stack([la.ref_kp["y"][out["matches"][:, 0]], la.ref_kp["x"][out["matches"][:, 0]]], 1)
+    p_i = np.stack([kp["y"][out["matches"][:, 1]], kp["x"][out["matches"][:, 1]]], 1)
+    split = {
+        "keypoints": host_ms(lambda: la.sift.keypoints(img)),
+        "match": host_ms(lambda: la.match_plan.match_index(la.ref_kp, kp)),
+        "fit": host_ms(lambda: fit_affine(p_i, p_r)),
+        "warp": host_ms(lambda: affine_warp(img, out["matrix"], out["offset"],
+                                            device=dev).cpu().numpy()),
+    }
+    l2_ms = host_ms(lambda: l2.match_index(la.ref_kp, kp))
+    orsa_ms = host_ms(lambda: la.align(img, orsa=True))
+    l1_launches, l1_dev = profile_calls(lambda: la.match_plan.match_index(la.ref_kp, kp))
+    l2_launches, l2_dev = profile_calls(lambda: l2.match_index(la.ref_kp, kp))
+    warp_launches, warp_dev = profile_calls(
+        lambda: affine_warp(img, out["matrix"], out["offset"], device=dev))
+    syncs = host_syncs(lambda: la.align(img))
+    syncs_orsa = host_syncs(lambda: la.align(img, orsa=True))
+    n1, n2 = len(la.ref_kp), len(kp)
+    report = {"align_ms": align_ms, "align_ms_mean": float(np.mean(align_ms)),
+              "split_ms": split, "orsa_align_ms": orsa_ms,
+              "keypoints": [n1, n2], "matches": len(out["matches"]),
+              "l1_match": {"ms": split["match"], "cuda_launches": l1_launches,
+                           "device_ms": l1_dev, "int_ops": 3 * 128 * n1 * n2},
+              "l2_match": {"ms": l2_ms, "cuda_launches": l2_launches, "device_ms": l2_dev},
+              "warp": {"cuda_launches": warp_launches, "device_ms": warp_dev,
+                       "bytes": 3 * 4 * SHAPE[0] * SHAPE[1]},
+              "host_syncs": len(syncs), "host_syncs_orsa": len(syncs_orsa)}
+    print(f"align {SHAPE} ms (host clock, host image in, host result out, synchronised): "
+          f"{[round(v, 3) for v in align_ms]} (mean {report['align_ms_mean']:.3f}); split "
+          f"{ {k: round(v, 3) for k, v in split.items()} }; orsa align {orsa_ms:.3f} ms; "
+          f"keypoints {n1} / {n2}, matches {len(out['matches'])}", flush=True)
+    print(f"L1 matcher (default): {split['match']:.3f} ms a call, {l1_launches:g} CUDA launches "
+          f"and {l1_dev:.4f} device ms a call, {3 * 128 * n1 * n2:.4g} int operations; "
+          f"L2 (K7): {l2_ms:.3f} ms, {l2_launches:g} launches, {l2_dev:.4f} device ms; warp "
+          f"{warp_launches:g} launches, {warp_dev:.4f} device ms", flush=True)
+    print(f"host synchronisations in one align call: {len(syncs)} (orsa: {len(syncs_orsa)})",
+          flush=True)
+    for line in sorted(set(syncs + syncs_orsa)):
+        print("  sync:", line[:160])
+    print("api_align:", json.dumps(report), flush=True)
+    return report
+
+
+def check_invariance(dev) -> dict:
+    """Phase B: the invariance battery (sift_pyocl_tpu_torch/utils/
+    invariance.py) through the port at 256x256 on the card: default
+    SiftConfig, both scenes, all 9 cases against FLOORS, the double_im_size
+    zoom fence and the angle fence."""
+    from sift_pyocl_tpu_torch import MatchPlan, SiftConfig, SiftPlan
+    from sift_pyocl_tpu_torch.utils import invariance as inv
+
+    plan = SiftPlan(inv.SHAPE, device=dev)
+    mp = MatchPlan(device=dev)
+    failures, rows = [], {}
+    for scene, img in inv.scenes().items():
+        kp0 = plan.keypoints(img)
+        assert len(kp0) >= 50, f"{scene}: {len(kp0)} keypoints"
+        for case in inv.CASES:
+            res = inv.run_case(plan, mp, img, kp0, case, dev)
+            floor = inv.FLOORS[(scene, case[0])]
+            rows[f"{scene}/{case[0]}"] = {k: res[k] for k in ("rep", "prec", "eligible",
+                                                             "matches")}
+            print(f"[invariance] {scene}/{case[0]}: repeatability {res['rep']:.3f} "
+                  f"({res['hits']}/{res['eligible']}), precision {res['prec']:.3f}, "
+                  f"matches {res['matches']}; floors rep {floor[0]}, precision {floor[1]}, "
+                  f"eligible {floor[2]}, matches {floor[3]}", flush=True)
+            failures += inv.floor_failures(scene, case[0], res)
+        frac, n_match = inv.angle_fence(plan, mp, img, kp0, dev)
+        rows[f"{scene}/angle"] = {"share": frac, "matches": n_match}
+        print(f"[invariance] {scene} angle consistency: {frac:.3f} of {n_match} "
+              f"(fence {inv.ANGLE_FENCE}, >= 10 matches)", flush=True)
+        if frac < inv.ANGLE_FENCE or n_match < 10:
+            failures.append(f"{scene}: angle consistency {frac:.3f} of {n_match}")
+    plan_d = SiftPlan(inv.SHAPE, config=SiftConfig(double_im_size=True), device=dev)
+    rep, n_match = inv.zoom_fence(plan, plan_d, mp, dev)
+    rows["double_im_size/zoom_out"] = {"rep": rep, "matches": n_match}
+    print(f"[invariance] double_im_size zoom_out: repeatability {rep:.3f}, matches {n_match} "
+          f"(fence {inv.ZOOM_FENCE[0]}, {inv.ZOOM_FENCE[1]})", flush=True)
+    if rep < inv.ZOOM_FENCE[0] or n_match < inv.ZOOM_FENCE[1]:
+        failures.append(f"double_im_size zoom fence: {rep:.3f}, {n_match} matches")
+    print("invariance:", json.dumps(rows), flush=True)
+    assert not failures, "; ".join(failures)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)",
@@ -1626,6 +1865,8 @@ def main() -> int:
     p7 = check_vo_fused(base, p1)
     check_fused_scales2(img, x, dev)
     p8 = check_matcher_f32(base["bufs"], rec)
+    check_api_align(dev)
+    check_invariance(dev)
 
     # each kernel's launches on its path: the main path (10 vo_step) for
     # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b, P4

@@ -116,3 +116,41 @@ def from_jax_config(cfg) -> SiftConfig:
     dataclass with the same fields).  SIFT has no weights; the config is the
     whole state that crosses between the packages."""
     return SiftConfig(**dataclasses.asdict(cfg))
+
+
+# Legacy-style view for API parity with `from sift import par` (a copy of
+# the JAX package's ``par`` and ``config_from_par``).
+DEFAULT_CONFIG = SiftConfig()
+
+par = {
+    "DoubleImSize": DEFAULT_CONFIG.double_im_size,
+    "InitSigma": DEFAULT_CONFIG.init_sigma,
+    "BorderDist": DEFAULT_CONFIG.border_dist,
+    "Scales": DEFAULT_CONFIG.scales,
+    "PeakThresh": DEFAULT_CONFIG.peak_thresh,
+    "EdgeThresh": DEFAULT_CONFIG.edge_thresh,
+    "EdgeThresh1": DEFAULT_CONFIG.edge_thresh1,
+    "MatchRatio": DEFAULT_CONFIG.match_ratio,
+    "OrigSigma": DEFAULT_CONFIG.orig_sigma,
+}
+
+_PAR_FIELDS = {
+    "DoubleImSize": "double_im_size",
+    "InitSigma": "init_sigma",
+    "BorderDist": "border_dist",
+    "Scales": "scales",
+    "PeakThresh": "peak_thresh",
+    "EdgeThresh": "edge_thresh",
+    "EdgeThresh1": "edge_thresh1",
+    "MatchRatio": "match_ratio",
+    "OrigSigma": "orig_sigma",
+}
+
+
+def config_from_par(p=None, **overrides) -> SiftConfig:
+    """Build a SiftConfig from a reference-style `par` dict (API bridge)."""
+    p = dict(par if p is None else p)
+    kwargs = {_PAR_FIELDS[k]: v for k, v in p.items() if k in _PAR_FIELDS}
+    kwargs["double_im_size"] = bool(kwargs.get("double_im_size", False))
+    kwargs.update(overrides)
+    return SiftConfig(**kwargs)

@@ -349,6 +349,26 @@ class SiftPlan:
                 "limit (reference parity: plan.py::_calc_memory pre-check)"
             )
 
+    def compile(self) -> "SiftPlan":
+        """Build ahead of the first frame (the reference does this in
+        __init__): one ``keypoints_raw`` on a zero image of the plan's
+        shape builds the kernels and makes each stream's first-call state
+        (K2's work list, K3's scratch)."""
+        self.keypoints_raw(torch.zeros(self.shape, dtype=torch.float32))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def log_profile(self) -> dict:
+        """Parity shim for the reference's event-profiling report
+        (reference: plan.py::log_profile): host-clock ms of each stage
+        (``utils.profiling.stage_times``) for this plan's shape, config and
+        device, on uniform noise from seed 0 (the JAX package's image)."""
+        from ..utils.profiling import stage_times
+
+        image = np.random.default_rng(0).uniform(0, 255, self.shape).astype(np.float32)
+        return stage_times(image, self.cfg, self.device, frames=1)
+
     def keypoints_raw(self, image) -> KeypointBuffer:
         """Device-resident fixed-capacity result (for fused downstream use)."""
         img = image if torch.is_tensor(image) else torch.from_numpy(np.asarray(image))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -24,6 +25,23 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def device_of(x, device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """Where a function given `x` runs: `device` where given, else `x`'s
+    device if it is a tensor, else the CUDA card (``resolve_device(None)``:
+    raises without one)."""
+    if device is None and torch.is_tensor(x):
+        return x.device
+    return resolve_device(device)
+
+
+def as_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`x` (a tensor or an array) as a tensor on `device`, cast to `dtype`
+    where given (a float64 array rounds once to float32, as
+    ``jnp.asarray(x, float32)``)."""
+    t = x if torch.is_tensor(x) else torch.from_numpy(np.array(x))
+    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def nonzero_first(flags: torch.Tensor, size: int):

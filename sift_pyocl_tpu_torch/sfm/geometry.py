@@ -8,9 +8,10 @@ with the same conventions:
 * K = [[fx, 0, cx], [0, fy, cy], [0, 0, 1]];
 * se(3) tangents xi = (omega, upsilon) act on the left: exp(xi) * pose.
 
-``hat``, ``so3_exp``, ``se3_exp`` and ``pose_retract`` take any leading
-batch dimensions (the JAX package maps them with ``vmap``).  The 8-point,
-essential and homography functions come with the SfM slice.
+``hat``, ``so3_exp``, ``se3_exp``, ``pose_retract`` and
+``_normalize_points`` take any leading batch dimensions (the JAX package
+maps them with ``vmap``).  The 8-point, essential and homography functions
+come with the SfM slice.
 """
 
 from __future__ import annotations
@@ -151,3 +152,21 @@ def triangulate_two_view(K1, R1, t1, K2, R2, t2, uv1, uv2):
     _, z1 = project(K1, R1, t1, X)
     _, z2 = project(K2, R2, t2, X)
     return X, z1, z2
+
+
+def _normalize_points(pts: torch.Tensor, w: torch.Tensor):
+    """Hartley normalization with weights w (0/1 mask); returns (pts_n, T).
+
+    pts (N, 2) and w (..., N): one normalization per weight row, pts_n
+    (..., N, 2) and T (..., 3, 3)."""
+    wsum = torch.clamp(w.sum(-1), min=1.0)
+    mean = (pts * w[..., None]).sum(-2) / wsum[..., None]
+    d = torch.sqrt(((pts - mean[..., None, :]) ** 2).sum(-1) + 1e-12)
+    sqrt2 = torch.full((), 2.0, dtype=pts.dtype, device=pts.device).sqrt()   # no host copy
+    scale = sqrt2 / torch.clamp((d * w).sum(-1) / wsum, min=1e-12)
+    zero, one = torch.zeros_like(scale), torch.ones_like(scale)
+    T = torch.stack([torch.stack([scale, zero, -scale * mean[..., 0]], -1),
+                     torch.stack([zero, scale, -scale * mean[..., 1]], -1),
+                     torch.stack([zero, zero, one], -1)], -2)
+    pn = (pts - mean[..., None, :]) * scale[..., None, None]
+    return pn, T

@@ -1,0 +1,134 @@
+"""Static-shape batched RANSAC in PyTorch: the affine part.
+
+Port of ``sift_pyocl_tpu/sfm/ransac.py`` (``RansacResult``,
+``_sample_weights``, ``ransac``, ``_fit_affine_weighted``, ``_affine_error``
+and ``ransac_affine``; the homography and essential forms come with the SfM
+slice).  All hypotheses are drawn, fit and scored at once: `n_hypo` minimal
+samples as (n_hypo, N) 0/1 weight rows, one batched weighted fit, one
+(n_hypo, N) error matrix, and a refit of the winner on its inlier set.  No
+shape depends on the data and nothing is read back to the host.
+
+The JAX package draws its rows with ``jax.random.gumbel`` under a
+``PRNGKey``; a ``torch.Generator`` draws other numbers, so ``ransac`` takes
+the rows as an optional argument (``weights``), and the parity tests pass
+the rows JAX drew.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..ops import as_tensor, device_of
+from .geometry import _normalize_points
+
+
+class RansacResult(NamedTuple):
+    model: torch.Tensor       # fitted model (refit on inliers)
+    inliers: torch.Tensor     # (N,) bool
+    n_inliers: torch.Tensor   # () int32
+    best_score: torch.Tensor  # () int32 inlier count of the winning hypothesis
+
+
+def _sample_weights(seed: int, valid: torch.Tensor, n_hypo: int, k: int) -> torch.Tensor:
+    """(n_hypo, N) f32 0/1 weight rows, each selecting k distinct valid
+    indices: masked Gumbel top-k, as the JAX package's.  The noise comes
+    from a ``torch.Generator`` seeded with `seed` on the CPU and is moved to
+    `valid`'s device, so the card and the CPU draw the same rows (which are
+    not the rows JAX draws for the same seed)."""
+    n = valid.shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    u = torch.rand((n_hypo, n), generator=gen, dtype=torch.float32)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    g = (-torch.log(-torch.log(u))).to(valid.device)
+    g = torch.where(valid.bool()[None, :], g, -torch.inf)
+    idx = torch.topk(g, k, dim=1).indices
+    w = torch.zeros((n_hypo, n), dtype=torch.float32, device=valid.device)
+    return w.scatter_(1, idx, 1.0)
+
+
+def _first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum of 1-D `x`, as ``jnp.argmax`` (no sync)."""
+    pos = torch.arange(x.shape[0], device=x.device)
+    return torch.where(x == x.max(), pos, x.shape[0]).min()
+
+
+def ransac(seed: int, uv1: torch.Tensor, uv2: torch.Tensor, valid: torch.Tensor,
+           fit_fn: Callable, error_fn: Callable, min_samples: int, thresh: float,
+           n_hypo: int = 256, weights: Optional[torch.Tensor] = None) -> RansacResult:
+    """Generic batched RANSAC over (N, 2) x (N, 2) correspondences.
+
+    ``fit_fn(uv1, uv2, w (B, N)) -> (B, ...)`` models and
+    ``error_fn(models (B, ...), uv1, uv2) -> (B, N)`` squared errors are
+    batched over weight rows (the JAX package's take one row under
+    ``vmap``).  ``weights``: the (n_hypo, N) minimal-sample rows to use in
+    place of drawing them from `seed` (``_sample_weights``)."""
+    w = _sample_weights(seed, valid, n_hypo, min_samples) if weights is None else \
+        weights.to(device=uv1.device, dtype=uv1.dtype)
+    valid = valid.bool()
+    models = fit_fn(uv1, uv2, w)
+    errs = error_fn(models, uv1, uv2)                       # (n_hypo, N)
+    inl = (errs < thresh) & valid[None, :]
+    scores = inl.sum(1, dtype=torch.int32)
+    best = _first_argmax(scores).view(1)
+    best_in = inl.index_select(0, best)[0]
+    best_score = scores.index_select(0, best)[0]
+    best_model = models.index_select(0, best)[0]
+    # refit on the winning inlier set (guard: need >= min_samples)
+    enough = best_score >= min_samples
+    refit_w = torch.where(enough, best_in.to(uv1.dtype), w.index_select(0, best)[0])
+    model = fit_fn(uv1, uv2, refit_w[None])[0]
+    final_in = (error_fn(model[None], uv1, uv2)[0] < thresh) & valid
+    # keep the better of refit vs raw winner (refit can rarely degrade)
+    use_refit = final_in.sum(dtype=torch.int32) >= best_score
+    model = torch.where(use_refit, model, best_model)
+    inliers = torch.where(use_refit, final_in, best_in)
+    return RansacResult(model, inliers, inliers.sum(dtype=torch.int32), best_score)
+
+
+def _fit_affine_weighted(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted lstsq affine uv2 ≈ M @ uv1 + t per weight row w (B, N),
+    returned as (B, 2, 3) [M | t].
+
+    Points are Hartley-normalized first, so the normal equations stay
+    well-conditioned at any pixel scale and the 1e-6 ridge keeps degenerate
+    (collinear) samples finite.  The 3x3 solves are ``solve_ex`` (LU with
+    partial pivoting, as ``jnp.linalg.solve``), whose error check stays on
+    the card."""
+    p1, T1 = _normalize_points(uv1, w)
+    p2, T2 = _normalize_points(uv2, w)
+    x = torch.cat([p1, torch.ones_like(p1[..., :1])], -1)      # (B, N, 3)
+    xw = x * w[..., None]
+    eye = torch.eye(3, dtype=uv1.dtype, device=uv1.device)
+    ata = x.transpose(-1, -2) @ xw + 1e-6 * eye
+    atb = xw.transpose(-1, -2) @ p2                              # (B, 3, 2)
+    sol = torch.linalg.solve_ex(ata, atb).result                 # rows [M.T ; t], normalized
+    an = torch.cat([sol.transpose(-1, -2), eye[2:].expand(sol.shape[0], 1, 3)], -2)
+    # denormalize: [uv2; 1] = T2^-1 @ An @ T1 @ [uv1; 1]
+    full = torch.linalg.solve_ex(T2, an @ T1).result
+    return full[..., :2, :]
+
+
+def _affine_error(model: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -> torch.Tensor:
+    """(B, N) squared residuals of models (B, 2, 3)."""
+    pred = uv1 @ model[..., :2].transpose(-1, -2) + model[..., None, :, 2]
+    return ((pred - uv2) ** 2).sum(-1)
+
+
+def ransac_affine(seed: int, uv1, uv2, valid, thresh_px: float = 3.0, n_hypo: int = 256,
+                  weights=None, device=None) -> RansacResult:
+    """RANSAC 2-D affine fit uv2 ≈ M @ uv1 + t (model: (2, 3) [M | t]).
+
+    Backs ``LinearAlign(orsa=True)``.  Tensors or arrays (points as f32);
+    it runs on `device` where given, else on `uv1`'s device if it is a
+    tensor, else on the CUDA card (raises without one).  With no
+    ``weights`` the rows are drawn from `seed` (``_sample_weights``: the
+    same rows on the card and the CPU, not JAX's)."""
+    dev = device_of(uv1, device)
+    uv1, uv2 = (as_tensor(p, dev, torch.float32) for p in (uv1, uv2))
+    valid = as_tensor(valid, dev, torch.bool)
+    if weights is not None:
+        weights = as_tensor(weights, dev, torch.float32)
+    return ransac(seed, uv1, uv2, valid, _fit_affine_weighted, _affine_error,
+                  min_samples=3, thresh=thresh_px ** 2, n_hypo=n_hypo, weights=weights)

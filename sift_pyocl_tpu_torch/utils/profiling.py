@@ -50,11 +50,18 @@ from ..ops.pyramid import build_scale_space_and_masks
 from .testimage import synthetic_scene
 
 
+def _sync() -> None:
+    """Wait for the card where one is in use (a CPU plan has nothing to
+    wait for)."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
 def _timed(fn, out: dict, name: str):
-    torch.cuda.synchronize()
+    _sync()
     t = time.perf_counter()
     res = fn()
-    torch.cuda.synchronize()
+    _sync()
     out[name] += 1e3 * (time.perf_counter() - t)
     return res
 
@@ -93,7 +100,10 @@ def _stage_frame(host_img, cfg: SiftConfig, caps, dev, t: dict) -> None:
 
 def stage_times(host_img, cfg: SiftConfig, dev: torch.device, frames: int) -> dict:
     """Mean host-clock ms of each stage over `frames` frames (after one
-    warm-up frame); `host_img` is the frame in host memory."""
+    warm-up frame); `host_img` is the frame in host memory.  The stages are
+    those of the multi-launch kernel path (``SiftPlan.log_profile`` calls
+    this for its shape, config and device; on the CPU every kernel is its
+    plain version)."""
     caps = [c for c, _ in octave_capacities(host_img.shape, cfg)]
     _stage_frame(host_img, cfg, caps, dev, defaultdict(float))
     acc = defaultdict(float)

@@ -1,8 +1,9 @@
 """Synthetic test scenes and keypoint-set comparison (numpy only).
 
-``synthetic_scene`` is a copy of ``sift_pyocl_tpu/utils/testimage.py``'s
-(that package imports jax); ``tests/test_torch_config.py`` holds the two
-equal.  ``match_keypoint_sets`` is the set comparison of the JAX package's
+``synthetic_scene``, ``textured_scene`` (with ``_bilinear_upsample``) and
+``transformed_pair`` are copies of ``sift_pyocl_tpu/utils/testimage.py``'s
+(that package imports jax); ``tests/test_torch_config.py`` holds each equal
+to its original.  ``match_keypoint_sets`` is the set comparison of the JAX package's
 test suite (``tests/conftest.py``), so ``chip_smoke.py`` can hold the
 kernel path to the plain path with the suite's own measure.
 """
@@ -39,6 +40,63 @@ def synthetic_scene(shape=(512, 512), n_blobs: int = 60, seed: int = 0) -> np.nd
     img -= img.min()
     img *= 255.0 / max(img.max(), 1e-9)
     return img.astype(np.float32)
+
+
+def _bilinear_upsample(coarse: np.ndarray, shape) -> np.ndarray:
+    h, w = shape
+    ys = np.linspace(0, coarse.shape[0] - 1.001, h)
+    xs = np.linspace(0, coarse.shape[1] - 1.001, w)
+    y0 = ys.astype(int)
+    x0 = xs.astype(int)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    return (
+        coarse[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
+        + coarse[np.ix_(y0 + 1, x0)] * fy * (1 - fx)
+        + coarse[np.ix_(y0, x0 + 1)] * (1 - fy) * fx
+        + coarse[np.ix_(y0 + 1, x0 + 1)] * fy * fx
+    )
+
+
+def textured_scene(shape=(256, 256), seed: int = 0) -> np.ndarray:
+    """Multi-frequency textured scene: fractal noise octaves + hard-edged
+    high-contrast patches + a multiplicative illumination gradient (closer
+    to photographs than ``synthetic_scene``'s smooth isotropic blobs)."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    img = np.zeros((h, w))
+    # fractal noise: octave spectrum with ~1/f amplitude decay
+    for cell, amp in [(64, 55.0), (32, 38.0), (16, 26.0), (8, 16.0),
+                      (4, 9.0)]:
+        coarse = rng.normal(size=(h // cell + 2, w // cell + 2))
+        img += amp * _bilinear_upsample(coarse, shape)
+    # hard-edged patches (rotated bars): step edges with corners
+    rr, cc = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    for _ in range(14):
+        cy, cx = rng.uniform(0.08, 0.92) * h, rng.uniform(0.08, 0.92) * w
+        hh = rng.uniform(6.0, 40.0)
+        ww = rng.uniform(6.0, 40.0)
+        th = rng.uniform(0.0, np.pi)
+        u = (rr - cy) * np.cos(th) + (cc - cx) * np.sin(th)
+        v = -(rr - cy) * np.sin(th) + (cc - cx) * np.cos(th)
+        patch = (np.abs(u) < hh / 2) & (np.abs(v) < ww / 2)
+        img[patch] += rng.uniform(50.0, 120.0) * rng.choice([-1.0, 1.0])
+    # smooth multiplicative illumination gradient (diagonal, 0.55x-1.45x)
+    g = 0.55 + 0.9 * (rr / max(h - 1, 1) + cc / max(w - 1, 1)) / 2.0
+    img = (img - img.mean()) * g
+    img -= img.min()
+    img *= 255.0 / max(img.max(), 1e-9)
+    return img.astype(np.float32)
+
+
+def transformed_pair(shape=(256, 256), seed: int = 1, dx: float = 7.0, dy: float = -4.0):
+    """A scene and its translated copy (for matching / alignment tests)."""
+    h, w = shape
+    big = synthetic_scene((h + 64, w + 64), seed=seed)
+    y0, x0 = 32, 32
+    a = big[y0 : y0 + h, x0 : x0 + w]
+    b = big[int(y0 + dy) : int(y0 + dy) + h, int(x0 + dx) : int(x0 + dx) + w]
+    return a.copy(), b.copy()
 
 
 def match_keypoint_sets(a, b, tol_xy=0.1, tol_s=0.05, tol_a=0.05):

@@ -15,12 +15,15 @@ import torch
 
 import sift_pyocl_tpu.config as jcfg
 import sift_pyocl_tpu.oracle as joracle
+from sift_pyocl_tpu.utils import testimage as jimg
 from sift_pyocl_tpu.utils.testimage import synthetic_scene as j_scene
 
 import sift_pyocl_tpu_torch as port
 from sift_pyocl_tpu_torch import config as tcfg
 from sift_pyocl_tpu_torch import oracle as toracle
 from sift_pyocl_tpu_torch.utils import convert
+from sift_pyocl_tpu_torch.utils import invariance as tinv
+from sift_pyocl_tpu_torch.utils import testimage as timg
 from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, synthetic_scene
 
 PORT_DIR = Path(port.__file__).resolve().parent
@@ -73,6 +76,77 @@ def test_synthetic_scene_copy_is_identical(shape, n_blobs, seed):
                                   j_scene(shape, n_blobs=n_blobs, seed=seed))
 
 
+@pytest.mark.parametrize("shape,seed", [((256, 256), 7), ((90, 70), 3)])
+def test_textured_scene_copy_is_identical(shape, seed):
+    np.testing.assert_array_equal(timg.textured_scene(shape, seed=seed),
+                                  jimg.textured_scene(shape, seed=seed))
+    coarse = np.random.default_rng(seed).normal(size=(7, 9))
+    np.testing.assert_array_equal(timg._bilinear_upsample(coarse, shape),
+                                  jimg._bilinear_upsample(coarse, shape))
+
+
+@pytest.mark.parametrize("shape,seed,dx,dy", [((128, 128), 2, 6, -4), ((96, 80), 7, 5, 3),
+                                              ((256, 256), 1, 7.0, -4.0)])
+def test_transformed_pair_copy_is_identical(shape, seed, dx, dy):
+    for got, want in zip(timg.transformed_pair(shape, seed=seed, dx=dx, dy=dy),
+                         jimg.transformed_pair(shape, seed=seed, dx=dx, dy=dy)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_invariance_protocol_copy_matches_the_suite():
+    """The battery's constants, cases, floors and forward map equal those of
+    tests/test_invariance.py (imported under JAX on the CPU)."""
+    import test_invariance as suite
+
+    for name in ("SHAPE", "TOL_PX", "MATCH_TOL_PX", "MARGIN", "SCALE_BAND", "CASES", "FLOORS"):
+        assert getattr(tinv, name) == getattr(suite, name), name
+    for case in suite.CASES:
+        _, angle, zoom, tilt = case[:4]
+        for shape in (suite.SHAPE, (90, 70)):
+            for got, want in zip(tinv._forward_affine(angle, zoom, shape, tilt),
+                                 suite._forward_affine(angle, zoom, shape, tilt)):
+                np.testing.assert_array_equal(got, want)
+    scenes = tinv.scenes()
+    np.testing.assert_array_equal(scenes["blobs"], j_scene(suite.SHAPE, n_blobs=90, seed=7))
+    np.testing.assert_array_equal(scenes["texture"], jimg.textured_scene(suite.SHAPE, seed=7))
+
+
+def test_invariance_warp_and_scoring_match_the_suite():
+    """The carried forward warp (the port's affine warp) against the
+    suite's (``affine_warp_jax``), and the scoring on one case."""
+    import test_invariance as suite
+
+    img = tinv.scenes()["texture"]
+    for case in (suite.CASES[1], suite.CASES[7]):
+        A, b = suite._forward_affine(case[1], case[2], suite.SHAPE, case[3])
+        np.testing.assert_allclose(tinv._warp(img, A, b, "cpu"), suite._warp(img, A, b),
+                                   rtol=0, atol=1e-2)
+        np.testing.assert_array_equal(tinv._kp_rc(_kp_grid()), suite._kp_rc(_kp_grid()))
+    A, b = suite._forward_affine(30.0, 1.0, suite.SHAPE)
+    kp0 = _kp_grid()
+    kp1 = kp0.copy()
+    mapped = tinv._kp_rc(kp0) @ A.T + b
+    kp1["y"], kp1["x"] = mapped[:, 0], mapped[:, 1]
+    kp1["x"][::4] += 5.0                     # a quarter misses TOL_PX
+    kp1["scale"][1::4] *= 2.0                # a quarter leaves the scale band
+    lo, hi = tinv.MARGIN, tinv.SHAPE[0] - 1 - tinv.MARGIN
+    elig = np.where(((mapped > lo) & (mapped < hi)).all(1))[0]
+    hits, n_elig = tinv.repeatability(kp0, kp1, A, b, 1.0)
+    assert n_elig == len(elig) > 20
+    assert hits == int((elig % 4 >= 2).sum())
+    m = np.stack([kp0, kp1], 1)
+    assert tinv.match_precision(m, A, b) == 0.75
+    assert tinv.match_precision(m[:0], A, b) == 1.0
+
+
+def _kp_grid():
+    g = np.zeros(64, dtype=toracle.KP_DTYPE)
+    rr, cc = np.meshgrid(np.linspace(30, 220, 8), np.linspace(30, 220, 8), indexing="ij")
+    g["y"], g["x"] = rr.ravel(), cc.ravel()
+    g["scale"] = 2.0
+    return g
+
+
 @pytest.mark.parametrize("kw", [{}, {"scales": 2}, {"init_sigma": 1.8, "scales": 2},
                                 {"init_sigma": 2.1}, {"double_im_size": True}, {"scales": 5}])
 def test_octave0_ladder_supported_copy_matches(kw):
@@ -116,7 +190,8 @@ def test_port_sources_never_import_jax():
     names = {p.relative_to(PORT_DIR).as_posix() for p in files[:-1]}
     assert {"models/vo.py", "ops/match.py", "ops/kernels/ladder.py", "ops/kernels/matchk.py",
             "ops/kernels/maskk.py", "ops/kernels/conv.py", "sfm/geometry.py", "sfm/pnp.py",
-            "sfm/ba.py"} <= names
+            "sfm/ba.py", "models/match_align.py", "ops/transform.py", "sfm/ransac.py",
+            "utils/invariance.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
