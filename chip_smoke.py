@@ -98,9 +98,17 @@
 17. Phase B: the invariance battery (utils/invariance.py) through the port
    at 256x256: both scenes, all 9 cases against FLOORS, the double_im_size
    zoom fence and the angle fence.
-18. Prints a JSON line of per-kernel results (16 rows, launches from the
-   path that runs each kernel, cuda_launches and device_ms a wrapper call
-   from the profiler), then, as its last line, {"ok": true, "device": {...}}.
+18. Phase C: BASELINE config 4 (tools/bench_configs.py::config4_sfm's
+   50-frame sequence, rendered from a seed) through IncrementalSfM, twice:
+   50 of 50 frames registered, ATE < 0.05, map points within 20 % of 672,
+   a loop edge, the two runs bit-equal in Rs, ts and points, K1-K6 once per
+   frame detected, K7 never.  Prints wall time, s/frame and the phase
+   split, one registered frame's CUDA launches, device ms and host
+   synchronisations, and the BA's segment sum against float64.
+19. Prints the card's nvidia-smi line again, a JSON line of per-kernel
+   results (16 rows, launches from the path that runs each kernel,
+   cuda_launches and device_ms a wrapper call from the profiler), then,
+   as its last line, {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -211,6 +219,17 @@ def profile_calls(fn, wrapper_calls: int = 1, calls: int = 5):
     events = cuda_events(fn, calls)
     n = calls * wrapper_calls
     return len(events) / n, sum(e.device_time_total for e in events) / 1e3 / n
+
+
+def host_ms(fn, calls: int = 5) -> float:
+    """Host-clock ms a call of fn(), synchronised, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / calls
 
 
 def bound(n_bytes: float, ops: float, peak_ops: float):
@@ -929,7 +948,7 @@ def check_vo(dev, decode_launches: float) -> dict:
     def one():
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
-    prof = profiling.device_profile(one, 2)
+    prof = profiling.device_profile(one, 1, sessions=2)
     check_step_launches("main path", prof, STEP_LAUNCHES, decode_launches)
     print("vo_step device profile:", json.dumps(prof), flush=True)
     syncs = host_syncs(one)
@@ -972,7 +991,7 @@ def check_vo_k8(base: dict) -> dict:
     def one():
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
-    prof = profiling.device_profile(one, 2)
+    prof = profiling.device_profile(one, 1, sessions=2)
     check_step_launches("P1", prof, STEP_LAUNCHES_P1, base["decode_launches"])
     print(f"P1: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
           f"mask's, final pose {gap:.3g} apart", flush=True)
@@ -1482,7 +1501,7 @@ def check_vo_fused(base: dict, p1: dict) -> dict:
     def one():
         box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
 
-    prof = profiling.device_profile(one, 2)
+    prof = profiling.device_profile(one, 1, sessions=2)
     check_step_launches("P7", prof, STEP_LAUNCHES_FUSED, base["decode_launches"])
     print(f"P7: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
           f"mask's, final pose {gap:.3g} apart", flush=True)
@@ -1730,15 +1749,6 @@ def check_api_align(dev) -> dict:
         torch.cuda.synchronize()
         align_ms.append(1e3 * (time.perf_counter() - t))
 
-    def host_ms(fn, calls=API_CALLS):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t) / calls
-
     p_r = np.stack([la.ref_kp["y"][out["matches"][:, 0]], la.ref_kp["x"][out["matches"][:, 0]]], 1)
     p_i = np.stack([kp["y"][out["matches"][:, 1]], kp["x"][out["matches"][:, 1]]], 1)
     split = {
@@ -1824,6 +1834,164 @@ def check_invariance(dev) -> dict:
     return rows
 
 
+# Phase C: BASELINE config 4, built as tools/bench_configs.py::config4_sfm
+# builds it (a 50-frame rendered arc, 120 landmarks; SiftConfig(kp_per_
+# octave_cap=256), ba_every=8, the L1 matcher, loop closure on).  The JAX
+# package registered 50 of 50 frames with ATE 0.0155 and 672 map points on
+# it (BASELINE.md r5): the gates below hold the port to that outcome.
+CONFIG4_SEQ = dict(n_frames=50, n_points=120, image_size=(320, 240), seed=0, arc_deg=40.0)
+CONFIG4_POINTS = 672
+CONFIG4_FRAME = 20          # the registration profiled (frame id)
+
+
+def captured_registration(sfm, frame: int) -> list:
+    """Wrap sfm._register_frame so that the call registering `frame` keeps
+    a copy of its arguments (filled in the list returned)."""
+    orig, kept = sfm._register_frame, []
+
+    def wrapper(f, *args):
+        if f == frame and not kept:
+            kept.append((f,) + tuple(np.array(a) if isinstance(a, np.ndarray) else a
+                                     for a in args))
+        return orig(f, *args)
+
+    sfm._register_frame = wrapper
+    return kept
+
+
+def check_sfm(dev) -> dict:
+    """Phase C: IncrementalSfM over the config-4 sequence on the card, twice
+    (two objects, one seed).  Gates: 50 of 50 frames registered, ATE <
+    0.05, map points within 20 % of 672, a loop edge, the two runs equal in
+    every bit of Rs, ts and points, K1-K6 once per frame detected (their
+    launch counters) and K7 never (the L1 matcher).  Prints the second
+    run's wall time, s/frame and phase_times; for one registered frame
+    (detection included) its CUDA launches and device ms (torch.profiler)
+    and its host synchronisations (sync debug mode); and the BA's segment
+    sum held to a float64 sum and to itself on the final BA's ids."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from sift_pyocl_tpu_torch.ops.match import match_descriptors_dense
+    from sift_pyocl_tpu_torch.sfm import IncrementalSfM, ate_rmse, camera_centers
+    from sift_pyocl_tpu_torch.sfm.pnp import ransac_pnp
+    from sift_pyocl_tpu_torch.sfm.segment import segment_sum, segments
+    from sift_pyocl_tpu_torch.utils.render3d import render_sequence
+
+    t = time.perf_counter()
+    K, frames, gtR, gtT = render_sequence(**CONFIG4_SEQ)
+    render_s = time.perf_counter() - t
+    print(f"[config4] rendered {len(frames)} frames {frames[0].shape} in {render_s:.1f} s "
+          "(NumPy, host)", flush=True)
+    kw = dict(cfg=SiftConfig(kp_per_octave_cap=256), ba_every=8, device=dev)
+    runs, kept = [], None
+    for i in range(2):
+        sfm = IncrementalSfM(K, frames[0].shape, **kw)
+        if i == 1:
+            kept = captured_registration(sfm, CONFIG4_FRAME)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = sfm.run(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        assert res is not None, f"config 4 run {i}: bootstrap failed"
+        reg = res.frames_registered
+        ate = ate_rmse(camera_centers(res.Rs, res.ts), camera_centers(gtR[reg], gtT[reg]))
+        print(f"[config4] run {i}: {wall:.3f} s ({wall / len(frames):.4f} s/frame), "
+              f"{len(reg)} registered, ATE {ate:.5f}, {len(res.points)} points, {res.n_obs} "
+              f"observations, {sfm.n_loop_edges} loop edges, bootstrap (0, {reg[1]}), "
+              f"{sfm.n_detected} frames detected; phases (s) "
+              f"{ {k: round(v, 4) for k, v in sfm.phase_times.items()} }", flush=True)
+        assert len(reg) == len(frames), f"run {i}: {len(reg)} of {len(frames)} registered"
+        assert ate < 0.05, f"run {i}: ATE {ate}"
+        assert abs(len(res.points) - CONFIG4_POINTS) <= 0.2 * CONFIG4_POINTS, len(res.points)
+        assert sfm.n_loop_edges >= 1, f"run {i}: no loop edge"
+        for name in FRONTEND:
+            assert counts[name] == sfm.n_detected, \
+                f"run {i}: {name} launched {counts[name]} times for {sfm.n_detected} frames"
+        assert counts["best2_l2"] == 0, f"run {i}: K7 launched {counts['best2_l2']} times"
+        runs.append(dict(sfm=sfm, res=res, wall=wall, ate=ate, counts=counts,
+                         detected=sfm.n_detected, phases=dict(sfm.phase_times)))
+    a, b = runs[0]["res"], runs[1]["res"]
+    for field in ("Rs", "ts", "points"):
+        x, y = getattr(a, field), getattr(b, field)
+        assert x.shape == y.shape and np.array_equal(x, y), f"the two runs differ in {field}"
+    print("[config4] the two runs are bit-equal in Rs, ts and points", flush=True)
+
+    # one registered frame, detection included: launches, device ms, syncs
+    sfm = runs[1]["sfm"]
+    assert kept, f"frame {CONFIG4_FRAME} was not registered"
+    args = kept[0]
+
+    def one_frame():
+        sfm._bufs.pop(CONFIG4_FRAME, None)
+        return sfm._register_frame(*args)
+
+    out = one_frame()
+    assert int(out.n_inl) >= 10, int(out.n_inl)
+    launches, dev_ms = profile_calls(one_frame)
+    syncs = host_syncs(one_frame)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        one_frame()
+    frame_ms = 1e3 * (time.perf_counter() - t) / 5
+    print(f"[config4] one registered frame (frame {CONFIG4_FRAME}, map {len(args[3])} points, "
+          f"detection included): {frame_ms:.3f} ms host clock, {launches:g} CUDA launches, "
+          f"{dev_ms:.4f} device ms, {len(syncs)} host synchronisations", flush=True)
+    for line in sorted(set(syncs)):
+        print("  sync:", line[:160])
+    # its split: detection, the L1 map match, RANSAC-PnP (the same inputs)
+    buf = sfm._buf(CONFIG4_FRAME)
+    mdesc, mvalid, mX = (sfm._dev(a) for a in (args[2], args[1], args[3]))
+    R0, t0 = sfm._dev(args[7]), sfm._dev(args[8])
+    keep = torch.from_numpy(out.keep).to(dev).float()
+    uv_m = torch.from_numpy(out.uv).to(dev)
+    split = {}
+    for name, fn in (
+            ("detect", lambda: sfm.sift.keypoints_raw(frames[CONFIG4_FRAME])),
+            ("match_l1", lambda: match_descriptors_dense(mdesc, mvalid, buf.desc, buf.valid,
+                                                         metric="L1", ratio_sq=0.7)),
+            ("ransac_pnp", lambda: ransac_pnp(0, sfm.Kt, R0, t0, mX, uv_m, keep, thresh_px=3.0)),
+            ("register_no_detect", lambda: sfm._register_frame(*args))):
+        n, d = profile_calls(fn)
+        split[name] = {"ms": host_ms(fn), "cuda_launches": n, "device_ms": d}
+    print(f"[config4] its split: { {k: {m: round(v, 4) for m, v in r.items()} for k, r in split.items()} }",
+          flush=True)
+
+    # the segment sum of the scatter-form BA on the final BA's camera and
+    # point ids: the same bits on every call, within 1e-4 of float64
+    res = runs[1]["res"]
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, len(res.points), (res.n_obs,), generator=gen)
+    vals = torch.randn((res.n_obs, 6, 6), generator=gen)
+    seg = segments(ids.to(dev), len(res.points))
+    sums = [segment_sum(vals.to(dev), seg) for _ in range(3)]
+    assert all(torch.equal(sums[0], s_) for s_ in sums[1:]), "segment_sum not deterministic"
+    want = torch.zeros((len(res.points), 6, 6), dtype=torch.float64).index_add_(
+        0, ids, vals.double())
+    seg_err = float((sums[0].cpu().double() - want).abs().max())
+    assert seg_err < 1e-4, seg_err
+    seg_ms = cuda_ms(lambda: segment_sum(vals.to(dev), seg), 20)
+    print(f"[config4] segment_sum over {res.n_obs} observations: 3 calls bit-equal, "
+          f"{seg_err:.3g} from float64, {seg_ms:.4f} ms a call", flush=True)
+    report = {"frames": len(frames), "render_s": render_s,
+              "wall_s": [r["wall"] for r in runs],
+              "s_per_frame": runs[1]["wall"] / len(frames),
+              "phase_times": runs[1]["phases"],
+              "registered": len(res.frames_registered), "ate": runs[1]["ate"],
+              "points": int(len(res.points)), "observations": int(res.n_obs),
+              "loop_edges": runs[1]["sfm"].n_loop_edges, "bootstrap": res.frames_registered[1],
+              "detected": runs[1]["detected"],
+              "launch_counts": {k: runs[1]["counts"][k] for k in FRONTEND},
+              "frame": {"id": CONFIG4_FRAME, "ms": frame_ms, "cuda_launches": launches,
+                        "device_ms": dev_ms, "host_syncs": len(syncs), "split": split},
+              "segment_sum": {"max_err_f64": seg_err, "ms": seg_ms}}
+    print("config4:", json.dumps(report), flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)",
@@ -1867,6 +2035,7 @@ def main() -> int:
     p8 = check_matcher_f32(base["bufs"], rec)
     check_api_align(dev)
     check_invariance(dev)
+    check_sfm(dev)
 
     # each kernel's launches on its path: the main path (10 vo_step) for
     # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b, P4
@@ -1886,6 +2055,7 @@ def main() -> int:
         assert row["launches"] > 0, f"{name} was not launched on its path"
         kernels.append(row)
     assert len(kernels) == 16, f"{len(kernels)} kernel records"
+    print(nvidia_smi_line(), flush=True)        # again, so the output's tail names the card
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

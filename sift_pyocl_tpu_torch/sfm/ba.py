@@ -1,32 +1,40 @@
-"""Windowed bundle adjustment: one Levenberg-Marquardt iteration with a
-Schur-complement solve, in the VO window's layout.
+"""Sparse bundle adjustment: Levenberg-Marquardt with a Schur-complement
+solve.
 
-Port of ``sift_pyocl_tpu/sfm/ba.py`` (``BAParams`` ... ``lm_iteration``) for
-the layout the VO step uses: observations in per-camera blocks
-(``cam_blocked=True``: ``obs.cam == repeat(arange(C), M // C)``, so camera
-reductions are a reshape and a sum) and point reductions as products with a
-one-hot (P, M) matrix (``pt_onehot=True``).  The reduced camera system is
-solved exactly (``dense_schur=True``, a (6C, 6C) solve) or by matrix-free
-CG.  The products, einsums and the small dense solve are plain PyTorch, as
-they were plain XLA outside any Pallas kernel in the JAX package.
+Port of ``sift_pyocl_tpu/sfm/ba.py`` (single device).  Observations are
+(M,) rows of (cam, pt, uv, w), 0-weight padding allowed.  Per-observation
+2x6 / 2x3 Jacobian blocks are closed-form; the reduced camera system S =
+U - W V^-1 W^T is applied matrix-free by CG, or (``dense_schur``) assembled
+as a (6C, 6C) matrix and solved exactly.  Reductions over observations, by
+layout:
 
-Still to come (ROADMAP.md, Queue 1 items 11-12): the scatter form
-(``cam_blocked=False`` or ``pt_onehot=False``), which on the card needs a
-segment sum that does not depend on the order of float atomics,
-``axis_name`` (the distributed BA) and ``run_ba``.
+* the scatter form (the defaults, ``cam_blocked=False``,
+  ``pt_onehot=False``): segment sums over the observations sorted by id
+  once per iteration (``segment.segment_sum``: the JAX package's
+  ``segment_sum``, in an order that does not depend on float atomics) and
+  gathers;
+* ``cam_blocked=True``: observations in per-camera blocks (``obs.cam ==
+  repeat(arange(C), M // C)``, the VO window), so camera sums are a reshape
+  and a sum;
+* ``pt_onehot=True``: point sums and gathers as products with a one-hot
+  (P, M) matrix.
+
+The products, einsums and solves are plain PyTorch, as they were plain XLA
+outside any Pallas kernel in the JAX package.  ``axis_name`` (the
+distributed BA) is still to come (ROADMAP.md, Queue 1 item 6).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import as_tensor, device_of
 from .geometry import pose_retract, project, project_jacobians
+from .segment import Segments, segment_sum, segments
 
-_SCATTER_TODO = ("the scatter form of BA (cam_blocked=False or pt_onehot=False) is not "
-                 "ported yet (ROADMAP.md, Queue 1 item 11: a deterministic segment sum)")
-_DIST_TODO = ("axis_name (distributed BA) is not ported yet (ROADMAP.md, Queue 1 item 12)")
+_DIST_TODO = ("axis_name (distributed BA) is not ported yet (ROADMAP.md, Queue 1 item 6)")
 
 
 class BAParams(NamedTuple):
@@ -46,20 +54,18 @@ class BAObs(NamedTuple):
     w: torch.Tensor    # (M,) f32, 0 = padding
 
 
-def _check_layout(cam_blocked: bool, pt_onehot: bool, axis_name=None) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(_DIST_TODO)
-    if not (cam_blocked and pt_onehot):
-        raise NotImplementedError(_SCATTER_TODO)
+def _seg_cam(vals: torch.Tensor, seg: Optional[Segments], n_cams: int) -> torch.Tensor:
+    """Per-camera sums of per-observation blocks: a reshape and a sum in the
+    blocked layout (`seg` None), else a segment sum."""
+    if seg is None:
+        return vals.reshape((n_cams, -1) + tuple(vals.shape[1:])).sum(1)
+    return segment_sum(vals, seg)
 
 
-def _seg_cam(vals: torch.Tensor, n_cams: int) -> torch.Tensor:
-    """Per-camera sums of per-observation blocks (blocked layout)."""
-    return vals.reshape((n_cams, -1) + tuple(vals.shape[1:])).sum(1)
-
-
-def _take_cam(x: torch.Tensor, m: int) -> torch.Tensor:
-    """x[cam] for the blocked layout: each camera's row repeated M/C times."""
+def _take_cam(x: torch.Tensor, seg: Optional[Segments], m: int) -> torch.Tensor:
+    """x[cam]: in the blocked layout each camera's row repeated M/C times."""
+    if seg is not None:
+        return x[seg.ids]
     reps = m // x.shape[0]
     return x[:, None].expand((x.shape[0], reps) + tuple(x.shape[1:])).reshape(
         (m,) + tuple(x.shape[1:]))
@@ -71,14 +77,19 @@ def _pt_onehot_matrix(pt: torch.Tensor, n_points: int) -> torch.Tensor:
     return (pt[None, :] == ids[:, None]).to(torch.float32)
 
 
-def _seg_pt(vals: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """Per-point sums as G @ vals."""
+def _seg_pt(vals: torch.Tensor, seg: Optional[Segments], G: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-point sums: G @ vals with the one-hot G, else a segment sum."""
+    if G is None:
+        return segment_sum(vals, seg)
     out = G @ vals.reshape(vals.shape[0], -1)
     return out.reshape((G.shape[0],) + tuple(vals.shape[1:]))
 
 
-def _take_pt(y: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """y[pt] as G^T @ y (pt < 0 rows read zero; their W blocks are zero)."""
+def _take_pt(y: torch.Tensor, seg: Optional[Segments], G: Optional[torch.Tensor]) -> torch.Tensor:
+    """y[pt]; as G^T @ y with the one-hot G (pt < 0 rows read zero; their W
+    blocks are zero)."""
+    if G is None:
+        return y[seg.ids]
     out = G.T @ y.reshape(y.shape[0], -1)
     return out.reshape((G.shape[1],) + tuple(y.shape[1:]))
 
@@ -137,23 +148,28 @@ class _System(NamedTuple):
     W: torch.Tensor      # (M, 6, 3) cross blocks
     g_c: torch.Tensor    # (C, 6) camera gradient
     g_p: torch.Tensor    # (P, 3) point gradient
-    G: torch.Tensor      # (P, M) one-hot of obs.pt
+    G: Optional[torch.Tensor]                 # (P, M) one-hot of obs.pt when pt_onehot
+    cam_seg: Optional[Segments] = None        # camera segments unless cam_blocked
+    pt_seg: Optional[Segments] = None         # point segments unless pt_onehot
 
 
 def build_system(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tensor,
-                 huber_px: float, n_points: int, axis_name=None, cam_blocked: bool = True,
-                 pt_onehot: bool = True) -> Tuple[_System, torch.Tensor]:
+                 huber_px: float, n_points: int, axis_name=None, cam_blocked: bool = False,
+                 pt_onehot: bool = False) -> Tuple[_System, torch.Tensor]:
     """Weighted, damped normal-equation blocks; returns (system, robust cost).
     The weight multiplies each block after its product, as in the JAX
     package."""
-    _check_layout(cam_blocked, pt_onehot, axis_name)
+    if axis_name is not None:
+        raise NotImplementedError(_DIST_TODO)
     r = residuals(params, obs, K)
     wq = robust_weights(r, obs.w, huber_px)
     cost = robust_cost(r, obs.w, huber_px)
     Jc, Jp = project_jacobians(K, _gather(params.Rs, obs.cam), _gather(params.ts, obs.cam),
                                _gather(params.X, obs.pt))
     n_cams = params.Rs.shape[0]
-    G = _pt_onehot_matrix(obs.pt, n_points)
+    cam_seg = None if cam_blocked else segments(obs.cam, n_cams)
+    G, pt_seg = (_pt_onehot_matrix(obs.pt, n_points), None) if pt_onehot else \
+        (None, segments(obs.pt, n_points))
     JcT = Jc.transpose(1, 2)
     JpT = Jp.transpose(1, 2)
     wq_ = wq[:, None, None]
@@ -162,27 +178,27 @@ def build_system(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tenso
     W = wq_ * (JcT @ Jp)
     gcm = -(wq[:, None] * torch.einsum("mij,mj->mi", JcT, r))
     gpm = -(wq[:, None] * torch.einsum("mij,mj->mi", JpT, r))
-    U = _seg_cam(Um, n_cams)
-    g_c = _seg_cam(gcm, n_cams)
-    V = _seg_pt(Vm, G)
-    g_p = _seg_pt(gpm, G)
+    U = _seg_cam(Um, cam_seg, n_cams)
+    g_c = _seg_cam(gcm, cam_seg, n_cams)
+    V = _seg_pt(Vm, pt_seg, G)
+    g_p = _seg_pt(gpm, pt_seg, G)
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
     eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
     # Marquardt damping: lam * (diag + small identity floor)
     U = U + lam * (eye6 * torch.diagonal(U, dim1=1, dim2=2)[:, :, None] * eye6 + 1e-8 * eye6)
     V = V + lam * (eye3 * torch.diagonal(V, dim1=1, dim2=2)[:, :, None] * eye3 + 1e-8 * eye3)
-    return _System(U, _inv3(V), W, g_c, g_p, G), cost
+    return _System(U, _inv3(V), W, g_c, g_p, G, cam_seg, pt_seg), cost
 
 
 def _schur_matvec(sys: _System, x: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
     """S x with S = U - W V^-1 W^T, never assembled."""
     x = x * free[:, None]
-    xg = _take_cam(x, sys.W.shape[0])
-    u = torch.einsum("mij,mi->mj", sys.W, xg)
-    q = _seg_pt(u, sys.G)
+    m = sys.W.shape[0]
+    u = torch.einsum("mij,mi->mj", sys.W, _take_cam(x, sys.cam_seg, m))
+    q = _seg_pt(u, sys.pt_seg, sys.G)
     y = torch.einsum("pij,pj->pi", sys.Vinv, q)
-    z = torch.einsum("mij,mj->mi", sys.W, _take_pt(y, sys.G))
-    acc = _seg_cam(z, x.shape[0])
+    z = torch.einsum("mij,mj->mi", sys.W, _take_pt(y, sys.pt_seg, sys.G))
+    acc = _seg_cam(z, sys.cam_seg, x.shape[0])
     Ux = torch.einsum("cij,cj->ci", sys.U, x)
     return (Ux - acc) * free[:, None]
 
@@ -234,13 +250,14 @@ def solve_step_dense(sys: _System, free: torch.Tensor) -> Tuple[torch.Tensor, to
 def solve_step(sys: _System, free: torch.Tensor, cg_iters: int = 30
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One damped step by matrix-free CG: camera (C, 6) and point (P, 3)
-    updates."""
+    updates, in the system's layout."""
+    m = sys.W.shape[0]
     y = torch.einsum("pij,pj->pi", sys.Vinv, sys.g_p)
-    z = torch.einsum("mij,mj->mi", sys.W, _take_pt(y, sys.G))
-    b = (sys.g_c - _seg_cam(z, sys.g_c.shape[0])) * free[:, None]
+    z = torch.einsum("mij,mj->mi", sys.W, _take_pt(y, sys.pt_seg, sys.G))
+    b = (sys.g_c - _seg_cam(z, sys.cam_seg, sys.g_c.shape[0])) * free[:, None]
     dc = _cg(lambda x: _schur_matvec(sys, x, free), b, cg_iters)
-    u = torch.einsum("mij,mi->mj", sys.W, _take_cam(dc, sys.W.shape[0]))
-    q = _seg_pt(u, sys.G)
+    u = torch.einsum("mij,mi->mj", sys.W, _take_cam(dc, sys.cam_seg, m))
+    q = _seg_pt(u, sys.pt_seg, sys.G)
     dp = torch.einsum("pij,pj->pi", sys.Vinv, sys.g_p - q)
     return dc, dp
 
@@ -252,16 +269,19 @@ def apply_step(params: BAParams, dc: torch.Tensor, dp: torch.Tensor) -> BAParams
 
 def lm_iteration(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tensor,
                  free: torch.Tensor, huber_px: float = 2.0, cg_iters: int = 30,
-                 n_points: int = 0, axis_name=None, cam_blocked: bool = True,
-                 pt_onehot: bool = True, dense_schur: bool = False):
+                 n_points: int = 0, axis_name=None, cam_blocked: bool = False,
+                 pt_onehot: bool = False, dense_schur: bool = False):
     """One accept/reject LM iteration.  Returns (params, lam, cost, accepted).
 
     ``free`` (C,) marks the cameras that move (the rest are the gauge).
-    Only the VO layout (``cam_blocked`` and ``pt_onehot``) is ported."""
-    _check_layout(cam_blocked, pt_onehot, axis_name)
+    ``cam_blocked`` / ``pt_onehot`` pick the reductions (module docstring);
+    ``dense_schur`` solves the reduced camera system exactly instead of by
+    CG and needs both."""
+    if dense_schur and not (cam_blocked and pt_onehot):
+        raise ValueError("dense_schur needs cam_blocked and pt_onehot")
     free = free.to(torch.float32)
     nP = n_points or params.X.shape[0]
-    sys, cost = build_system(params, obs, K, lam, huber_px, nP)
+    sys, cost = build_system(params, obs, K, lam, huber_px, nP, axis_name, cam_blocked, pt_onehot)
     dc, dp = solve_step_dense(sys, free) if dense_schur else solve_step(sys, free, cg_iters)
     cand = apply_step(params, dc, dp)
     new_cost = robust_cost(residuals(cand, obs, K), obs.w, huber_px)
@@ -271,6 +291,34 @@ def lm_iteration(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tenso
     return params, lam, cost, accept
 
 
-def run_ba(*args, **kwargs):
-    """The host-driven LM loop of the JAX package: still to come."""
-    raise NotImplementedError("run_ba is not ported yet (ROADMAP.md, Queue 1 item 11)")
+def run_ba(params: BAParams, obs: BAObs, K, fixed_cams=(0,), iters: int = 20,
+           huber_px: float = 2.0, cg_iters: int = 30, lam0: float = 1e-3,
+           verbose: bool = False, fetch_costs: bool = True, device=None
+           ) -> Tuple[BAParams, List[float]]:
+    """The LM loop over the scatter form with CG, from lam0.  Returns
+    (params, costs): the cost before each iteration's step, or with
+    ``fetch_costs=False`` only the last (one host read instead of one an
+    iteration).  Tensors or arrays; on `device` where given, else on
+    params.Rs's device if it is a tensor, else on the CUDA card (raises
+    without one)."""
+    dev = device_of(params.Rs, device)
+    params = BAParams(*(as_tensor(x, dev, torch.float32) for x in params))
+    obs = BAObs(as_tensor(obs.uv, dev, torch.float32), as_tensor(obs.cam, dev, torch.int32),
+                as_tensor(obs.pt, dev, torch.int32), as_tensor(obs.w, dev, torch.float32))
+    K = as_tensor(K, dev, torch.float32)
+    C = params.Rs.shape[0]
+    free = torch.ones(C, dtype=torch.float32)
+    free[list(fixed_cams)] = 0.0
+    free = free.to(dev)
+    lam = torch.full((), lam0, dtype=torch.float32, device=dev)
+    costs, cost = [], None
+    for it in range(iters):
+        params, lam, cost, acc = lm_iteration(params, obs, K, lam, free, huber_px=huber_px,
+                                              cg_iters=cg_iters, n_points=params.X.shape[0])
+        if fetch_costs:
+            costs.append(float(cost))
+        if verbose:
+            print(f"  LM it {it}: cost {float(cost):.4f} lam {float(lam):.2e} acc {bool(acc)}")
+    if not fetch_costs and cost is not None:
+        costs.append(float(cost))
+    return params, costs

@@ -1,17 +1,19 @@
-"""Multi-view geometry primitives: the part the VO step uses.
+"""Multi-view geometry primitives.
 
-Port of ``sift_pyocl_tpu/sfm/geometry.py`` (``hat`` ... ``triangulate_two_view``),
-with the same conventions:
+Port of ``sift_pyocl_tpu/sfm/geometry.py``, with the same conventions:
 
 * image points are (u, v) = (col, row) pixel coordinates;
 * a pose (R, t) maps x_cam = R @ x_world + t (world to camera);
 * K = [[fx, 0, cx], [0, fy, cy], [0, 0, 1]];
 * se(3) tangents xi = (omega, upsilon) act on the left: exp(xi) * pose.
 
-``hat``, ``so3_exp``, ``se3_exp``, ``pose_retract`` and
-``_normalize_points`` take any leading batch dimensions (the JAX package
-maps them with ``vmap``).  The 8-point, essential and homography functions
-come with the SfM slice.
+``hat``, ``so3_exp``, ``so3_log``, ``se3_exp``, ``pose_compose``,
+``pose_inverse``, ``pose_retract`` and ``_normalize_points`` take any
+leading batch dimensions (the JAX package maps them with ``vmap``); the
+8-point, homography and error functions take a batch of weight rows or
+models, as RANSAC calls them.  SVD and ``eigh`` signs differ between
+libraries, so F, E and H agree with the JAX package's up to sign, and
+``decompose_essential``'s candidates up to the order of the two rotations.
 """
 
 from __future__ import annotations
@@ -45,6 +47,21 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return _eye3(w) + a[..., None, None] * W + b[..., None, None] * (W @ W)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """SO(3) (..., 3, 3) -> so(3) (..., 3), smooth near the identity: the
+    atan2 form, with a Taylor branch of theta / sin(theta) for small angles
+    so that forward-mode derivatives at a converged residual stay finite."""
+    w = 0.5 * torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                           R[..., 1, 0] - R[..., 0, 1]], -1)
+    s = torch.sqrt((w * w).sum(-1) + 1e-32)
+    c = 0.5 * (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0)
+    safe = s > 1e-6
+    theta = torch.atan2(s, c)
+    scale = torch.where(safe, theta / torch.where(safe, s, 1.0),
+                        1.0 + (1.0 - torch.clamp(c, max=1.0)) / 3.0)
+    return w * scale[..., None]
+
+
 def se3_exp(xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """se(3) (..., 6) = (omega, upsilon) -> (R (..., 3, 3), t (..., 3))."""
     w, u = xi[..., :3], xi[..., 3:]
@@ -63,6 +80,12 @@ def se3_exp(xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def pose_compose(Ra, ta, Rb, tb):
     """(Ra, ta) o (Rb, tb): first apply b, then a."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def pose_inverse(R, t):
+    """(R, t)^-1 = (R^T, -R^T t)."""
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
 
 
 def pose_retract(R, t, xi):
@@ -170,3 +193,113 @@ def _normalize_points(pts: torch.Tensor, w: torch.Tensor):
                      torch.stack([zero, zero, one], -1)], -2)
     pn = (pts - mean[..., None, :]) * scale[..., None, None]
     return pn, T
+
+
+def _first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum of 1-D `x`, as ``jnp.argmax`` (no sync)."""
+    pos = torch.arange(x.shape[0], device=x.device)
+    return torch.where(x == x.max(), pos, x.shape[0]).min()
+
+
+def _det3(A: torch.Tensor) -> torch.Tensor:
+    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
+            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
+            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
+
+
+def _smallest_eigvec(A: torch.Tensor) -> torch.Tensor:
+    """(..., 9, 9) symmetric -> (..., 3, 3): the eigenvector of the least
+    eigenvalue, reshaped row-major."""
+    _, V = torch.linalg.eigh(A)
+    return V[..., :, 0].reshape(tuple(A.shape[:-2]) + (3, 3))
+
+
+def fit_fundamental_8pt(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted 8-point fundamental/essential fit on (N, 2) correspondences,
+    one per 0/1 weight row w (..., N): F (..., 3, 3) with ||F|| = 1, rank 2."""
+    p1, T1 = _normalize_points(uv1, w)
+    p2, T2 = _normalize_points(uv2, w)
+    x1, y1 = p1[..., 0], p1[..., 1]
+    x2, y2 = p2[..., 0], p2[..., 1]
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, torch.ones_like(x1)],
+                    -1)                                          # (..., N, 9)
+    Aw = A * w[..., None]
+    F = _smallest_eigvec(Aw.transpose(-1, -2) @ Aw)
+    U, S, Vt = torch.linalg.svd(F)                               # rank-2 projection
+    S = S * torch.tensor([1.0, 1.0, 0.0], dtype=S.dtype, device=S.device)
+    F = T2.transpose(-1, -2) @ ((U * S[..., None, :]) @ Vt) @ T1
+    return F / torch.clamp(torch.linalg.matrix_norm(F), min=1e-12)[..., None, None]
+
+
+def essential_from_fundamental(F: torch.Tensor, K1: torch.Tensor, K2: torch.Tensor) -> torch.Tensor:
+    """E = K2^T F K1 projected onto the essential manifold (singular values
+    1, 1, 0)."""
+    U, _, Vt = torch.linalg.svd(K2.T @ F @ K1)
+    return (U * torch.tensor([1.0, 1.0, 0.0], dtype=U.dtype, device=U.device)) @ Vt
+
+
+def decompose_essential(E: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E (3, 3) -> the 4 candidate poses: R (4, 3, 3), t (4, 3), |t| = 1."""
+    U, _, Vt = torch.linalg.svd(E)
+    U = U * torch.sign(_det3(U))                 # proper rotations
+    Vt = Vt * torch.sign(_det3(Vt))
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    R1 = U @ W @ Vt
+    R2 = U @ W.T @ Vt
+    t = U[:, 2]
+    return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
+
+
+def choose_pose(Rs, ts, K1, K2, uv1, uv2, w):
+    """The (R, t) candidate with the most weighted points in front of both
+    cameras (the first of equal scores); returns (R, t, score)."""
+    eye, zero = _eye3(uv1), torch.zeros(3, dtype=uv1.dtype, device=uv1.device)
+    scores = []
+    for R, t in zip(Rs, ts):
+        _, z1, z2 = triangulate_two_view(K1, eye, zero, K2, R, t, uv1, uv2)
+        scores.append((((z1 > 0) & (z2 > 0)) * w).sum())
+    scores = torch.stack(scores)
+    best = _first_argmax(scores).view(1)
+    return Rs.index_select(0, best)[0], ts.index_select(0, best)[0], scores.index_select(0, best)[0]
+
+
+def _homogeneous(uv: torch.Tensor) -> torch.Tensor:
+    return torch.cat([uv, torch.ones_like(uv[:, :1])], 1)
+
+
+def sampson_error_F(F: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -> torch.Tensor:
+    """First-order geometric (Sampson) error of x2' F x1 per correspondence,
+    for F (..., 3, 3): (..., N)."""
+    x1, x2 = _homogeneous(uv1), _homogeneous(uv2)
+    Fx1 = x1 @ F.transpose(-1, -2)            # F @ x1
+    Ftx2 = x2 @ F                              # F^T @ x2
+    num = (x2 * Fx1).sum(-1) ** 2
+    den = Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2
+    return num / torch.clamp(den, min=1e-12)
+
+
+def fit_homography(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted DLT homography uv2 ~ H uv1 on (N, 2), one per weight row w
+    (..., N): H (..., 3, 3) with H[2, 2] = 1."""
+    p1, T1 = _normalize_points(uv1, w)
+    p2, T2 = _normalize_points(uv2, w)
+    x, y = p1[..., 0], p1[..., 1]
+    u, v = p2[..., 0], p2[..., 1]
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    r1 = torch.stack([x, y, one, zero, zero, zero, -u * x, -u * y, -u], -1)
+    r2 = torch.stack([zero, zero, zero, x, y, one, -v * x, -v * y, -v], -1)
+    A = torch.cat([r1 * w[..., None], r2 * w[..., None]], -2)    # (..., 2N, 9)
+    H = _smallest_eigvec(A.transpose(-1, -2) @ A)
+    H = torch.linalg.inv_ex(T2).inverse @ H @ T1
+    h = H[..., 2, 2]
+    return H / torch.where(h.abs() > 1e-12, h, 1e-12)[..., None, None]
+
+
+def homography_error(H: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -> torch.Tensor:
+    """Forward transfer error |H x1 - x2|^2 per point, for H (..., 3, 3):
+    (..., N)."""
+    p = _homogeneous(uv1) @ H.transpose(-1, -2)
+    d = p[..., 2:3]
+    p = p[..., :2] / torch.where(d.abs() > 1e-12, d, 1e-12)
+    return ((p - uv2) ** 2).sum(-1)

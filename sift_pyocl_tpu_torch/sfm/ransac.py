@@ -1,12 +1,12 @@
-"""Static-shape batched RANSAC in PyTorch: the affine part.
+"""Static-shape batched RANSAC in PyTorch.
 
-Port of ``sift_pyocl_tpu/sfm/ransac.py`` (``RansacResult``,
-``_sample_weights``, ``ransac``, ``_fit_affine_weighted``, ``_affine_error``
-and ``ransac_affine``; the homography and essential forms come with the SfM
-slice).  All hypotheses are drawn, fit and scored at once: `n_hypo` minimal
-samples as (n_hypo, N) 0/1 weight rows, one batched weighted fit, one
-(n_hypo, N) error matrix, and a refit of the winner on its inlier set.  No
-shape depends on the data and nothing is read back to the host.
+Port of ``sift_pyocl_tpu/sfm/ransac.py``: ``ransac`` and its affine,
+homography and essential forms.  All hypotheses are drawn, fit and scored
+at once: `n_hypo` minimal samples as (n_hypo, N) 0/1 weight rows, one
+batched weighted fit, one (n_hypo, N) error matrix, and a refit of the
+winner on its inlier set.  No shape depends on the data, and nothing is
+read back to the host but the error flags of ``eigh`` and ``svd`` (the
+8-point and homography fits).
 
 The JAX package draws its rows with ``jax.random.gumbel`` under a
 ``PRNGKey``; a ``torch.Generator`` draws other numbers, so ``ransac`` takes
@@ -21,7 +21,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..ops import as_tensor, device_of
-from .geometry import _normalize_points
+from .geometry import (_first_argmax, _normalize_points, fit_fundamental_8pt, fit_homography,
+                       homography_error, sampson_error_F)
 
 
 class RansacResult(NamedTuple):
@@ -46,12 +47,6 @@ def _sample_weights(seed: int, valid: torch.Tensor, n_hypo: int, k: int) -> torc
     idx = torch.topk(g, k, dim=1).indices
     w = torch.zeros((n_hypo, n), dtype=torch.float32, device=valid.device)
     return w.scatter_(1, idx, 1.0)
-
-
-def _first_argmax(x: torch.Tensor) -> torch.Tensor:
-    """Index of the first maximum of 1-D `x`, as ``jnp.argmax`` (no sync)."""
-    pos = torch.arange(x.shape[0], device=x.device)
-    return torch.where(x == x.max(), pos, x.shape[0]).min()
 
 
 def ransac(seed: int, uv1: torch.Tensor, uv2: torch.Tensor, valid: torch.Tensor,
@@ -116,19 +111,44 @@ def _affine_error(model: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -> 
     return ((pred - uv2) ** 2).sum(-1)
 
 
-def ransac_affine(seed: int, uv1, uv2, valid, thresh_px: float = 3.0, n_hypo: int = 256,
-                  weights=None, device=None) -> RansacResult:
-    """RANSAC 2-D affine fit uv2 ≈ M @ uv1 + t (model: (2, 3) [M | t]).
-
-    Backs ``LinearAlign(orsa=True)``.  Tensors or arrays (points as f32);
-    it runs on `device` where given, else on `uv1`'s device if it is a
-    tensor, else on the CUDA card (raises without one).  With no
-    ``weights`` the rows are drawn from `seed` (``_sample_weights``: the
-    same rows on the card and the CPU, not JAX's)."""
+def _ransac_on(seed, uv1, uv2, valid, fit_fn, error_fn, min_samples, thresh, n_hypo,
+              weights, device) -> RansacResult:
+    """``ransac`` on tensors or arrays (points as f32): on `device` where
+    given, else on `uv1`'s device if it is a tensor, else on the CUDA card
+    (raises without one)."""
     dev = device_of(uv1, device)
     uv1, uv2 = (as_tensor(p, dev, torch.float32) for p in (uv1, uv2))
     valid = as_tensor(valid, dev, torch.bool)
     if weights is not None:
         weights = as_tensor(weights, dev, torch.float32)
-    return ransac(seed, uv1, uv2, valid, _fit_affine_weighted, _affine_error,
-                  min_samples=3, thresh=thresh_px ** 2, n_hypo=n_hypo, weights=weights)
+    return ransac(seed, uv1, uv2, valid, fit_fn, error_fn, min_samples=min_samples,
+                  thresh=thresh, n_hypo=n_hypo, weights=weights)
+
+
+def ransac_homography(seed: int, uv1, uv2, valid, thresh_px: float = 3.0, n_hypo: int = 256,
+                      weights=None, device=None) -> RansacResult:
+    """RANSAC homography uv2 ~ H uv1 (model: (3, 3), H[2, 2] = 1).  With no
+    ``weights`` the rows are drawn from `seed` (``_sample_weights``)."""
+    return _ransac_on(seed, uv1, uv2, valid, fit_homography, homography_error, 4,
+                      thresh_px ** 2, n_hypo, weights, device)
+
+
+def ransac_affine(seed: int, uv1, uv2, valid, thresh_px: float = 3.0, n_hypo: int = 256,
+                  weights=None, device=None) -> RansacResult:
+    """RANSAC 2-D affine fit uv2 ≈ M @ uv1 + t (model: (2, 3) [M | t]).
+
+    Backs ``LinearAlign(orsa=True)``.  With no ``weights`` the rows are
+    drawn from `seed` (``_sample_weights``: the same rows on the card and
+    the CPU, not JAX's)."""
+    return _ransac_on(seed, uv1, uv2, valid, _fit_affine_weighted, _affine_error, 3,
+                      thresh_px ** 2, n_hypo, weights, device)
+
+
+def ransac_essential_normalized(seed: int, xy1, xy2, valid, thresh=1e-4, n_hypo: int = 256,
+                                weights=None, device=None) -> RansacResult:
+    """RANSAC essential matrix on K-normalized image coordinates (model:
+    the rank-2 8-point fit, (3, 3)).  xy* are the rays' (x, y) at z = 1;
+    `thresh` is the squared Sampson error in normalized units ((px_err /
+    f)^2), a float or a 0-d tensor."""
+    return _ransac_on(seed, xy1, xy2, valid, fit_fundamental_8pt, sampson_error_F, 8,
+                      thresh, n_hypo, weights, device)

@@ -15,14 +15,21 @@ import torch
 
 import sift_pyocl_tpu.config as jcfg
 import sift_pyocl_tpu.oracle as joracle
+from sift_pyocl_tpu.sfm import evaluate as jev
+from sift_pyocl_tpu.sfm import synthetic as jsyn
+from sift_pyocl_tpu.utils import render3d as jrender
 from sift_pyocl_tpu.utils import testimage as jimg
 from sift_pyocl_tpu.utils.testimage import synthetic_scene as j_scene
 
 import sift_pyocl_tpu_torch as port
 from sift_pyocl_tpu_torch import config as tcfg
 from sift_pyocl_tpu_torch import oracle as toracle
+from sift_pyocl_tpu_torch.sfm import ba as tba
+from sift_pyocl_tpu_torch.sfm import evaluate as tev
+from sift_pyocl_tpu_torch.sfm import synthetic as tsyn
 from sift_pyocl_tpu_torch.utils import convert
 from sift_pyocl_tpu_torch.utils import invariance as tinv
+from sift_pyocl_tpu_torch.utils import render3d as trender
 from sift_pyocl_tpu_torch.utils import testimage as timg
 from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, synthetic_scene
 
@@ -191,7 +198,9 @@ def test_port_sources_never_import_jax():
     assert {"models/vo.py", "ops/match.py", "ops/kernels/ladder.py", "ops/kernels/matchk.py",
             "ops/kernels/maskk.py", "ops/kernels/conv.py", "sfm/geometry.py", "sfm/pnp.py",
             "sfm/ba.py", "models/match_align.py", "ops/transform.py", "sfm/ransac.py",
-            "utils/invariance.py"} <= names
+            "utils/invariance.py", "sfm/pipeline.py", "sfm/posegraph.py", "sfm/twoview.py",
+            "sfm/checkpoint.py", "sfm/segment.py", "sfm/evaluate.py", "sfm/synthetic.py",
+            "utils/render3d.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -229,3 +238,77 @@ def test_kernel_build_is_keyed_by_source_hash():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.LINK_FLAGS and "-shared" in _build.LINK_FLAGS
     assert "--fmad=false" in _build.NVCC_FLAGS
+
+
+# tools/bench_configs.py::config4_sfm's sequence and tests/test_sfm_pipeline.py's
+CONFIG4_SEQ = dict(n_frames=50, n_points=120, image_size=(320, 240), seed=0, arc_deg=40.0)
+TEST_SEQ = dict(n_frames=7, n_points=70, image_size=(320, 240), seed=0, arc_deg=25.0)
+LOOP_SEQ = dict(n_frames=12, n_points=160, image_size=(320, 240), seed=1, arc_deg=50.0,
+                out_and_back=True)
+
+
+def _same_sequence(kw):
+    want = jrender.render_sequence(**kw)
+    got = trender.render_sequence(**kw)
+    for a, b in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        np.testing.assert_array_equal(a, b)
+    assert len(got[1]) == len(want[1]) == kw["n_frames"]
+    for a, b in zip(got[1], want[1]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_render_sequence_copy_is_identical():
+    """tests/test_sfm_pipeline.py's 7-frame sequence, bit for bit."""
+    _same_sequence(TEST_SEQ)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("kw", [CONFIG4_SEQ, LOOP_SEQ], ids=["config4", "loop"])
+def test_render_sequence_copy_is_identical_on_long_sequences(kw):
+    """The config-4 sequence (50 frames, ~35 s a package on one CPU core)
+    and the 12-frame loop sequence, bit for bit."""
+    _same_sequence(kw)
+
+
+@pytest.mark.parametrize("kw", [dict(n_frames=50, arc_deg=40.0),
+                                dict(n_frames=12, arc_deg=50.0, out_and_back=True)])
+def test_make_trajectory_copy_is_identical(kw):
+    """The trajectories of the config-4 and loop sequences."""
+    for a, b in zip(trender.make_trajectory(**kw), jrender.make_trajectory(**kw)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_evaluate_copy_matches():
+    """camera_centers, umeyama_align and ate_rmse within 1e-6."""
+    rng = np.random.default_rng(0)
+    Rs = np.stack([np.asarray(jsyn.look_at(rng.normal(size=3) * 4, np.zeros(3))[0])
+                   for _ in range(9)])
+    ts = rng.normal(size=(9, 3))
+    c = tev.camera_centers(Rs, ts)
+    np.testing.assert_allclose(c, jev.camera_centers(Rs, ts), atol=1e-6)
+    dst = 1.3 * c @ Rs[0].T + rng.normal(size=3) + rng.normal(0, 0.01, c.shape)
+    for with_scale in (True, False):
+        for a, b in zip(tev.umeyama_align(c, dst, with_scale), jev.umeyama_align(c, dst, with_scale)):
+            np.testing.assert_allclose(a, b, atol=1e-6)
+        np.testing.assert_allclose(tev.ate_rmse(c, dst, with_scale), jev.ate_rmse(c, dst, with_scale),
+                                   atol=1e-6)
+
+
+def test_synthetic_copy_matches():
+    """look_at, make_problem and perturb: arrays equal; the problem comes
+    as the port's BAParams / BAObs."""
+    for a, b in zip(tsyn.look_at(np.array([1.0, 0.5, -6.0]), np.zeros(3)),
+                    jsyn.look_at(np.array([1.0, 0.5, -6.0]), np.zeros(3))):
+        np.testing.assert_array_equal(a, b)
+    got = tsyn.make_problem(n_cams=6, n_points=120, noise_px=0.4, seed=0)
+    want = jsyn.make_problem(n_cams=6, n_points=120, noise_px=0.4, seed=0)
+    assert isinstance(got[1], tba.BAParams) and isinstance(got[2], tba.BAObs)
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w in zip(got[1:3], want[1:3]):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    for k in want[3]:
+        np.testing.assert_array_equal(got[3][k], want[3][k])
+    for a, b in zip(tsyn.perturb(got[1], 2.0, 0.12, 0.08, seed=1),
+                    jsyn.perturb(want[1], 2.0, 0.12, 0.08, seed=1)):
+        np.testing.assert_array_equal(a, b)

@@ -163,7 +163,7 @@ def test_vo_ba_f32_solves_bracket_the_f64_solve(port_back_end):
         jsys, _ = jba.build_system(jp, jo, jnp.asarray(Kt.numpy()), jnp.asarray(lam.numpy()),
                                    huber, nP, None, True, True)
         jdc, jdp = jba.solve_step_dense(jsys, jo, jnp.asarray(free.numpy()), nP)
-        tsys, _ = tba.build_system(params, obs, Kt, lam, huber, nP)
+        tsys, _ = tba.build_system(params, obs, Kt, lam, huber, nP, None, True, True)
         tdc, tdp = tba.solve_step_dense(tsys, free.float())
         sys64 = tba._System(*(torch.from_numpy(np.array(x)).double() for x in jsys))
         dc64, dp64 = (x.numpy() for x in tba.solve_step_dense(sys64, free.double()))
