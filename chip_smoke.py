@@ -105,10 +105,26 @@
    frame detected, K7 never.  Prints wall time, s/frame and the phase
    split, one registered frame's CUDA launches, device ms and host
    synchronisations, and the BA's segment sum against float64.
-19. Prints the card's nvidia-smi line again, a JSON line of per-kernel
+19. Phase D: BASELINE config 3, the batched video frontend
+   (detect_and_describe_batched) on frames synthetic_scene((1080, 1920),
+   n_blobs=200, seed=0) + i on the card, SiftConfig(): at B = 1, 2, 4, 8
+   and 12 every frame bit-equal to its single-frame detect_and_describe,
+   K1/K2 once a frame and K3, K4, K5, K6 once a batch up to B = 8 (counters
+   reset just before each call, and CUDA launches by kernel name from
+   torch.profiler), K3-K5 in two launches at B = 12 (84 entries); the
+   plain=True batch held frame by frame as step 4 holds the kernel path to
+   the plain path; mask_backend="pallas" at B = 4 (K8 once over 28
+   entries, frames bit-equal; K8 on a frame's octave 0 at entry 7 takes
+   octave 0's edge threshold, not its list position's); "fused" at B = 2
+   (K1m/K2m once a frame, no stencil, frames bit-equal); VideoSiftFrontend
+   (batch 4) on the one-card mesh and TwoStagePipeline over 6 frames, each
+   frame bit-equal.  Prints ms/frame at each B (host clock, synchronised,
+   warm; B = 1, 8, 8, 1 in turns), device ms and CUDA launches a batch.
+20. Prints the card's nvidia-smi line again, a JSON line of per-kernel
    results (16 rows, launches from the path that runs each kernel,
-   cuda_launches and device_ms a wrapper call from the profiler), then,
-   as its last line, {"ok": true, "device": {...}}.
+   config3_launches for K3-K6 and K8 from phase D, cuda_launches and
+   device_ms a wrapper call from the profiler), then, as its last line,
+   {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -1992,6 +2008,242 @@ def check_sfm(dev) -> dict:
     return report
 
 
+# Phase D: BASELINE config 3, the batched video frontend.  Frames as
+# tools/ab_batch.py makes them (synthetic_scene((1080, 1920), n_blobs=200,
+# seed=0) + i), on the card, SiftConfig(): a video stream's frames taken B
+# at a time.  Per batch, K1/K2 (or K1m/K2m) run once a frame and K3-K6 (K8
+# with "pallas") once over every frame's octaves, up to MAX_ENTRIES entries
+# a launch.
+BATCHES = (1, 2, 4, 8)
+BATCH_SPLIT = 12            # 84 entries: two launches of K3, K4 and K5
+BATCH_TURNS = (1, 8, 8, 1)  # ms/frame taken in turns: the host's speed drifts
+PIPELINE_FRAMES = 6
+LOST_RECORDS = 2            # profiler records a batch's launch gate forgives
+
+
+def batch_launches(B: int, chunks: int = 1) -> dict:
+    """CUDA launches a batch of B frames, by the kernels' own names
+    (torch.profiler): K1's six level launches and K2's one cooperative
+    launch a frame, one of each of K3-K6 (`chunks` launches of K3-K5,
+    _build.entry_chunks, past MAX_ENTRIES entries)."""
+    return {"blur_level_kernel": 6 * B, "small_octaves_kernel": B, "compact_kernel": chunks,
+            "refine_kernel": chunks, "grad_kernel": chunks, "orient_desc_kernel": 1,
+            "mask_kernel": 0}
+
+
+def batch_frames(n: int, dev) -> torch.Tensor:
+    from sift_pyocl_tpu_torch.utils.testimage import synthetic_scene
+
+    base = synthetic_scene(SHAPE, n_blobs=200, seed=0)
+    return torch.from_numpy(np.stack([base + i for i in range(n)]).astype(np.float32)).to(dev)
+
+
+def counted(fn):
+    """fn()'s result and the launch counters, reset just before it and read
+    just after."""
+    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def check_batch_counts(tag: str, counts: dict, want: dict) -> None:
+    """Every kernel wrapper's launches as `want` says, 0 for the others."""
+    bad = {k: (n, want.get(k, 0)) for k, n in counts.items() if n != want.get(k, 0)}
+    assert not bad, f"{tag}: launches (got, want) {bad}"
+
+
+def check_frames_equal(tag: str, buf, imgs, cfg, frames=None) -> None:
+    """Each frame of a batched buffer equals, in every field and bit, the
+    single-frame detect_and_describe of that frame."""
+    from sift_pyocl_tpu_torch import detect_and_describe
+
+    for f in frames if frames is not None else range(imgs.shape[0]):
+        one = detect_and_describe(imgs[f], cfg)
+        for fld in one._fields:
+            assert torch.equal(getattr(buf, fld)[f], getattr(one, fld)), \
+                f"{tag}: frame {f} differs from its single-frame buffer in {fld}"
+
+
+def frame_of(buf, f):
+    """Frame f of a batched KeypointBuffer."""
+    return type(buf)(*[t[f] for t in buf])
+
+
+def batch_of(buf):
+    """A single-frame KeypointBuffer as a batch of one."""
+    return type(buf)(*[t[None] for t in buf])
+
+
+def batch_profile(tag: str, fn, want: dict) -> dict:
+    """One batch's CUDA launches and device ms (torch.profiler, the fullest
+    of three sessions), its launches of each kernel in `want` gated: none
+    more than `want`, and at most LOST_RECORDS fewer in all (a session now
+    and then loses a record, and a lost record only ever lowers a count;
+    the launch counters show each wrapper's launches exactly)."""
+    from sift_pyocl_tpu_torch.utils import profiling
+
+    prof = profiling.device_profile(fn, 1, sessions=3)
+    by_name = prof.pop("launches_by_name_per_frame")
+    got = {k: sum(n for name, n in by_name.items() if k in name) for k in want}
+    if "small_octaves_kernel" in want:    # K2m's kernel name holds K2's
+        got["small_octaves_kernel"] -= sum(n for name, n in by_name.items()
+                                           if "small_octaves_kernel_masks" in name)
+    lost = sum(want.values()) - sum(got.values())
+    assert all(got[k] <= want[k] for k in want) and lost <= LOST_RECORDS, \
+        f"{tag}: CUDA launches a batch {got}, want {want}"
+    return {"cuda_launches": prof["kernel_launches_per_frame"],
+            "device_ms": prof["kernel_ms_per_frame"], "busy_share": prof["busy_share"],
+            "lost_records": lost}
+
+
+def check_batched(dev) -> dict:
+    """Phase D: detect_and_describe_batched at B = 1, 2, 4, 8 and 12,
+    with "pallas" masks at B = 4 and fused masks at B = 2,
+    VideoSiftFrontend on the one-card mesh and TwoStagePipeline; every
+    frame bit-equal to its single-frame buffer, the launches of each kernel
+    gated (counters and profiler), ms/frame in turns."""
+    from sift_pyocl_tpu_torch import SiftConfig, detect_and_describe_batched
+    from sift_pyocl_tpu_torch.models.sift import to_keypoint_records
+    from sift_pyocl_tpu_torch.ops import _build
+    from sift_pyocl_tpu_torch.ops.kernels import maskk
+    from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
+    from sift_pyocl_tpu_torch.parallel import TwoStagePipeline, VideoSiftFrontend, make_frames_mesh
+    from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, textured_scene
+
+    cfg = SiftConfig()
+    n_oct = cfg.n_octaves(SHAPE)
+    imgs = batch_frames(BATCH_SPLIT, dev)
+    detect_and_describe_batched(imgs[:2], cfg)     # warm-up: allocator, layouts
+    report = {"batches": {}}
+    frontend = ("octave0_ladder", "small_octaves_ladder")
+    for B in BATCHES + (BATCH_SPLIT,):
+        x = imgs[:B]
+        chunks = len(_build.entry_chunks(B * n_oct))
+        buf, counts = counted(lambda: detect_and_describe_batched(x, cfg))
+        check_batch_counts(f"B={B}", counts, {**{k: B for k in frontend},
+                                             "compact_masks_multi": chunks,
+                                             "refine_multi": chunks, "grad_atlas": chunks,
+                                             "orient_desc_fused": 1})
+        assert buf.x.shape[0] == B and tuple(buf.counts.shape) == (B, n_oct, 2)
+        check_frames_equal(f"B={B}", buf, x, cfg)
+        n_kp = [int(v) for v in buf.valid.sum(1)]
+        assert min(n_kp) >= MIN_KEYPOINTS, n_kp
+        row = {"entries": B * n_oct, "launches_of_k3_k4_k5": chunks, "keypoints": n_kp,
+               "counts": {k: counts[k] for k in frontend + VO_KERNELS[2:6]}}
+        if B in BATCHES:
+            # the batch's plain run, each frame held as phase 1 holds the
+            # kernel path to the plain path
+            plain = detect_and_describe_batched(x, cfg, plain=True)
+            for f in range(B):
+                ref = to_keypoint_records(frame_of(plain, f))
+                kp = to_keypoint_records(frame_of(buf, f))
+                hits, l1 = match_keypoint_sets(ref, kp)
+                assert abs(len(kp) - len(ref)) <= max(2, len(ref) // 50), (B, f, len(kp), len(ref))
+                assert hits >= 0.98 * len(ref) and l1 < 0.1, (B, f, hits, len(ref), l1)
+            row["plain"] = {"keypoints": len(ref), "matched": hits, "desc_l1": l1}
+        row.update(batch_profile(f"B={B}", lambda: detect_and_describe_batched(x, cfg),
+                                 batch_launches(B, chunks)))
+        report["batches"][B] = row
+        print(f"[config3] B={B}: {B * n_oct} entries, every frame bit-equal to its single-frame "
+              f"buffer; {json.dumps(row)}", flush=True)
+
+    # ms/frame, host clock, synchronised, warm, in turns
+    turns = []
+    for B in BATCH_TURNS:
+        x = imgs[:B]
+        turns.append((B, host_ms(lambda: detect_and_describe_batched(x, cfg), calls=5) / B))
+    for B in (2, 4, BATCH_SPLIT):
+        x = imgs[:B]
+        turns.append((B, host_ms(lambda: detect_and_describe_batched(x, cfg), calls=3) / B))
+    report["ms_per_frame"] = turns
+    print(f"[config3] ms/frame (host clock, synchronised, warm; B, ms): "
+          f"{[(b, round(m, 3)) for b, m in turns]}", flush=True)
+    # the same turns with the masks that take the stencil's ~900 launches a
+    # frame off the host: K8 ("pallas") and K1m/K2m ("fused")
+    for backend in ("pallas", "fused"):
+        cfg_m = SiftConfig(mask_backend=backend)
+        t = []
+        for B in BATCH_TURNS:
+            x = imgs[:B]
+            t.append((B, host_ms(lambda: detect_and_describe_batched(x, cfg_m), calls=5) / B))
+        report[f"ms_per_frame_{backend}"] = t
+        print(f"[config3] ms/frame with mask_backend={backend!r}: "
+              f"{[(b, round(m, 3)) for b, m in t]}", flush=True)
+
+    # K8 with each entry's octave number: the 28 entries of B = 4 in one launch
+    cfg_p = SiftConfig(mask_backend="pallas")
+    x = imgs[:4]
+    buf, counts = counted(lambda: detect_and_describe_batched(x, cfg_p))
+    check_batch_counts("pallas B=4", counts, {**{k: 4 for k in frontend}, "extrema_masks": 1,
+                                              "compact_masks_multi": 1, "refine_multi": 1,
+                                              "grad_atlas": 1, "orient_desc_fused": 1})
+    check_frames_equal("pallas B=4", buf, x, cfg_p)
+    prof_p = batch_profile("pallas B=4", lambda: detect_and_describe_batched(x, cfg_p),
+                           {**batch_launches(4), "mask_kernel": 1})
+    two = torch.from_numpy(np.stack([imgs[0, :256, :256].cpu().numpy(),
+                                     textured_scene((256, 256), seed=1)])).to(dev)
+    entries = [d for f in range(2) for _, d in build_scale_space(two[f], cfg_p)]
+    k = len(entries) // 2
+    ids = list(range(k)) * 2
+    got = maskk.extrema_masks(entries, cfg_p, ids)
+    assert all(torch.equal(g, w) for g, w in zip(got, maskk.extrema_masks_ref(entries, cfg_p, ids)))
+    by_pos = int(maskk.extrema_masks(entries, cfg_p)[k].sum())
+    assert by_pos > int(got[k].sum()), (by_pos, int(got[k].sum()))
+    report["pallas_b4"] = {"extrema_masks": counts["extrema_masks"], **prof_p,
+                           "frame1_octave0_mask_by_id": int(got[k].sum()),
+                           "by_position": by_pos}
+    print(f"[config3] mask_backend='pallas' B=4: K8 once over {4 * n_oct} entries, frames "
+          f"bit-equal; oct_ids: frame 1's octave-0 mask {int(got[k].sum())} pixels (by list "
+          f"position {by_pos}); {json.dumps(prof_p)}", flush=True)
+
+    # fused masks: K1m and K2m once a frame, no stencil
+    cfg_f = SiftConfig(mask_backend="fused")
+    x = imgs[:2]
+    maskk.stencil_mask.calls = 0
+    buf, counts = counted(lambda: detect_and_describe_batched(x, cfg_f))
+    assert maskk.stencil_mask.calls == 0, maskk.stencil_mask.calls
+    check_batch_counts("fused B=2", counts, {**{k: 2 for k in FUSED_LADDERS},
+                                             "compact_masks_multi": 1, "refine_multi": 1,
+                                             "grad_atlas": 1, "orient_desc_fused": 1})
+    check_frames_equal("fused B=2", buf, x, cfg_f)
+    print("[config3] mask_backend='fused' B=2: K1m and K2m once a frame, frames bit-equal",
+          flush=True)
+
+    # the video frontend on the one-card mesh and the two-stage pipeline,
+    # host frames in
+    host = imgs[:PIPELINE_FRAMES].cpu().numpy()
+    mesh = make_frames_mesh()
+    assert mesh.size == 1 and mesh.devices[0] == dev, mesh
+    fe = VideoSiftFrontend(SHAPE, batch=4, mesh=mesh)
+    out, counts = counted(lambda: fe(host[:4]))
+    assert out.x.device == dev
+    # frame after frame (batched_sift): every kernel of the frontend once a frame
+    check_batch_counts("VideoSiftFrontend", counts,
+                       {k: 4 for k in frontend + VO_KERNELS[2:6]})
+    check_frames_equal("VideoSiftFrontend", out, imgs[:4], cfg)
+    pipe = TwoStagePipeline(SHAPE, cfg)
+    assert pipe.d0 == pipe.d1 == dev
+    bufs, counts = counted(lambda: list(pipe.process(host)))
+    assert len(bufs) == PIPELINE_FRAMES
+    check_batch_counts("TwoStagePipeline", counts,
+                       {k: PIPELINE_FRAMES for k in frontend + VO_KERNELS[2:6]})
+    for f, b in enumerate(bufs):
+        check_frames_equal("TwoStagePipeline", batch_of(b), imgs[f:f + 1], cfg)
+    report["video_ms_per_frame"] = host_ms(lambda: fe(host[:4]), calls=3) / 4
+    report["pipeline_ms_per_frame"] = host_ms(lambda: list(pipe.process(host)), calls=2) / len(host)
+    report["pipeline_host_syncs"] = len(host_syncs(lambda: [None for _ in pipe.process(host)]))
+    print(f"[config3] VideoSiftFrontend(batch=4) and TwoStagePipeline ({PIPELINE_FRAMES} frames): "
+          f"every frame bit-equal; {report['video_ms_per_frame']:.3f} / "
+          f"{report['pipeline_ms_per_frame']:.3f} ms/frame (host frames in), "
+          f"{report['pipeline_host_syncs']} host synchronisations in the pipeline's loop",
+          flush=True)
+    print("config3:", json.dumps(report), flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)",
@@ -2036,6 +2288,7 @@ def main() -> int:
     check_api_align(dev)
     check_invariance(dev)
     check_sfm(dev)
+    p_d = check_batched(dev)
 
     # each kernel's launches on its path: the main path (10 vo_step) for
     # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b, P4
@@ -2049,9 +2302,14 @@ def main() -> int:
               "octave0_ladder_mask": p7["octave0_ladder_mask"],
               "small_octaves_ladder_mask": p7["small_octaves_ladder_mask"],
               "best2_l2_f32": p8["best2_l2_f32"]}
+    # and on phase D: K3-K6 at B = 8 (one batch), K8 at B = 4 with "pallas"
+    config3 = {**p_d["batches"][8]["counts"], "extrema_masks": p_d["pallas_b4"]["extrema_masks"]}
     kernels = []
     for name, row in rec.rows.items():
         row["launches"] = counts[name]
+        if name in ("compact_masks_multi", "refine_multi", "grad_atlas", "orient_desc_fused",
+                    "extrema_masks"):
+            row["config3_launches"] = config3[name]
         assert row["launches"] > 0, f"{name} was not launched on its path"
         kernels.append(row)
     assert len(kernels) == 16, f"{len(kernels)} kernel records"

@@ -4,7 +4,8 @@ with hand-written CUDA kernels for Hopper (sm_90a).
 A port of ``sift_pyocl_tpu`` (the JAX/Pallas package beside it, which stays
 the reference).  Public API as there:
     SiftPlan, MatchPlan, LinearAlign, fit_affine, par, config_from_par,
-    SiftConfig, KP_DTYPE, detect_and_describe, KeypointBuffer,
+    SiftConfig, KP_DTYPE, detect_and_describe, detect_and_describe_batched,
+    KeypointBuffer,
     match_descriptors_jax, MatchResult, affine_warp (alias affine_warp_jax),
     ransac_affine, VOConfig, VOState, vo_init, vo_step,
     match_descriptors_dense
@@ -24,7 +25,8 @@ _torch.backends.cudnn.allow_tf32 = False
 from .config import (SLICE_CONFIG, SiftConfig, config_from_par, from_jax_config,  # noqa: E402,F401
                      par)
 from .oracle import KP_DTYPE  # noqa: E402,F401
-from .models.sift import KeypointBuffer, SiftPlan, detect_and_describe  # noqa: E402,F401
+from .models.sift import (KeypointBuffer, SiftPlan, detect_and_describe,  # noqa: E402,F401
+                          detect_and_describe_batched)
 from .models.match_align import LinearAlign, MatchPlan, fit_affine  # noqa: E402,F401
 from .models.vo import VOConfig, VOState, vo_init, vo_step  # noqa: E402,F401
 from .ops.match import MatchResult, match_descriptors_dense, match_descriptors_jax  # noqa: E402,F401

@@ -3,9 +3,13 @@
 
 #include <cuda_runtime.h>
 
-// Octaves a multi-octave launch takes; the per-octave tables travel by
-// value in the kernel's parameter block.
-#define SIFT_MAX_OCT 32
+// Entries (octaves, over every frame of a batch) a multi-octave launch
+// takes; the per-entry tables travel by value in the kernel's parameter
+// block, which holds at most 4 KB: at 64 the largest (K8's MaskMeta) is
+// about 2.3 KB.  A batch of 8 frames at 1080x1920 (56 entries) is one
+// launch; the wrappers split a longer entry list into launches of at most
+// this many entries (ops/_build.py::entry_chunks, MAX_ENTRIES).
+#define SIFT_MAX_OCT 64
 
 // The strong DoG extremum test of oracle.local_maxmin, run by the extrema
 // mask tile body (extrema_tile.cuh) that K8, K1m and K2m share.

@@ -6,7 +6,11 @@
 // ori = atan2(dy, dx).  Output layout (the port's own): mag and ori of shape
 // (S, sum_o H_o, Wmax), octave o in rows [row0[o], row0[o] + H_o), columns
 // past W_o written as 0.  No zero padding around octaves: the window kernel
-// (window.cu) checks bounds instead.
+// (window.cu) checks bounds instead.  A call writes the rows of the octaves
+// it is given, from row_base on in planes of rows_total rows: a batch's
+// entry list longer than SIFT_MAX_OCT is written by several calls into one
+// atlas.  Offsets into the atlas are 64-bit (a batch of 12 1080x1920
+// frames is 3 x 25.7k x 1920 = 1.5e8 floats a tensor).
 //
 // What bounds it on the card: memory bandwidth.  Each output pixel reads
 // five blur samples (neighbouring threads share them through L1) and writes
@@ -27,8 +31,9 @@ struct GradMeta {
   int row0[SIFT_MAX_OCT + 1];
 };
 
-__global__ void __launch_bounds__(256) grad_kernel(GradMeta m, int rows, int wmax,
-                                                   float* mag, float* ori) {
+__global__ void __launch_bounds__(256) grad_kernel(GradMeta m, int rows, int rows_total,
+                                                   int row_base, int wmax, float* mag,
+                                                   float* ori) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int g = blockIdx.y * blockDim.y + threadIdx.y;
   const int s = blockIdx.z;  // output plane; reads blur level s + 1
@@ -36,7 +41,7 @@ __global__ void __launch_bounds__(256) grad_kernel(GradMeta m, int rows, int wma
   int o = 0;
   while (o + 1 < m.n_oct && g >= m.row0[o + 1]) ++o;
   const int H = m.H[o], W = m.W[o], y = g - m.row0[o];
-  const long long out = (static_cast<long long>(s) * rows + g) * wmax + x;
+  const long long out = (static_cast<long long>(s) * rows_total + row_base + g) * wmax + x;
   if (x >= W) {
     mag[out] = 0.f;
     ori[out] = 0.f;
@@ -54,11 +59,12 @@ __global__ void __launch_bounds__(256) grad_kernel(GradMeta m, int rows, int wma
 }  // namespace
 
 // blurs: n_oct device pointers to contiguous (S+3, H[o], W[o]) f32 stacks;
-// mag, ori: (scales, sum(H), wmax) f32.
+// mag, ori: (scales, rows_total, wmax) f32, of which this call writes rows
+// [row_base, row_base + sum(H)) of each plane.
 extern "C" int sift_grad_atlas(int n_oct, const void* const* blurs, const int* hs,
-                               const int* ws, int scales, int wmax, void* mag,
-                               void* ori, void* stream) {
-  if (n_oct < 1 || n_oct > SIFT_MAX_OCT) return cudaErrorInvalidValue;
+                               const int* ws, int scales, int wmax, int rows_total,
+                               int row_base, void* mag, void* ori, void* stream) {
+  if (n_oct < 1 || n_oct > SIFT_MAX_OCT || row_base < 0) return cudaErrorInvalidValue;
   GradMeta m = {};
   m.n_oct = n_oct;
   int rows = 0;
@@ -70,9 +76,10 @@ extern "C" int sift_grad_atlas(int n_oct, const void* const* blurs, const int* h
     rows += hs[o];
   }
   m.row0[n_oct] = rows;
+  if (row_base + rows > rows_total) return cudaErrorInvalidValue;
   const dim3 block(32, 8);
   const dim3 grid((wmax + 31) / 32, (rows + 7) / 8, scales);
   grad_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      m, rows, wmax, static_cast<float*>(mag), static_cast<float*>(ori));
+      m, rows, rows_total, row_base, wmax, static_cast<float*>(mag), static_cast<float*>(ori));
   return static_cast<int>(cudaGetLastError());
 }

@@ -133,17 +133,22 @@ __global__ void __launch_bounds__(MAX_NT) refine_kernel(
 
 // dogs: n_oct device pointers to contiguous (S+2, H[o], W[o]) f32 stacks;
 // caps: slots per octave (octave o owns slots [sum(caps[:o]),
-// sum(caps[:o+1]))); idx: int32 flat indices into each octave's (S-2,
-// H-2bd, W-2bd) mask, octave o's first written[o] slots valid (written:
-// int32 per octave), as the compaction leaves them on the device.
-// out: one buffer for n = sum(caps) slots: s_int int32, then fs, fr, fc,
-// peak f32, each n values, then one keep byte a slot (21 bytes a slot).
+// sum(caps[:o+1])) of this call); idx: int32 flat indices into each
+// octave's (S-2, H-2bd, W-2bd) mask, octave o's first written[o] slots valid
+// (written: int32 per octave), as the compaction leaves them on the device.
+// out: one buffer for n_all slots: s_int int32, then fs, fr, fc, peak f32,
+// each n_all values, then one keep byte a slot (21 bytes a slot); this call
+// writes its sum(caps) slots from slot slot0 on, so that a batch's entry
+// list longer than SIFT_MAX_OCT is refined by several calls into one buffer
+// (idx and written then point at the call's first slot and octave).
 // threads: block size, a multiple of 32 up to 256.
 extern "C" int sift_refine_multi(int n_oct, const void* const* dogs, const int* hs,
                                  const int* ws, const int* caps, const void* idx,
                                  const void* written, int bd, float peak_thresh, int max_moves,
-                                 int threads, void* out, void* stream) {
-  if (n_oct < 1 || n_oct > SIFT_MAX_OCT || threads < 32 || threads > MAX_NT || threads % 32)
+                                 int threads, void* out, long long n_all, long long slot0,
+                                 void* stream) {
+  if (n_oct < 1 || n_oct > SIFT_MAX_OCT || threads < 32 || threads > MAX_NT || threads % 32 ||
+      slot0 < 0)
     return cudaErrorInvalidValue;
   RefineMeta m = {};
   m.n_oct = n_oct;
@@ -156,13 +161,14 @@ extern "C" int sift_refine_multi(int n_oct, const void* const* dogs, const int* 
     n += caps[o];
   }
   m.capoff[n_oct] = n;
+  if (slot0 + n > n_all) return cudaErrorInvalidValue;
   if (n > 0) {
-    int* s_out = static_cast<int*>(out);
-    float* f = static_cast<float*>(out);
-    unsigned char* keep = static_cast<unsigned char*>(out) + 20LL * n;
+    int* s_out = static_cast<int*>(out) + slot0;
+    float* f = static_cast<float*>(out) + slot0;
+    unsigned char* keep = static_cast<unsigned char*>(out) + 20LL * n_all + slot0;
     refine_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         m, n, static_cast<const int*>(idx), static_cast<const int*>(written), bd, peak_thresh,
-        max_moves, s_out, f + n, f + 2LL * n, f + 3LL * n, f + 4LL * n, keep);
+        max_moves, s_out, f + n_all, f + 2LL * n_all, f + 3LL * n_all, f + 4LL * n_all, keep);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,11 +18,13 @@ per-level route, or plain PyTorch with ``conv_backend="xla"``), then by
   per octave the plain gradients, ``detect_octave``,
   ``assign_orientations`` and ``compute_descriptors``, all plain PyTorch;
 
-then ``quantize_descriptors``.  The JAX package sends configurations whose
-window exceeds 128 (e.g. ``init_sigma=1.8, scales=2``) from its kernel path
-to the XLA path, since its window kernels hold at most 128 lanes; the port
-does not, since K6 takes any window.  On a CPU device every kernel wrapper
-runs its plain PyTorch version.
+then ``quantize_descriptors``.  ``detect_and_describe_batched`` (BASELINE
+config 3) runs the multi-launch path once over every octave of B frames,
+each entry with its own octave number (``oct_ids``).  The JAX package
+sends configurations whose window exceeds 128 (e.g. ``init_sigma=1.8,
+scales=2``) from its kernel path to the XLA path, since its window kernels
+hold at most 128 lanes; the port does not, since K6 takes any window.  On
+a CPU device every kernel wrapper runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -130,14 +132,18 @@ def _desc_buckets(cfg: SiftConfig):
 
 
 def _describe_octaves_multi(octaves, caps: List[int], cfg: SiftConfig,
-                            plain: bool, masks=None) -> KeypointBuffer:
+                            plain: bool, masks=None, oct_ids=None) -> KeypointBuffer:
     """One compaction, one refinement, one gradient atlas and one fused
     orientation+descriptor launch (two with ``desc_buckets``) over every
-    octave; the extrema masks are `masks` where given (fused)."""
+    entry; the extrema masks are `masks` where given (fused).  An entry is
+    one octave of one frame, `oct_ids` its octave number (0..n-1 where
+    None): a batch lists every frame's octaves (``detect_and_describe_batched``)."""
     max_ori = cfg.max_ori
     blurs = [b for b, _ in octaves]
+    if oct_ids is None:
+        oct_ids = list(range(len(octaves)))
     (s_cat, fs_cat, fr_cat, fc_cat, _, valid_cat), _ = detect_all_slots(
-        [d for _, d in octaves], cfg, caps, plain=plain, masks=masks)
+        [d for _, d in octaves], cfg, caps, plain=plain, masks=masks, oct_ids=oct_ids)
     atlas = grad_atlas_ref if (plain or cfg.grad_backend == "xla") else grad_atlas
     mag_a, ori_a, row_starts = atlas(blurs, cfg.scales)
 
@@ -166,7 +172,7 @@ def _describe_octaves_multi(octaves, caps: List[int], cfg: SiftConfig,
 
     base = 0.5 if cfg.double_im_size else 1.0
     octsize_cat = torch.cat([torch.full((cap,), base * 2.0 ** o, device=fs_cat.device)
-                             for o, cap in enumerate(caps)])
+                             for o, cap in zip(oct_ids, caps)])
     counts = []
     off = 0
     for cap in caps:
@@ -185,6 +191,57 @@ def _describe_octaves_multi(octaves, caps: List[int], cfg: SiftConfig,
         desc=desc,
         valid=ok.reshape(-1),
         counts=torch.stack(counts),
+    )
+
+
+def detect_and_describe_batched(imgs: torch.Tensor, cfg: SiftConfig,
+                                plain: bool = False) -> KeypointBuffer:
+    """Batched frontend on the device of `imgs` (B, H, W): B frames through
+    ONE set of keypoint launches (BASELINE config 3, the video frontend).
+    Each frame's pyramid is built on its own (K1/K2, or K1m/K2m with
+    ``mask_backend="fused"``); then every frame's octaves form one entry
+    list (entry f * n_oct + o is frame f's octave o, ``oct_ids`` its octave
+    number), and the extrema masks (K8 with ``"pallas"``), ONE compaction
+    (K3), ONE refinement (K4), ONE gradient atlas (K5) and ONE fused
+    orientation + descriptor launch (K6; two with ``desc_buckets``) cover
+    the whole batch (each multi-octave kernel splits a list longer than
+    ``ops._build.MAX_ENTRIES`` into launches of that many).  Every kernel
+    works in entry-local coordinates, so each frame's result is, bit for
+    bit, that of ``detect_and_describe`` on the frame.  Where there are no
+    cross-octave launches to share (``kp_backend="xla"`` or
+    ``kp_multi_launch=False``) it runs ``detect_and_describe`` frame by
+    frame, as the JAX package does.  ``plain=True`` runs each kernel's
+    plain PyTorch version instead.
+
+    Returns a KeypointBuffer whose fields carry a leading batch axis:
+    x/y/scale/angle/valid (B, N), desc (B, N, 128), counts (B, n_oct, 2)."""
+    _check_kp_path(cfg)
+    if imgs.ndim != 3:
+        raise ValueError(f"imgs must be (B, H, W), got {tuple(imgs.shape)}")
+    B = imgs.shape[0]
+    caps1 = [c for c, _ in octave_capacities(tuple(imgs.shape[1:]), cfg)]
+    n_oct = len(caps1)
+    if cfg.kp_backend == "xla" or not cfg.kp_multi_launch:
+        bufs = [detect_and_describe(imgs[f], cfg, plain=plain) for f in range(B)]
+        return KeypointBuffer(*[torch.stack([getattr(b, fld) for b in bufs])
+                                for fld in KeypointBuffer._fields])
+    octs, masks = [], []
+    for f in range(B):
+        o_f, m_f = build_scale_space_and_masks(imgs[f], cfg, plain=plain)
+        octs.extend(o_f)
+        masks.extend(m_f if m_f is not None else [None] * len(o_f))
+    buf = _describe_octaves_multi(octs, caps1 * B, cfg, plain,
+                                  None if all(m is None for m in masks) else masks,
+                                  oct_ids=list(range(n_oct)) * B)
+    n = buf.x.shape[0] // B
+    return KeypointBuffer(
+        x=buf.x.reshape(B, n),
+        y=buf.y.reshape(B, n),
+        scale=buf.scale.reshape(B, n),
+        angle=buf.angle.reshape(B, n),
+        desc=buf.desc.reshape(B, n, 128),
+        valid=buf.valid.reshape(B, n),
+        counts=buf.counts.reshape(B, n_oct, 2),
     )
 
 

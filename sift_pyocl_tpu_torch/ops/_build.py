@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +33,10 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+
+# Entries (octaves, over every frame of a batch) that one launch of a
+# multi-octave kernel (K3, K4, K5, K8) takes: csrc/common.cuh's SIFT_MAX_OCT.
+MAX_ENTRIES = 64
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -103,6 +107,16 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
     os.replace(tmp, out)
     return out
+
+
+def entry_chunks(n: int, limit: int = MAX_ENTRIES) -> List[Tuple[int, int]]:
+    """The launches of a multi-octave kernel over `n` entries: [start, stop)
+    ranges of at most `limit` entries, in order, covering 0..n.  Each
+    entry's output region is its own, so the launches give the bits one
+    launch over all entries would."""
+    if n < 1 or limit < 1:
+        raise ValueError(f"need n >= 1 entries and limit >= 1, got {n}, {limit}")
+    return [(a, min(a + limit, n)) for a in range(0, n, limit)]
 
 
 def library() -> ctypes.CDLL:

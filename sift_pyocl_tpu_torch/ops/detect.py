@@ -53,37 +53,48 @@ class RefinedKeypoints(NamedTuple):
 
 
 def octave_masks(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
-                 plain: bool = False) -> List[torch.Tensor]:
-    """Every octave's extrema mask by ``cfg.mask_backend``: the plain
+                 plain: bool = False, oct_ids: Optional[Sequence[int]] = None
+                 ) -> List[torch.Tensor]:
+    """Every entry's extrema mask by ``cfg.mask_backend``: the plain
     stencil for "xla", K8 for "pallas" (its plain version with
     ``plain=True``).  For "fused" the masks come from the ladders
     (``detect_all_octaves(masks=...)``); without them "fused" is the
-    stencil, as in the JAX package where its ladder kernels did not run."""
+    stencil, as in the JAX package where its ladder kernels did not run.
+    `oct_ids`: each entry's octave number (its edge threshold), 0..n-1 where
+    None; a batch's entry list repeats one frame's numbers per frame."""
     if cfg.mask_backend in ("xla", "fused"):
-        return extrema_masks_ref(octave_dogs, cfg)
+        return extrema_masks_ref(octave_dogs, cfg, oct_ids)
     if cfg.mask_backend == "pallas":
-        return (extrema_masks_ref if plain else extrema_masks)(octave_dogs, cfg)
+        return (extrema_masks_ref if plain else extrema_masks)(octave_dogs, cfg, oct_ids)
     raise ValueError(f"unknown mask_backend {cfg.mask_backend!r}")
 
 
 def detect_all_slots(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
                      caps: Sequence[int], plain: bool = False,
-                     masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+                     masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                     oct_ids: Optional[Sequence[int]] = None
                      ) -> Tuple[RefinedKeypoints, torch.Tensor]:
-    """Detection for all octaves: extrema masks (``octave_masks``, or the
+    """Detection for all entries: extrema masks (``octave_masks``, or the
     fused in-ladder `masks` of ``build_scale_space_and_masks``, whose None
     entries take the stencil), then ONE compaction (K3) and ONE refinement
     (K4), which takes the compaction's output as it is.  ``plain=True``
     runs the kernels' plain PyTorch versions instead (parity runs on the
-    card).  Returns (RefinedKeypoints over all sum(caps) slots, octave o's
-    at [sum(caps[:o]), sum(caps[:o+1])); true extrema count (n_oct,))."""
+    card).  An entry is one octave of one frame: `oct_ids` gives each its
+    octave number (0..n-1 where None, one frame's octaves), which sets its
+    edge threshold.  Returns (RefinedKeypoints over all sum(caps) slots,
+    entry o's at [sum(caps[:o]), sum(caps[:o+1])); true extrema count
+    (n_entries,))."""
     compact = compact_masks_multi_ref if plain else compact_masks_multi
     refine = refine_multi_ref if plain else refine_multi
+    oct_ids = list(range(len(octave_dogs)) if oct_ids is None else oct_ids)
+    if len(oct_ids) != len(octave_dogs):
+        raise ValueError(f"need one octave number per DoG stack: {len(oct_ids)} for "
+                         f"{len(octave_dogs)}")
     if masks is None:
-        masks = octave_masks(octave_dogs, cfg, plain=plain)
+        masks = octave_masks(octave_dogs, cfg, plain=plain, oct_ids=oct_ids)
     else:
         masks = [m if m is not None else extrema_mask(d, cfg, o)
-                 for o, (m, d) in enumerate(zip(masks, octave_dogs))]
+                 for o, m, d in zip(oct_ids, masks, octave_dogs)]
     idx_all, written, total = compact(masks, list(caps))
     kps = RefinedKeypoints(*refine(octave_dogs, masks, caps, idx_all, written, cfg.border_dist,
                                    cfg.peak_thresh, cfg.max_interp_moves))
@@ -92,11 +103,13 @@ def detect_all_slots(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
 
 def detect_all_octaves(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
                        caps: Sequence[int], plain: bool = False,
-                       masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+                       masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                       oct_ids: Optional[Sequence[int]] = None
                        ) -> List[Tuple[RefinedKeypoints, torch.Tensor]]:
-    """``detect_all_slots`` split by octave: a list of (RefinedKeypoints,
-    true extrema count) per octave, views of the whole outputs."""
-    kps, total = detect_all_slots(octave_dogs, cfg, caps, plain=plain, masks=masks)
+    """``detect_all_slots`` split by entry: a list of (RefinedKeypoints,
+    true extrema count) per entry, views of the whole outputs."""
+    kps, total = detect_all_slots(octave_dogs, cfg, caps, plain=plain, masks=masks,
+                                  oct_ids=oct_ids)
     per_octave = zip(*(f.split(list(caps)) for f in kps))
     return [(RefinedKeypoints(*fields), total[o]) for o, fields in enumerate(per_octave)]
 

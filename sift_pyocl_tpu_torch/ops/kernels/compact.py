@@ -60,8 +60,11 @@ def _scratch_of(dev: torch.device, stream: int) -> torch.Tensor:
 
 
 def _launch(masks: Sequence[torch.Tensor], caps: Sequence[int]
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch of ``csrc/compact.cu`` over `masks` (the work of K3 and K10a)."""
+            ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], int]:
+    """The launches of ``csrc/compact.cu`` over `masks` (the work of K3 and
+    K10a): one over every mask, or one for each ``_build.entry_chunks`` part
+    of a longer list, each into its own slots of the one output.  Returns
+    ((idx, written, total), the number of launches)."""
     dev = masks[0].device
     flats: List[torch.Tensor] = []
     for m in masks:
@@ -71,27 +74,34 @@ def _launch(masks: Sequence[torch.Tensor], caps: Sequence[int]
             f = f.clone()
         flats.append(f)
     n_oct = len(flats)
-    n_tiles = sum((f.numel() + TILE - 1) // TILE for f in flats)
+    chunks = _build.entry_chunks(n_oct)
+    tiles = [(f.numel() + TILE - 1) // TILE for f in flats]
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _scratch_of(dev, stream)
     max_tiles = (scratch.numel() - 1) // 3       # one flag and two prefix words a tile
+    n_tiles = max(sum(tiles[a:b]) for a, b in chunks)
     if n_tiles > max_tiles or any(c < 0 for c in caps):
         raise ValueError(f"compaction takes at most {max_tiles} tiles of {TILE} elements a "
-                         f"call and caps >= 0; got {n_tiles} tiles, caps {list(caps)}")
+                         f"launch and caps >= 0; got {n_tiles} tiles, caps {list(caps)}")
     idx = torch.empty(int(sum(caps)), dtype=torch.int32, device=dev)
     written = torch.empty(n_oct, dtype=torch.int32, device=dev)
     total = torch.empty(n_oct, dtype=torch.int32, device=dev)
     vp = ctypes.c_void_p
     fn = _build.function("sift_compact_masks_multi",
                          [ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, vp])
-    ptrs = (vp * n_oct)(*[f.data_ptr() for f in flats])
-    lens = (ctypes.c_longlong * n_oct)(*[f.numel() for f in flats])
-    caps_c = (ctypes.c_int * n_oct)(*[int(c) for c in caps])
+    slot0 = 0
     with torch.cuda.device(dev):
-        err = fn(n_oct, ptrs, lens, caps_c, idx.data_ptr(), written.data_ptr(),
-                 total.data_ptr(), scratch.data_ptr(), stream)
-    _build.check(err, "compact")
-    return idx, written, total
+        for a, b in chunks:
+            n = b - a
+            ptrs = (vp * n)(*[f.data_ptr() for f in flats[a:b]])
+            lens = (ctypes.c_longlong * n)(*[f.numel() for f in flats[a:b]])
+            caps_c = (ctypes.c_int * n)(*[int(c) for c in caps[a:b]])
+            err = fn(n, ptrs, lens, caps_c, idx.data_ptr() + 4 * slot0,
+                     written.data_ptr() + 4 * a, total.data_ptr() + 4 * a, scratch.data_ptr(),
+                     stream)
+            _build.check(err, "compact")
+            slot0 += int(sum(caps[a:b]))
+    return (idx, written, total), len(chunks)
 
 
 EXTRACT_MODES = ("sum", "rowmm")
@@ -100,8 +110,10 @@ EXTRACT_MODES = ("sum", "rowmm")
 def compact_masks_multi(masks: Sequence[torch.Tensor], caps: Sequence[int],
                         extract_mode: str = "sum"
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3: compact every octave's mask (any shapes, flattened row-major).
-    ``extract_mode`` takes the TPU kernel's values, each the same function.
+    """K3: compact every octave's mask (any shapes, flattened row-major),
+    one launch for at most ``_build.MAX_ENTRIES`` masks (a batch's longer
+    list is split, ``_build.entry_chunks``).  ``extract_mode`` takes the TPU
+    kernel's values, each the same function.
 
     Returns (idx (sum(caps),) int32 -- octave o's indices at
     [sum(caps[:o]), sum(caps[:o]) + written[o]), zeros after --,
@@ -111,8 +123,8 @@ def compact_masks_multi(masks: Sequence[torch.Tensor], caps: Sequence[int],
     _check_masks(masks, caps)
     if not on_cuda(masks[0]):
         return compact_masks_multi_ref(masks, caps)
-    out = _launch(masks, caps)
-    compact_masks_multi.launches += 1
+    out, launches = _launch(masks, caps)
+    compact_masks_multi.launches += launches
     return out
 
 
@@ -139,8 +151,8 @@ def compact_mask(mask: torch.Tensor, cap: int
     _check_masks([mask], [cap])
     if not on_cuda(mask):
         return compact_mask_ref(mask, cap)
-    idx, written, total = _launch([mask], [cap])
-    compact_mask.launches += 1
+    (idx, written, total), launches = _launch([mask], [cap])
+    compact_mask.launches += launches
     return idx, written[0], total[0]
 
 

@@ -38,7 +38,9 @@ def _check(blur_list, scales) -> None:
 
 
 def grad_atlas(blur_list: Sequence[torch.Tensor], scales: int) -> Atlas:
-    """Gradient atlas of planes 1..scales of every octave's blur stack.
+    """Gradient atlas of planes 1..scales of every octave's blur stack, one
+    launch for at most ``_build.MAX_ENTRIES`` octaves (a batch's longer list
+    is split, ``_build.entry_chunks``, each launch writing its own rows).
     Returns (mag, ori, row_starts)."""
     _check(blur_list, scales)
     if not on_cuda(blur_list[0]):
@@ -48,17 +50,19 @@ def grad_atlas(blur_list: Sequence[torch.Tensor], scales: int) -> Atlas:
     row_starts, rows, wmax = atlas_geometry([tuple(b.shape[1:]) for b in blurs])
     mag = torch.empty(scales, rows, wmax, dtype=torch.float32, device=dev)
     ori = torch.empty_like(mag)
-    n_oct = len(blurs)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sift_grad_atlas", [ci, vp, vp, vp, ci, ci, vp, vp, vp])
-    ptrs = (vp * n_oct)(*[b.data_ptr() for b in blurs])
-    hs = (ci * n_oct)(*[b.shape[1] for b in blurs])
-    ws = (ci * n_oct)(*[b.shape[2] for b in blurs])
+    fn = _build.function("sift_grad_atlas", [ci, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp])
+    chunks = _build.entry_chunks(len(blurs))
     with torch.cuda.device(dev):
-        err = fn(n_oct, ptrs, hs, ws, int(scales), int(wmax), _build.ptr(mag),
-                 _build.ptr(ori), _build.stream_of(mag))
-    _build.check(err, "grad_atlas")
-    grad_atlas.launches += 1
+        for a, b in chunks:
+            n = b - a
+            ptrs = (vp * n)(*[t.data_ptr() for t in blurs[a:b]])
+            hs = (ci * n)(*[t.shape[1] for t in blurs[a:b]])
+            ws = (ci * n)(*[t.shape[2] for t in blurs[a:b]])
+            err = fn(n, ptrs, hs, ws, int(scales), int(wmax), rows, row_starts[a],
+                     _build.ptr(mag), _build.ptr(ori), _build.stream_of(mag))
+            _build.check(err, "grad_atlas")
+    grad_atlas.launches += len(chunks)
     return mag, ori, row_starts
 
 

@@ -5,7 +5,9 @@ the kernel is ``csrc/maskk.cu``.  The TPU kernel reads a padded DoG atlas
 and its caller strips each octave's border window out of the atlas mask;
 the kernel here reads each octave's own DoG stack and writes the
 border-stripped masks straight into one allocation, each octave's part
-16-byte aligned, which K3 (``compact.py``) takes as it is.
+16-byte aligned, which K3 (``compact.py``) takes as it is.  Each entry (an
+octave of one frame) takes the edge threshold of its octave number
+(``oct_ids``), so a batch's entries, frame after frame, are one launch.
 
 The plain version is the stencil of ``sift_pyocl_tpu/ops/detect.py``
 (``extrema_mask``, at explicit thresholds ``stencil_mask``), which
@@ -16,7 +18,7 @@ K1/K2 (``ladder.py``) equal bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,15 +92,23 @@ def _check(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> None:
             raise ValueError("DoG stacks must lie on one device with one plane count")
 
 
-class _Layout(NamedTuple):
-    """What a K8 call needs apart from the DoG pointers, for one set of
-    octave shapes and thresholds: the ctypes arguments and the masks'
-    places in the output."""
+class _Chunk(NamedTuple):
+    """One launch's ctypes arguments: octaves [a, b) of the call."""
+    a: int
+    b: int
     hs: ctypes.Array
     ws: ctypes.Array
     eths: ctypes.Array
     outoff: ctypes.Array
     ptrs: ctypes.Array          # refilled with the DoG pointers at each call
+
+
+class _Layout(NamedTuple):
+    """What a K8 call needs apart from the DoG pointers, for one set of
+    octave shapes, octave numbers and thresholds: each launch's ctypes
+    arguments (one launch for at most ``_build.MAX_ENTRIES`` octaves) and
+    the masks' places in the output."""
+    chunks: List[_Chunk]
     offs: List[int]
     sizes: List[int]
     shapes: List[Tuple[int, int, int]]
@@ -108,11 +118,22 @@ class _Layout(NamedTuple):
 _layouts: Dict[tuple, _Layout] = {}
 
 
-def _layout(dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> _Layout:
-    """The cached layout for these DoG shapes and `cfg` (built once)."""
+def _oct_ids(n: int, oct_ids: Optional[Sequence[int]]) -> List[int]:
+    """Each entry's octave number: `oct_ids`, or 0..n-1 (one frame's octaves
+    in order) where None."""
+    if oct_ids is None:
+        return list(range(n))
+    if len(oct_ids) != n:
+        raise ValueError(f"need one octave number per DoG stack: {len(oct_ids)} for {n}")
+    return [int(o) for o in oct_ids]
+
+
+def _layout(dogs: Sequence[torch.Tensor], cfg: SiftConfig, oct_ids: List[int]) -> _Layout:
+    """The cached layout for these DoG shapes, octave numbers and `cfg`
+    (built once)."""
     bd = cfg.border_dist
-    key = (tuple(tuple(d.shape) for d in dogs), bd, cfg.peak_thresh, cfg.edge_thresh,
-           cfg.edge_thresh1, cfg.double_im_size)
+    key = (tuple(tuple(d.shape) for d in dogs), tuple(oct_ids), bd, cfg.peak_thresh,
+           cfg.edge_thresh, cfg.edge_thresh1, cfg.double_im_size)
     lay = _layouts.get(key)
     if lay is None:
         shapes = [(d.shape[0] - 2, d.shape[1] - 2 * bd, d.shape[2] - 2 * bd) for d in dogs]
@@ -121,42 +142,50 @@ def _layout(dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> _Layout:
         for size in sizes:
             offs.append(n)
             n += (size + 15) // 16 * 16
-        n_oct = len(dogs)
         ci = ctypes.c_int
-        lay = _Layout(hs=(ci * n_oct)(*[d.shape[1] for d in dogs]),
-                      ws=(ci * n_oct)(*[d.shape[2] for d in dogs]),
-                      eths=(ctypes.c_float * n_oct)(*[octave_edge_thresh(cfg, o)
-                                                      for o in range(n_oct)]),
-                      outoff=(ctypes.c_longlong * n_oct)(*offs),
-                      ptrs=(ctypes.c_void_p * n_oct)(), offs=offs, sizes=sizes,
-                      shapes=shapes, n_bytes=n)
+        chunks = []
+        for a, b in _build.entry_chunks(len(dogs)):
+            k = b - a
+            chunks.append(_Chunk(
+                a=a, b=b, hs=(ci * k)(*[d.shape[1] for d in dogs[a:b]]),
+                ws=(ci * k)(*[d.shape[2] for d in dogs[a:b]]),
+                eths=(ctypes.c_float * k)(*[octave_edge_thresh(cfg, o) for o in oct_ids[a:b]]),
+                outoff=(ctypes.c_longlong * k)(*offs[a:b]), ptrs=(ctypes.c_void_p * k)()))
+        lay = _Layout(chunks=chunks, offs=offs, sizes=sizes, shapes=shapes, n_bytes=n)
         _layouts[key] = lay
     return lay
 
 
-def extrema_masks(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> List[torch.Tensor]:
-    """Every octave's extrema mask in one launch: octave o's (S-2, H-2bd,
-    W-2bd) bool mask, equal to ``extrema_mask(octave_dogs[o], cfg, o)``.
-    On the card the masks are views of one uint8 0/1 allocation; a warm
-    call (shapes and cfg seen before) builds no ctypes array."""
+def extrema_masks(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
+                  oct_ids: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """Every octave's extrema mask in one launch (one for at most
+    ``_build.MAX_ENTRIES`` octaves: a batch's longer list is split,
+    ``_build.entry_chunks``): entry i's (S-2, H-2bd, W-2bd) bool mask,
+    equal to ``extrema_mask(octave_dogs[i], cfg, oct_ids[i])``; `oct_ids`
+    (each entry's octave number, which sets its edge threshold) defaults to
+    0..n-1.  On the card the masks are views of one uint8 0/1 allocation; a
+    warm call (shapes, octave numbers and cfg seen before) builds no ctypes
+    array."""
     _check(octave_dogs, cfg)
+    ids = _oct_ids(len(octave_dogs), oct_ids)
     if not on_cuda(octave_dogs[0]):
-        return extrema_masks_ref(octave_dogs, cfg)
+        return extrema_masks_ref(octave_dogs, cfg, ids)
     dogs = [d.contiguous() for d in octave_dogs]
     dev = dogs[0].device
-    lay = _layout(dogs, cfg)
-    for o, d in enumerate(dogs):
-        lay.ptrs[o] = d.data_ptr()
+    lay = _layout(dogs, cfg, ids)
     out = torch.empty(lay.n_bytes, dtype=torch.uint8, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("sift_extrema_masks",
                          [ci, vp, vp, vp, vp, vp, ci, ci, ctypes.c_float, vp, vp])
     with torch.cuda.device(dev):
-        err = fn(len(dogs), lay.ptrs, lay.hs, lay.ws, lay.eths, lay.outoff,
-                 int(dogs[0].shape[0]), int(cfg.border_dist), float(0.8 * cfg.peak_thresh),
-                 _build.ptr(out), _build.stream_of(out))
-    _build.check(err, "extrema_masks")
-    extrema_masks.launches += 1
+        for ch in lay.chunks:
+            for o, d in enumerate(dogs[ch.a:ch.b]):
+                ch.ptrs[o] = d.data_ptr()
+            err = fn(ch.b - ch.a, ch.ptrs, ch.hs, ch.ws, ch.eths, ch.outoff,
+                     int(dogs[0].shape[0]), int(cfg.border_dist), float(0.8 * cfg.peak_thresh),
+                     _build.ptr(out), _build.stream_of(out))
+            _build.check(err, "extrema_masks")
+    extrema_masks.launches += len(lay.chunks)
     flat = out.view(torch.bool)
     return [flat[off:off + size].view(shape)
             for off, size, shape in zip(lay.offs, lay.sizes, lay.shapes)]
@@ -165,7 +194,10 @@ def extrema_masks(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> List[
 extrema_masks.launches = 0
 
 
-def extrema_masks_ref(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig) -> List[torch.Tensor]:
-    """Plain PyTorch version of ``extrema_masks``: the stencil per octave."""
+def extrema_masks_ref(octave_dogs: Sequence[torch.Tensor], cfg: SiftConfig,
+                      oct_ids: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """Plain PyTorch version of ``extrema_masks``: the stencil per entry, at
+    its octave number's edge threshold."""
     _check(octave_dogs, cfg)
-    return [extrema_mask(d, cfg, o) for o, d in enumerate(octave_dogs)]
+    ids = _oct_ids(len(octave_dogs), oct_ids)
+    return [extrema_mask(d, cfg, o) for o, d in zip(ids, octave_dogs)]

@@ -62,15 +62,24 @@ def _check(octave_dogs, masks, caps, idx, written, border_dist) -> None:
             raise ValueError("DoG stacks and the compaction's output must lie on one device")
 
 
-class _Layout(NamedTuple):
-    """What a call needs apart from its data pointers, for one set of DoG
-    and mask shapes, caps and border (checked once, when it is made): the
-    bound C function, its ctypes arrays and the output's field sizes."""
-    fn: ctypes._CFuncPtr
+class _Chunk(NamedTuple):
+    """One launch's ctypes arguments: entries [a, b) from slot `slot0` on."""
+    a: int
+    b: int
+    slot0: int
     ptrs: ctypes.Array          # refilled with the DoG pointers at each call
     hs: ctypes.Array
     ws: ctypes.Array
     caps: ctypes.Array
+
+
+class _Layout(NamedTuple):
+    """What a call needs apart from its data pointers, for one set of DoG
+    and mask shapes, caps and border (checked once, when it is made): the
+    bound C function, each launch's ctypes arrays (one launch for at most
+    ``_build.MAX_ENTRIES`` octaves) and the output's field sizes."""
+    fn: ctypes._CFuncPtr
+    chunks: List[_Chunk]
     n: int
     split: List[int]            # words of s_int, fs, fr, fc, peak and keep
 
@@ -78,22 +87,29 @@ class _Layout(NamedTuple):
 _layouts: Dict[tuple, _Layout] = {}
 
 
-def _launch(dogs, masks, caps, idx, written, border_dist, peak_thresh, max_moves) -> Refined:
-    """One launch of ``csrc/refine.cu`` (the work of K4 and K10b).  A warm
-    call (shapes, caps and border seen before) builds no ctypes array and
-    checks only types, devices, lengths and contiguity."""
+def _launch(dogs, masks, caps, idx, written, border_dist, peak_thresh, max_moves
+            ) -> Tuple[Refined, int]:
+    """The launches of ``csrc/refine.cu`` (the work of K4 and K10b): one,
+    or one for each ``_build.entry_chunks`` part of a longer octave list,
+    each into its own slots of one buffer.  A warm call (shapes, caps and
+    border seen before) builds no ctypes array and checks only types,
+    devices, lengths and contiguity.  Returns (outputs, launches)."""
     key = (tuple(d.shape for d in dogs), tuple(m.shape for m in masks), tuple(caps), border_dist)
     lay = _layouts.get(key)
     if lay is None:
         _check(dogs, masks, caps, idx, written, border_dist)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        n_oct, n = len(dogs), int(sum(caps))
+        n = int(sum(caps))
         fn = _build.function("sift_refine_multi", [ci, vp, vp, vp, vp, vp, vp, ci,
-                                                   ctypes.c_float, ci, ci, vp, vp])
-        lay = _Layout(fn=fn, ptrs=(vp * n_oct)(), hs=(ci * n_oct)(*[d.shape[1] for d in dogs]),
-                      ws=(ci * n_oct)(*[d.shape[2] for d in dogs]),
-                      caps=(ci * n_oct)(*[int(c) for c in caps]), n=n,
-                      split=[n] * 5 + [(n + 3) // 4])
+                                                   ctypes.c_float, ci, ci, vp,
+                                                   ctypes.c_longlong, ctypes.c_longlong, vp])
+        chunks = []
+        for a, b in _build.entry_chunks(len(dogs)):
+            chunks.append(_Chunk(a=a, b=b, slot0=int(sum(caps[:a])), ptrs=(vp * (b - a))(),
+                                 hs=(ci * (b - a))(*[d.shape[1] for d in dogs[a:b]]),
+                                 ws=(ci * (b - a))(*[d.shape[2] for d in dogs[a:b]]),
+                                 caps=(ci * (b - a))(*[int(c) for c in caps[a:b]])))
+        lay = _Layout(fn=fn, chunks=chunks, n=n, split=[n] * 5 + [(n + 3) // 4])
         _layouts[key] = lay
     dev = idx.get_device()
     if (idx.dtype != torch.int32 or written.dtype != torch.int32 or idx.numel() != lay.n
@@ -103,24 +119,29 @@ def _launch(dogs, masks, caps, idx, written, border_dist, peak_thresh, max_moves
                    for d in dogs)):
         _check(dogs, masks, caps, idx, written, border_dist)
         raise ValueError("refine: DoG stacks, idx and written must be contiguous")
-    for o, d in enumerate(dogs):
-        lay.ptrs[o] = d.data_ptr()
     buf = torch.empty(sum(lay.split), dtype=torch.float32, device=idx.device)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lay.fn(len(dogs), lay.ptrs, lay.hs, lay.ws, lay.caps, idx.data_ptr(),
-                     written.data_ptr(), border_dist, peak_thresh, max_moves, THREADS,
-                     buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "refine")
+        for ch in lay.chunks:
+            for o, d in enumerate(dogs[ch.a:ch.b]):
+                ch.ptrs[o] = d.data_ptr()
+            err = lay.fn(ch.b - ch.a, ch.ptrs, ch.hs, ch.ws, ch.caps,
+                         idx.data_ptr() + 4 * ch.slot0, written.data_ptr() + 4 * ch.a,
+                         border_dist, peak_thresh, max_moves, THREADS, buf.data_ptr(), lay.n,
+                         ch.slot0, stream)
+            _build.check(err, "refine")
     s_int, fs, fr, fc, peak, keep = buf.split(lay.split)
     keep = keep.view(torch.bool)
     return (s_int.view(torch.int32), fs, fr, fc, peak,
-            keep if lay.n % 4 == 0 else keep[:lay.n])
+            keep if lay.n % 4 == 0 else keep[:lay.n]), len(lay.chunks)
 
 
 def refine_multi(octave_dogs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
                  caps: Sequence[int], idx: torch.Tensor, written: torch.Tensor,
                  border_dist: int, peak_thresh: float, max_moves: int = 5) -> Refined:
-    """K4: refine every octave's compacted candidates in one launch.
+    """K4: refine every octave's compacted candidates in one launch (one
+    for at most ``_build.MAX_ENTRIES`` octaves: a batch's longer list is
+    split, ``_build.entry_chunks``).
 
     `masks` are the (S-2, H-2bd, W-2bd) masks that K3 compacted into
     (idx (sum(caps),) int32, written (n_oct,) int32); only their shapes are
@@ -128,8 +149,9 @@ def refine_multi(octave_dogs: Sequence[torch.Tensor], masks: Sequence[torch.Tens
     if not on_cuda(idx):
         return refine_multi_ref(octave_dogs, masks, caps, idx, written, border_dist,
                                 peak_thresh, max_moves)
-    out = _launch(octave_dogs, masks, caps, idx, written, border_dist, peak_thresh, max_moves)
-    refine_multi.launches += 1
+    out, launches = _launch(octave_dogs, masks, caps, idx, written, border_dist, peak_thresh,
+                            max_moves)
+    refine_multi.launches += launches
     return out
 
 
@@ -146,9 +168,9 @@ def refine_octave(dogs: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
     octave."""
     if not on_cuda(idx):
         return refine_octave_ref(dogs, mask, idx, written, border_dist, peak_thresh, max_moves)
-    out = _launch([dogs], [mask], [idx.shape[0]], idx, written, border_dist, peak_thresh,
-                  max_moves)
-    refine_octave.launches += 1
+    out, launches = _launch([dogs], [mask], [idx.shape[0]], idx, written, border_dist,
+                            peak_thresh, max_moves)
+    refine_octave.launches += launches
     return out
 
 
