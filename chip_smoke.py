@@ -120,7 +120,29 @@
    (batch 4) on the one-card mesh and TwoStagePipeline over 6 frames, each
    frame bit-equal.  Prints ms/frame at each B (host clock, synchronised,
    warm; B = 1, 8, 8, 1 in turns), device ms and CUDA launches a batch.
-20. Prints the card's nvidia-smi line again, a JSON line of per-kernel
+20. Phase E: BASELINE config 5, the distributed BA, on bench_distributed.py's
+   problem (make_problem(n_cams=64, n_points=8192, noise_px=0.5, seed=0,
+   arc_deg=150.0), ~5e5 observations; ts + 0.02 N, X + 0.10 N), 10 LM
+   iterations.  E1: DistributedBA over an NCCL group of world size 1 in
+   this process against run_ba on the same problem: first cost within rtol
+   1e-5 and last within 5 % (the outer bounds), every iteration's cost
+   within rtol 1e-6, the reprojection error falling, 34 all-reduces an
+   iteration (4 + cg_iters).  E2: two ranks spawned (torch.multiprocessing,
+   spawn) on cuda:0 over gloo, after a probe of whether NCCL takes two
+   ranks on one card (its answer printed, not gated): both ranks' costs
+   and results identical, their costs against E1's with the same outer
+   bounds and every iteration's within rtol 1e-4; a rank that fails or has not reported in time fails the
+   phase.  E3: parallel.sharded_scale_space of the 1080x1920 frame on
+   (cuda:0,) x 2 and x 4 against the plain single-device pyramid: blurs
+   within 2e-3, DoGs within 4e-3.  Prints ms a warm LM iteration at 1 and
+   2 ranks (host clock, synchronised) beside run_ba's, all-reduces, host
+   syncs, CUDA launches and device ms an iteration (and its costliest
+   kernels), the host's ms in all_reduce calls a warm iteration (a run
+   after NCCL's communicator is made), each run's largest relative cost
+   difference, and ms a pyramid call
+   beside the plain pyramid's.  One card shows the collective pattern and
+   its parity, not scaling across cards.
+21. Prints the card's nvidia-smi line again, a JSON line of per-kernel
    results (16 rows, launches from the path that runs each kernel,
    config3_launches for K3-K6 and K8 from phase D, cuda_launches and
    device_ms a wrapper call from the profiler), then, as its last line,
@@ -180,20 +202,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def cuda_events(fn, calls: int = 5, sessions: int = 5) -> list:
     """The kernels, memsets and copies on the card that torch.profiler
     records over `calls` calls of fn() (after one more), from the one of
-    `sessions` profiling sessions that recorded the most: a session now and
-    then loses a record (a K3 run counted 4 launches in 5 calls of its one
-    launch), and a lost record only ever lowers a count."""
+    `sessions` profiling sessions that recorded the most (a lost record
+    only ever lowers a count); each session opens with profiling.PREROLL
+    spin kernels, which take the first records that torch.profiler drops."""
     from torch.profiler import ProfilerActivity, profile
+
+    from sift_pyocl_tpu_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
     best = []
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiling.open_session()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = profiling.device_events(prof)
         if len(events) > len(best):
             best = events
     return best
@@ -2244,6 +2269,300 @@ def check_batched(dev) -> dict:
     return report
 
 
+
+# Phase E: BASELINE config 5, bench_distributed.py's problem at the JAX
+# package's own scale (no cut), and the row-sharded pyramid at 1080x1920
+CONFIG5 = dict(n_cams=64, n_points=8192, noise_px=0.5, seed=0, arc_deg=150.0)
+CONFIG5_ITERS = 10
+CONFIG5_CG = 30                   # DistributedBA's and run_ba's default
+CONFIG5_RANKS = 2
+RANK_TIMEOUT_S = 240              # a rank that has not reported by then fails the phase
+E1_RTOL_EACH = 1e-6               # every iteration's cost, E1 against run_ba
+E2_RTOL_EACH = 1e-4               # every iteration's cost, E2 against E1
+SPATIAL_SHARDS = {2: 3, 4: 2}     # shards -> octaves the octave rule keeps at 1080 rows
+
+
+def config5_problem():
+    """(K, gt, start, obs): make_problem(**CONFIG5) and its perturbation,
+    ts + 0.02 N and X + 0.10 N from default_rng(1) (bench_distributed.py)."""
+    from sift_pyocl_tpu_torch.sfm.ba import BAParams
+    from sift_pyocl_tpu_torch.sfm.synthetic import make_problem
+
+    K, gt, obs, _ = make_problem(**CONFIG5)
+    rng = np.random.default_rng(1)
+    start = BAParams(gt.Rs, gt.ts + 0.02 * rng.normal(size=gt.ts.shape),
+                     gt.X + 0.10 * rng.normal(size=gt.X.shape))
+    return K, gt, start, obs
+
+
+def lm_ms(run, start, obs, K, short: int = 2, long: int = 12) -> float:
+    """Host-clock ms of a warm LM iteration: the difference of a `long` and
+    a `short` run (each ends in a host read of its costs) over the extra
+    iterations, so the partition and the copies in cancel."""
+    run(start, obs, K, iters=short)
+    t = time.perf_counter()
+    run(start, obs, K, iters=short)
+    t_short = time.perf_counter() - t
+    t = time.perf_counter()
+    run(start, obs, K, iters=long)
+    return 1e3 * (time.perf_counter() - t - t_short) / (long - short)
+
+
+def rank_harness():
+    """tests/_torch_ranks.py: the spawn-and-collect harness and the rank
+    report that the CPU tests use too."""
+    import importlib
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("_torch_ranks")
+
+
+def config5_rank(rank: int, world: int, store: str, backend: str, queue) -> None:
+    """One rank of phase E2 (a spawned process): join the group through a
+    file store, run DistributedBA on config 5 on cuda:{rank % cards}, and
+    report (rank, {costs, Rs, ts, X, ms per warm LM iteration, host ms in
+    all_reduce per warm iteration}) or (rank, "error", traceback)."""
+    import os
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")     # the ranks share one host
+
+    def run():
+        import torch.distributed as dist
+
+        from sift_pyocl_tpu_torch.parallel import global_ba_mesh, initialize_multihost
+        from sift_pyocl_tpu_torch.sfm import DistributedBA
+
+        got = initialize_multihost(f"file://{store}", num_processes=world, process_id=rank,
+                                   backend=backend)
+        assert got == (rank, world), got
+        try:
+            K, _, start, obs = config5_problem()
+            dba = DistributedBA(global_ba_mesh())
+            p, costs = dba.run(start, obs, K, iters=CONFIG5_ITERS)
+            ms = lm_ms(dba.run, start, obs, K)
+            with counted_all_reduces() as calls:        # a warm run
+                dba.run(start, obs, K, iters=CONFIG5_ITERS)
+            # less the last call, the point blocks gathered at the end
+            return dict(costs=costs, Rs=p.Rs, ts=p.ts, X=p.X, ms=ms,
+                        all_reduce_ms=1e3 * sum(calls[:-1]) / CONFIG5_ITERS,
+                        device=str(dba.mesh.device))
+        finally:
+            dist.destroy_process_group()
+
+    rank_harness().report(queue, rank, run)
+
+
+def nccl_probe_rank(rank: int, world: int, store: str, queue) -> None:
+    """Whether NCCL takes `world` ranks on cuda:0: one all-reduce; reports
+    (rank, "ok") or (rank, the error's first line)."""
+    import os
+
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")     # the ranks share one host
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{store}", world_size=world,
+                                rank=rank)
+        x = torch.ones(1, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out = "ok" if float(x) == world else f"sum {float(x)}"
+        dist.destroy_process_group()
+    except Exception as e:          # the outcome is the finding, not a failure
+        out = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:300]}"
+    queue.put((rank, out))
+
+
+@contextlib.contextmanager
+def counted_all_reduces():
+    """The calls of torch.distributed.all_reduce in the block: the host
+    seconds each took (its enqueue with NCCL; with gloo on CUDA tensors its
+    wait for the copies through the host and the exchange)."""
+    import torch.distributed as dist
+
+    real, calls = dist.all_reduce, []
+
+    def counting(*a, **k):
+        t = time.perf_counter()
+        out = real(*a, **k)
+        calls.append(time.perf_counter() - t)
+        return out
+
+    dist.all_reduce = counting
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+
+
+def ba_rms(params, obs, K, dev) -> float:
+    """Mean reprojection error (px) of params on the card."""
+    from sift_pyocl_tpu_torch.ops import as_tensor
+    from sift_pyocl_tpu_torch.sfm.ba import BAObs, BAParams, residuals
+
+    p = BAParams(*(as_tensor(np.asarray(a), dev, torch.float32) for a in params))
+    o = BAObs(*(as_tensor(np.asarray(a), dev) for a in obs))
+    return float(residuals(p, o, as_tensor(K, dev, torch.float32)).norm(dim=1).mean())
+
+
+def check_costs(tag: str, costs, ref, rtol_each: float) -> float:
+    """The first cost within rtol 1e-5 of the reference's and the last
+    within 5 % (the outer bounds), and every iteration's within
+    `rtol_each`; returns the largest relative difference."""
+    assert len(costs) == len(ref) == CONFIG5_ITERS, (tag, len(costs), len(ref))
+    assert np.isfinite(costs).all(), (tag, costs)
+    assert abs(costs[0] - ref[0]) <= 1e-5 * abs(ref[0]), (tag, costs[0], ref[0])
+    assert abs(costs[-1] - ref[-1]) < 0.05 * ref[-1], (tag, costs[-1], ref[-1])
+    worst = max(abs(c - r) / abs(r) for c, r in zip(costs, ref))
+    assert worst <= rtol_each, (tag, worst, costs, ref)
+    return worst
+
+
+def check_config5(dev) -> dict:
+    """Phase E1 and E2: config 5 through DistributedBA.  E1: an NCCL group
+    of world size 1 in this process against run_ba on the same problem
+    (first cost within rtol 1e-5, last within 5 %, every iteration's
+    within E1_RTOL_EACH, the reprojection error falling), 34 all-reduces
+    an iteration; ms a warm LM iteration, the host's ms in all_reduce, host
+    syncs and device ms an iteration.  E2: two spawned ranks on cuda:0
+    over gloo (NCCL takes one rank a card: probed first, and reported),
+    both ranks' costs and results identical, their costs against E1's
+    (the same outer bounds, every iteration's within E2_RTOL_EACH); ms a
+    warm iteration and the host's ms in all_reduce."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sift_pyocl_tpu_torch.parallel import global_ba_mesh
+    from sift_pyocl_tpu_torch.sfm import DistributedBA, run_ba
+
+    K, gt, start, obs = config5_problem()
+    report = {"observations": int((obs.w > 0).sum()), "cameras": CONFIG5["n_cams"],
+              "points": CONFIG5["n_points"], "iters": CONFIG5_ITERS}
+    rms0 = ba_rms(start, obs, K, dev)
+    _, ref = run_ba(start, obs, K, iters=CONFIG5_ITERS, device=dev)
+    report["run_ba_ms_per_iter"] = lm_ms(lambda *a, **k: run_ba(*a, device=dev, **k),
+                                         start, obs, K)
+    store = tempfile.mkdtemp(prefix="config5_")
+
+    # E1: NCCL, world size 1, in this process
+    dist.init_process_group("nccl", init_method=f"file://{store}/e1", world_size=1, rank=0)
+    try:
+        mesh = global_ba_mesh()
+        assert mesh.size == 1 and mesh.group is not None and mesh.device == dev, mesh
+        dba = DistributedBA(mesh)
+        with counted_all_reduces() as calls:
+            p1, costs1 = dba.run(start, obs, K, iters=CONFIG5_ITERS)
+        # one more all-reduce a run: the point blocks gathered at the end
+        per_iter = (len(calls) - 1) / CONFIG5_ITERS
+        assert per_iter == 4 + CONFIG5_CG, f"{per_iter} all-reduces an LM iteration"
+        e1_err = check_costs("E1", costs1, ref, E1_RTOL_EACH)
+        rms1 = ba_rms(p1, obs, K, dev)
+        assert rms1 < rms0, (rms0, rms1)
+        ms1 = lm_ms(dba.run, start, obs, K)
+        # the host's time in all_reduce on a warm run: the first run above
+        # also holds NCCL's communicator set-up, made at the first collective
+        with counted_all_reduces() as warm:
+            dba.run(start, obs, K, iters=CONFIG5_ITERS)
+        assert len(warm) == len(calls), (len(warm), len(calls))
+        syncs = [len(host_syncs(lambda: dba.run(start, obs, K, iters=n))) for n in (1, 3)]
+        # an iteration's kernels: a 3-iteration run less a 1-iteration run
+        events = [cuda_events(lambda: dba.run(start, obs, K, iters=n), calls=1) for n in (1, 3)]
+    finally:
+        dist.destroy_process_group()
+    by_name = {}
+    for sign, evs in zip((-0.5, 0.5), events):
+        for e in evs:
+            n, ms = by_name.get(e.name, (0.0, 0.0))
+            by_name[e.name] = (n + sign, ms + sign * e.device_time_total / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    report.update(first_cost=costs1[0], last_cost=costs1[-1], run_ba_first_cost=ref[0],
+                  run_ba_last_cost=ref[-1], rms_start=rms0, rms_end=rms1,
+                  e1_cost_rel_err_max=e1_err, all_reduces_per_iter=per_iter,
+                  e1_ms_per_iter=ms1,
+                  e1_all_reduce_host_ms_per_iter=1e3 * sum(warm[:-1]) / CONFIG5_ITERS,
+                  e1_host_syncs_per_iter=(syncs[1] - syncs[0]) / 2,
+                  e1_launches_per_iter=sum(n for n, _ in by_name.values()),
+                  e1_device_ms_per_iter=sum(ms for _, ms in by_name.values()),
+                  e1_top_kernels=[[name[:80], n, ms] for name, (n, ms) in top])
+    print(f"[config5] E1 (NCCL, world size 1): {report['observations']} observations; costs "
+          f"{costs1[0]:.6g} -> {costs1[-1]:.6g} (run_ba {ref[0]:.6g} -> {ref[-1]:.6g}); "
+          f"reprojection {rms0:.4f} -> {rms1:.4f} px; {ms1:.3f} ms a warm LM iteration "
+          f"(run_ba {report['run_ba_ms_per_iter']:.3f}), of which "
+          f"{report['e1_all_reduce_host_ms_per_iter']:.3f} ms in the host's all_reduce "
+          f"calls; every cost within {e1_err:.3g} of run_ba's; {per_iter:g} all-reduces, "
+          f"{report['e1_host_syncs_per_iter']:g} host syncs, "
+          f"{report['e1_launches_per_iter']:g} CUDA launches and "
+          f"{report['e1_device_ms_per_iter']:.3f} device ms an iteration", flush=True)
+    for name, n, ms in report["e1_top_kernels"]:
+        print(f"[config5]   {ms:8.3f} device ms, {n:6.1f} launches an iteration: {name}")
+
+    # E2: two ranks on cuda:0; which backend takes them
+    spawn_ranks = rank_harness().spawn_ranks
+    probe = spawn_ranks(nccl_probe_rank, lambda r: (CONFIG5_RANKS, f"{store}/probe"),
+                        CONFIG5_RANKS, RANK_TIMEOUT_S)
+    report["nccl_two_ranks_one_card"] = probe[0]
+    print(f"[config5] NCCL with {CONFIG5_RANKS} ranks on cuda:0: {probe}", flush=True)
+    res = spawn_ranks(config5_rank, lambda r: (CONFIG5_RANKS, f"{store}/e2", "gloo"),
+                      CONFIG5_RANKS, RANK_TIMEOUT_S)
+    a = res[0]
+    for r in range(1, CONFIG5_RANKS):
+        b = res[r]
+        assert a["costs"] == b["costs"], "the ranks' costs differ"
+        for key in ("Rs", "ts", "X"):
+            assert np.array_equal(a[key], b[key]), f"the ranks' {key} differ"
+    assert {v["device"] for v in res.values()} == {str(dev)}, res
+    e2_err = check_costs("E2", a["costs"], costs1, E2_RTOL_EACH)
+    rms2 = ba_rms((a["Rs"], a["ts"], a["X"]), obs, K, dev)
+    assert rms2 < rms0, (rms0, rms2)
+    report.update(e2_backend="gloo", e2_first_cost=a["costs"][0], e2_last_cost=a["costs"][-1],
+                  e2_cost_rel_err_max=e2_err,
+                  e2_rms_end=rms2, e2_ms_per_iter=max(v["ms"] for v in res.values()),
+                  e2_all_reduce_host_ms_per_iter=max(v["all_reduce_ms"] for v in res.values()))
+    print(f"[config5] E2 ({CONFIG5_RANKS} ranks on {dev}, gloo): ranks identical; costs "
+          f"{a['costs'][0]:.6g} -> {a['costs'][-1]:.6g}, every cost within {e2_err:.3g} of "
+          f"E1's; reprojection {rms2:.4f} px; "
+          f"{report['e2_ms_per_iter']:.3f} ms a warm LM iteration, of which "
+          f"{report['e2_all_reduce_host_ms_per_iter']:.3f} ms in the host's all_reduce "
+          "calls", flush=True)
+    return report
+
+
+def check_spatial(x: torch.Tensor, dev) -> dict:
+    """Phase E3: sharded_scale_space of the 1080x1920 frame on (cuda:0,) x
+    2 and x 4 against the plain single-device pyramid: blurs within 2e-3,
+    DoGs within 4e-3, every shard on its device; ms a call beside the plain
+    pyramid's."""
+    from sift_pyocl_tpu_torch import SiftConfig
+    from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
+    from sift_pyocl_tpu_torch.parallel import join_rows, make_frames_mesh, sharded_scale_space
+
+    cfg = SiftConfig()
+    plain = build_scale_space(x, cfg, plain=True)
+    report = {"plain_pyramid_ms": host_ms(lambda: build_scale_space(x, cfg, plain=True))}
+    for n, n_oct in SPATIAL_SHARDS.items():
+        mesh = make_frames_mesh(devices=[dev] * n, axis="rows")
+        octs = sharded_scale_space(x, cfg, mesh)
+        assert len(octs) == n_oct, (n, len(octs))
+        err_b = err_d = 0.0
+        for o, (blurs, dogs) in enumerate(octs):
+            assert len(blurs) == len(dogs) == n and all(s.device == dev for s in blurs + dogs)
+            err_b = max(err_b, float((join_rows(blurs) - plain[o][0]).abs().max()))
+            err_d = max(err_d, float((join_rows(dogs) - plain[o][1]).abs().max()))
+        assert err_b <= 2e-3 and err_d <= 4e-3, (n, err_b, err_d)
+        ms = host_ms(lambda: sharded_scale_space(x, cfg, mesh))
+        report[f"shards_{n}"] = dict(octaves=n_oct, ms=ms, max_err_blurs=err_b,
+                                     max_err_dogs=err_d)
+        print(f"[config5] E3 sharded_scale_space 1080x1920 on {n} shards of {dev}: {n_oct} "
+              f"octaves, blurs within {err_b:.2e}, DoGs within {err_d:.2e} of the plain "
+              f"pyramid; {ms:.3f} ms a call (plain, 7 octaves: "
+              f"{report['plain_pyramid_ms']:.3f})", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)",
@@ -2289,6 +2608,7 @@ def main() -> int:
     check_invariance(dev)
     check_sfm(dev)
     p_d = check_batched(dev)
+    print("config5:", json.dumps({**check_config5(dev), **check_spatial(x, dev)}), flush=True)
 
     # each kernel's launches on its path: the main path (10 vo_step) for
     # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b, P4

@@ -20,8 +20,16 @@ layout:
   (P, M) matrix.
 
 The products, einsums and solves are plain PyTorch, as they were plain XLA
-outside any Pallas kernel in the JAX package.  ``axis_name`` (the
-distributed BA) is still to come (ROADMAP.md, Queue 1 item 6).
+outside any Pallas kernel in the JAX package.
+
+``axis_name`` is None (one device) or a ``torch.distributed`` process group
+whose ranks each hold one shard of the points and their observations (the
+cameras replicated, ``sfm/distributed.py``): the sums over observations
+that reach a camera, and the robust cost, are then all-reduced over the
+group, where the JAX package ``psum``s them over a mesh axis.  An LM
+iteration all-reduces 4 + ``cg_iters`` times: the cost, ``U`` with
+``g_c`` (one flattened tensor), the Schur right-hand side, each CG
+matvec's camera sums and the candidate's cost.
 """
 
 from __future__ import annotations
@@ -29,12 +37,11 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops import as_tensor, device_of
 from .geometry import pose_retract, project, project_jacobians
 from .segment import Segments, segment_sum, segments
-
-_DIST_TODO = ("axis_name (distributed BA) is not ported yet (ROADMAP.md, Queue 1 item 6)")
 
 
 class BAParams(NamedTuple):
@@ -52,6 +59,14 @@ class BAObs(NamedTuple):
     cam: torch.Tensor  # (M,) int32
     pt: torch.Tensor   # (M,) int32, may be -1 in padding
     w: torch.Tensor    # (M,) f32, 0 = padding
+
+
+def _psum(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """x summed over the ranks of process group `axis_name` (in place), or x
+    where it is None."""
+    if axis_name is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis_name)
+    return x
 
 
 def _seg_cam(vals: torch.Tensor, seg: Optional[Segments], n_cams: int) -> torch.Tensor:
@@ -111,13 +126,15 @@ def robust_weights(r: torch.Tensor, w: torch.Tensor, huber_px: float) -> torch.T
     return w * torch.clamp(huber_px / nrm, max=1.0)
 
 
-def robust_cost(r: torch.Tensor, w: torch.Tensor, huber_px: float) -> torch.Tensor:
-    """Sum of Huber losses (the objective of the accept/reject test)."""
+def robust_cost(r: torch.Tensor, w: torch.Tensor, huber_px: float, axis_name=None
+                ) -> torch.Tensor:
+    """Sum of Huber losses (the objective of the accept/reject test), over
+    the group's ranks where `axis_name` is one."""
     n2 = (r * r).sum(-1)
     nrm = torch.sqrt(n2 + 1e-12)
     quad = 0.5 * n2
     lin = huber_px * (nrm - 0.5 * huber_px)
-    return (w * torch.where(nrm <= huber_px, quad, lin)).sum()
+    return _psum((w * torch.where(nrm <= huber_px, quad, lin)).sum(), axis_name)
 
 
 def _inv3(A: torch.Tensor) -> torch.Tensor:
@@ -158,12 +175,11 @@ def build_system(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tenso
                  pt_onehot: bool = False) -> Tuple[_System, torch.Tensor]:
     """Weighted, damped normal-equation blocks; returns (system, robust cost).
     The weight multiplies each block after its product, as in the JAX
-    package."""
-    if axis_name is not None:
-        raise NotImplementedError(_DIST_TODO)
+    package.  With a group `axis_name`, `n_points` is the shard's point
+    count, and U, g_c and the cost are sums over its ranks."""
     r = residuals(params, obs, K)
     wq = robust_weights(r, obs.w, huber_px)
-    cost = robust_cost(r, obs.w, huber_px)
+    cost = robust_cost(r, obs.w, huber_px, axis_name)
     Jc, Jp = project_jacobians(K, _gather(params.Rs, obs.cam), _gather(params.ts, obs.cam),
                                _gather(params.X, obs.pt))
     n_cams = params.Rs.shape[0]
@@ -180,6 +196,9 @@ def build_system(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tenso
     gpm = -(wq[:, None] * torch.einsum("mij,mj->mi", JpT, r))
     U = _seg_cam(Um, cam_seg, n_cams)
     g_c = _seg_cam(gcm, cam_seg, n_cams)
+    if axis_name is not None:       # one all-reduce for both: the same sums
+        Ug = _psum(torch.cat([U.reshape(-1), g_c.reshape(-1)]), axis_name)
+        U, g_c = Ug[:U.numel()].view_as(U), Ug[U.numel():].view_as(g_c)
     V = _seg_pt(Vm, pt_seg, G)
     g_p = _seg_pt(gpm, pt_seg, G)
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
@@ -190,15 +209,17 @@ def build_system(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tenso
     return _System(U, _inv3(V), W, g_c, g_p, G, cam_seg, pt_seg), cost
 
 
-def _schur_matvec(sys: _System, x: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
-    """S x with S = U - W V^-1 W^T, never assembled."""
+def _schur_matvec(sys: _System, x: torch.Tensor, free: torch.Tensor, axis_name=None
+                  ) -> torch.Tensor:
+    """S x with S = U - W V^-1 W^T, never assembled (the W V^-1 W^T part
+    summed over the group's ranks)."""
     x = x * free[:, None]
     m = sys.W.shape[0]
     u = torch.einsum("mij,mi->mj", sys.W, _take_cam(x, sys.cam_seg, m))
     q = _seg_pt(u, sys.pt_seg, sys.G)
     y = torch.einsum("pij,pj->pi", sys.Vinv, q)
     z = torch.einsum("mij,mj->mi", sys.W, _take_pt(y, sys.pt_seg, sys.G))
-    acc = _seg_cam(z, sys.cam_seg, x.shape[0])
+    acc = _psum(_seg_cam(z, sys.cam_seg, x.shape[0]), axis_name)
     Ux = torch.einsum("cij,cj->ci", sys.U, x)
     return (Ux - acc) * free[:, None]
 
@@ -247,15 +268,17 @@ def solve_step_dense(sys: _System, free: torch.Tensor) -> Tuple[torch.Tensor, to
     return dc, dp
 
 
-def solve_step(sys: _System, free: torch.Tensor, cg_iters: int = 30
+def solve_step(sys: _System, free: torch.Tensor, cg_iters: int = 30, axis_name=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One damped step by matrix-free CG: camera (C, 6) and point (P, 3)
-    updates, in the system's layout."""
+    updates, in the system's layout (the camera side summed over the
+    group's ranks, the point side the shard's own)."""
     m = sys.W.shape[0]
     y = torch.einsum("pij,pj->pi", sys.Vinv, sys.g_p)
     z = torch.einsum("mij,mj->mi", sys.W, _take_pt(y, sys.pt_seg, sys.G))
-    b = (sys.g_c - _seg_cam(z, sys.cam_seg, sys.g_c.shape[0])) * free[:, None]
-    dc = _cg(lambda x: _schur_matvec(sys, x, free), b, cg_iters)
+    red = _psum(_seg_cam(z, sys.cam_seg, sys.g_c.shape[0]), axis_name)
+    b = (sys.g_c - red) * free[:, None]
+    dc = _cg(lambda x: _schur_matvec(sys, x, free, axis_name), b, cg_iters)
     u = torch.einsum("mij,mi->mj", sys.W, _take_cam(dc, sys.cam_seg, m))
     q = _seg_pt(u, sys.pt_seg, sys.G)
     dp = torch.einsum("pij,pj->pi", sys.Vinv, sys.g_p - q)
@@ -276,15 +299,20 @@ def lm_iteration(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tenso
     ``free`` (C,) marks the cameras that move (the rest are the gauge).
     ``cam_blocked`` / ``pt_onehot`` pick the reductions (module docstring);
     ``dense_schur`` solves the reduced camera system exactly instead of by
-    CG and needs both."""
+    CG and needs both.  ``axis_name``: None, or the process group over
+    whose ranks the points are sharded (``n_points`` the shard's count);
+    every rank returns the same cameras, lam, cost and flag."""
     if dense_schur and not (cam_blocked and pt_onehot):
         raise ValueError("dense_schur needs cam_blocked and pt_onehot")
+    if dense_schur and axis_name is not None:
+        raise ValueError("dense_schur runs on one device: it takes no axis_name")
     free = free.to(torch.float32)
     nP = n_points or params.X.shape[0]
     sys, cost = build_system(params, obs, K, lam, huber_px, nP, axis_name, cam_blocked, pt_onehot)
-    dc, dp = solve_step_dense(sys, free) if dense_schur else solve_step(sys, free, cg_iters)
+    dc, dp = solve_step_dense(sys, free) if dense_schur else \
+        solve_step(sys, free, cg_iters, axis_name)
     cand = apply_step(params, dc, dp)
-    new_cost = robust_cost(residuals(cand, obs, K), obs.w, huber_px)
+    new_cost = robust_cost(residuals(cand, obs, K), obs.w, huber_px, axis_name)
     accept = new_cost < cost
     params = BAParams(*(torch.where(accept, a, b) for a, b in zip(cand, params)))
     lam = torch.where(accept, torch.clamp(lam * 0.4, min=1e-9), torch.clamp(lam * 4.0, max=1e6))

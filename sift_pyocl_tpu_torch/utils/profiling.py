@@ -112,12 +112,33 @@ def stage_times(host_img, cfg: SiftConfig, dev: torch.device, frames: int) -> di
     return {k: v / frames for k, v in acc.items()}
 
 
+# torch.profiler drops the first device records of a session (up to 20 in
+# tools/diag_profiler_loss.py's runs on an H100, however long the host
+# waits first), so each session opens with PREROLL spin kernels to take
+# the loss, and their records are then left out by name.
+PREROLL = 64
+PREROLL_KERNEL = "spin_kernel"
+
+
+def open_session() -> None:
+    """Inside a profiling session, before what it measures: PREROLL spin
+    kernels, waited for."""
+    for _ in range(PREROLL):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def device_events(prof) -> list:
+    """A session's records of work on the card, less the preroll's."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and PREROLL_KERNEL not in e.name]
+
+
 def device_profile(run_frame, frames: int, sessions: int = 1) -> dict:
     """Kernel time and busy share of the device over `frames` calls of
     ``run_frame()`` (after one more call as warm-up), from the one of
-    `sessions` profiling sessions that recorded the most CUDA events: a
-    session now and then loses a whole call's records, and a lost record
-    only ever lowers a count."""
+    `sessions` profiling sessions that recorded the most CUDA events (a
+    lost record only ever lowers a count)."""
     from torch.profiler import ProfilerActivity, profile
 
     run_frame()
@@ -125,12 +146,13 @@ def device_profile(run_frame, frames: int, sessions: int = 1) -> dict:
     kernels, wall_ms = None, 0.0
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            open_session()
             t = time.perf_counter()
             for _ in range(frames):
                 run_frame()
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t)
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = device_events(prof)
         if kernels is None or len(events) > len(kernels):
             kernels, wall_ms = events, ms
     by_name = defaultdict(float)

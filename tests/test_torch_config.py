@@ -200,7 +200,8 @@ def test_port_sources_never_import_jax():
             "sfm/ba.py", "models/match_align.py", "ops/transform.py", "sfm/ransac.py",
             "utils/invariance.py", "sfm/pipeline.py", "sfm/posegraph.py", "sfm/twoview.py",
             "sfm/checkpoint.py", "sfm/segment.py", "sfm/evaluate.py", "sfm/synthetic.py",
-            "utils/render3d.py", "parallel/video.py", "parallel/pipeline_octaves.py"} <= names
+            "utils/render3d.py", "parallel/video.py", "parallel/pipeline_octaves.py",
+            "sfm/distributed.py", "parallel/multihost.py", "parallel/spatial.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]

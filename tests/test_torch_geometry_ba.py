@@ -195,12 +195,15 @@ def test_segment_sum_matches_segment_sum():
 
 
 def test_ba_paths_not_ported_raise():
-    """axis_name (the distributed BA) is still to come."""
+    """The dense Schur solve runs on one device (the JAX package's
+    solve_step_dense takes no axis): with an axis_name it raises, before
+    any collective."""
     K, params, obs, P, C = _vo_layout_problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="one device"):
         tba.lm_iteration(ba_params_from_jax(params), ba_obs_from_jax(obs),
                          torch.from_numpy(np.array(K)), torch.tensor(1e-3),
-                         torch.arange(C) > 0, n_points=P, axis_name="i")
+                         torch.arange(C) > 0, n_points=P, axis_name="i",
+                         cam_blocked=True, pt_onehot=True, dense_schur=True)
 
 
 @pytest.fixture(scope="module")
