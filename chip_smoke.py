@@ -57,7 +57,12 @@
 10. P5: per octave, detection (K10a, K10b), the padded plain gradients,
    assign_orientations_pallas (K11a) and compute_descriptors_pallas
    (K11b), held against K6 and against the plain versions on the same
-   keypoints.
+   keypoints (at most 2 ok-flag flips each: K11a against K6 expected 0),
+   and K11b at K6's angles and slots bit-equal to K6's raw descriptors on
+   every octave; K11a and K11b one CUDA launch a wrapper call with the
+   slot arrays made before it (and timed so beside the closure that makes
+   sigma, the rows' earlier form); sample iterations a slot (static window
+   against support boxes).
 11. P6: SiftPlan.keypoints with kp_backend="xla" (plain PyTorch after the
    K1/K2 pyramid), held to the kernel path's keypoints.
 12. K1m/K2m (the mask forms of K1/K2, SiftConfig(mask_backend="fused")) on
@@ -1199,8 +1204,11 @@ def check_split_windows(x: torch.Tensor, rec: Kernels) -> dict:
     """P5: per octave of the 1080x1920 frame under SiftConfig(), detection
     (K10a, K10b), the plain gradient planes padded by pad_grad_planes,
     assign_orientations_pallas (K11a) and compute_descriptors_pallas
-    (K11b); held against K6 (orient_and_describe_fused) and against the
-    plain versions on the same keypoints."""
+    (K11b); held against K6 (orient_desc_fused on the octave's planes) and
+    against the plain versions on the same keypoints, and K11b at K6's
+    angles and slots to K6's raw descriptors bit for bit.  Prints the
+    sample iterations a slot, each wrapper's CUDA launches and ms a call
+    with the slot arrays and sigma made outside the timed closure."""
     from sift_pyocl_tpu_torch import SiftConfig
     from sift_pyocl_tpu_torch.models.sift import octave_capacities
     from sift_pyocl_tpu_torch.ops import orient_desc as od
@@ -1230,11 +1238,15 @@ def check_split_windows(x: torch.Tensor, rec: Kernels) -> dict:
                                         "descriptor_hist") else 0
         assert n == want, f"P5: {name} launched {n} times (want {want})"
 
+    def rep(t):
+        return torch.repeat_interleave(t, m, dim=0)
+
     win_o, win_d = od._ori_window_size(cfg), od._desc_window_size(cfg)
     flips_k6 = flips_plain = 0
     err_h = err_d = 0.0
-    n_kv = n_ok = n_slots = n_dslots = 0
+    n_kv = n_ok = n_slots = n_dslots = n_k6 = 0
     n_circle = n_square = 0
+    it_o = it_d = 0
     for o, (kps, mags, oris, mag_p, ori_p, okps, desc) in enumerate(per):
         cap = caps[o]
         sig = od._sigma(cfg, kps.fs)
@@ -1264,10 +1276,27 @@ def check_split_windows(x: torch.Tensor, rec: Kernels) -> dict:
         n_circle += window_samples(kps.fr, kps.fc, sig, kps.valid, win_o, H, W)[0]
         n_square += window_samples(okps.fr, okps.fc, osig, okps.valid, win_d, H, W,
                                    angles=okps.angle[:, None], ok=okps.valid[:, None])[1]
+        # sample iterations: the boxes K11a / K11b walk, against the static
+        # window's win^2 a slot of the static-window design
+        kv, dv = kps.valid, okps.valid
+        it_o += int(window.box_samples(window.support_boxes(
+            kps.fr[kv], kps.fc[kv], sig[kv], win_o, H, W)).sum())
+        it_d += int(window.box_samples(window.support_boxes(
+            okps.fr[dv], okps.fc[dv], osig[dv], win_d, H, W, angle=okps.angle[dv])).sum())
+        # K6 on the octave's planes; K11b at its angles and slots gives its
+        # raw descriptors bit for bit (the same window, boxes and sums)
+        ang6, ok6, raw6 = window.orient_desc_fused(
+            mags, oris, kps.s_int, kps.fr, kps.fc, sig, kps.valid, win_d, m,
+            *window.slot_octave_geometry([cap], [0], [mags]))
+        at_k6 = window.descriptor_hist(mag_p, ori_p, rep(kps.s_int), rep(kps.fr), rep(kps.fc),
+                                       rep(sig), ang6.reshape(-1), ok6.reshape(-1), win_d)
+        assert torch.equal(at_k6, raw6.reshape(-1, 128)), \
+            f"octave {o}: K11b at K6's angles differs from K6's raw descriptors"
+        n_k6 += int(ok6.sum())
         split = _by_keypoint(okps, desc, cap, m, dense=True)
-        fused = _by_keypoint(*od.orient_and_describe_fused(mags, oris, kps, cfg, m), cap, m,
-                             dense=False)
+        fused = (ok6, ang6, od.quantize_descriptors(raw6.reshape(-1, 128)).view(cap, m, 128))
         plain = _by_keypoint(okps_p, od.quantize_descriptors(raw_p), cap, m, dense=True)
+        # the ok flags come from the orientations alone: K11a's against K6's
         flips_k6 += _compare_oriented(f"octave {o}, K11a/K11b vs K6", split, fused)
         flips_plain += _compare_oriented(f"octave {o}, K11a/K11b vs plain", split, plain)
         n_kv += int(kps.valid.sum())
@@ -1275,8 +1304,9 @@ def check_split_windows(x: torch.Tensor, rec: Kernels) -> dict:
         n_slots += cap
         n_dslots += okps.valid.numel()
     print(f"P5: {n_kv} keypoints, {n_ok} oriented slots; ok flags differing from K6 "
-          f"{flips_k6}, from the plain versions {flips_plain}; hist err {err_h:.3g}, "
-          f"unit descriptor err {err_d:.3g}", flush=True)
+          f"(K11a against K6) {flips_k6}, from the plain versions {flips_plain}; hist err "
+          f"{err_h:.3g}, unit descriptor err {err_d:.3g}; K11b at K6's angles equals K6's "
+          f"raw descriptors bit for bit on all {len(per)} octaves ({n_k6} slots)", flush=True)
     assert n_ok >= MIN_KEYPOINTS and flips_k6 <= 2 and flips_plain <= 2
 
     def each_octave(fn):
@@ -1294,27 +1324,48 @@ def check_split_windows(x: torch.Tensor, rec: Kernels) -> dict:
     # orientation circle (K11a) or rotated descriptor square (K11b) inside
     # its octave once (window_samples, this run's keypoints), about 10
     # operations a sample for a histogram and 20 for a descriptor; per slot
-    # its inputs and its f32 output row
-    rec.record("orientation_hist", "sift_pyocl_tpu_torch/csrc/window.cu",
-               f"{ROOT}/ops/pallas/window.py:193", err_h,
-               each_octave(lambda *p: window.orientation_hist(*ori_args(*p))),
-               each_octave(lambda *p: window.orientation_hist_ref(*ori_args(*p))), 20,
-               n_bytes=n_slots * (17 + 36 * 4) + n_circle * 8, ops=n_circle * 10,
-               wrapper_calls=len(per))
-    rec.record("descriptor_hist", "sift_pyocl_tpu_torch/csrc/window.cu",
-               f"{ROOT}/ops/pallas/window.py:321", err_d,
-               each_octave(lambda *p: window.descriptor_hist(*desc_args(*p))),
-               each_octave(lambda *p: window.descriptor_hist_ref(*desc_args(*p))), 20,
-               n_bytes=n_dslots * (21 + 128 * 4) + n_square * 8, ops=n_square * 20,
-               wrapper_calls=len(per))
+    # its inputs and its f32 output row.  The timed closures make sigma
+    # (od._sigma) in each call, as the rows of the static-window design did.
+    rows = {
+        "orientation_hist": rec.record(
+            "orientation_hist", "sift_pyocl_tpu_torch/csrc/window.cu",
+            f"{ROOT}/ops/pallas/window.py:193", err_h,
+            each_octave(lambda *p: window.orientation_hist(*ori_args(*p))),
+            each_octave(lambda *p: window.orientation_hist_ref(*ori_args(*p))), 20,
+            n_bytes=n_slots * (17 + 36 * 4) + n_circle * 8, ops=n_circle * 10,
+            wrapper_calls=len(per)),
+        "descriptor_hist": rec.record(
+            "descriptor_hist", "sift_pyocl_tpu_torch/csrc/window.cu",
+            f"{ROOT}/ops/pallas/window.py:321", err_d,
+            each_octave(lambda *p: window.descriptor_hist(*desc_args(*p))),
+            each_octave(lambda *p: window.descriptor_hist_ref(*desc_args(*p))), 20,
+            n_bytes=n_dslots * (21 + 128 * 4) + n_square * 8, ops=n_square * 20,
+            wrapper_calls=len(per))}
     print(f"P5: window samples read: K11a {n_circle} ({n_circle / max(1, n_kv):.0f} a keypoint "
           f"of {win_o}^2), K11b {n_square} ({n_square / max(1, n_ok):.0f} a slot of {win_d}^2)",
           flush=True)
-    for name, args in (("orientation_hist", ori_args), ("descriptor_hist", desc_args)):
+    rows["orientation_hist"]["k6_flips"] = flips_k6
+    iters = {"orientation_hist": (win_o * win_o, it_o / max(1, n_kv)),
+             "descriptor_hist": (win_d * win_d, it_d / max(1, n_ok))}
+    pre = {"orientation_hist": [ori_args(*p) for p in per],
+           "descriptor_hist": [desc_args(*p) for p in per]}
+    for name, row in rows.items():
         fn = getattr(window, name)
-        ms = device_ms(each_octave(lambda *p: fn(*args(*p))), f"{name}_kernel")
-        print(f"{name}: device time of its {len(per)} kernels {ms:.4f} ms a frame "
-              "(torch.profiler)", flush=True)
+        before, after = iters[name]
+        row["sample_iterations_per_slot"] = [float(before), float(after)]
+        # the wrapper alone: slot arrays and sigma made outside the closure
+        call = lambda: [fn(*a) for a in pre[name]]
+        launches = profile_calls(call, len(per))[0]
+        row["prepared_ms"] = cuda_ms(call, 20)
+        row["prepared_cuda_launches"] = launches
+        assert launches == 1, f"P5: {name} made {launches:g} CUDA launches a call"
+        kern_ms = row["kernel_device_ms"] = device_ms(call, f"{name}_kernel")
+        print(f"{name}: sample iterations a slot {before:.0f} (static {int(before ** 0.5)}^2 "
+              f"window) -> {after:.0f} (support boxes), {before / after:.2f}x fewer; a frame's "
+              f"{len(per)} calls: kernel {row['ms']:.4f} ms, {row['cuda_launches']:g} CUDA "
+              f"launches a call with sigma made in the closure; {row['prepared_ms']:.4f} ms, "
+              f"{launches:g} a call with the slot arrays made before it; device time of its "
+              f"{len(per)} kernels {kern_ms:.4f} ms a frame (torch.profiler)", flush=True)
     return counts
 
 

@@ -62,27 +62,39 @@
 //     as slot_window does and subtracts 1 from s_int itself, and reads the
 //     bool valid mask as bytes; one block a slot, and an invalid slot's
 //     block writes its zeros and exits.
-// K11a and K11b keep the static-window blocks (orientation_hist_block,
-// descriptor_hist_block: one block a slot over the static window, a
-// per-thread column table of 128 threads, a warp per bin summing it).
+// K11a (orientation_hist_kernel) and K11b (descriptor_hist_kernel) are K6's
+// step A alone and its step C alone at the slot's given angle, one block a
+// slot of one octave's padded planes (ops/orient_desc.py::pad_grad_planes,
+// read through a view of the octave: the padding is never read).  Bytes
+// bound them too (the circle's and the square's samples).  Their
+// static-window blocks (every slot walking the whole 48 x 48 or 104 x 104
+// window, 2304 or 10816 sample iterations, into a 36- or 128-bin x
+// 128-thread table; K11b's 64 KB of dynamic shared memory, 3 blocks an SM)
+// issued several times the work that can count.  They now call K6's own
+// device functions: the orientation box (k6_orientation) and the 25 quad
+// boxes at the given angle (k6_descriptor), 256 threads, the same
+// fixed-order sums without atomics, static shared memory only (37 KB and
+// 32 KB), so K11b at K6's angles gives K6's raw descriptors bit for bit,
+// and a call is one launch.  A K11a variant that first staged the box's
+// circle samples in shared memory by cp.async (all of a slot's loads in
+// flight at once) gave the same bits ~12 % slower on the card, so the
+// samples are read through the read-only path as in K6.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 128;        // threads per keypoint block
 constexpr int NB = 128;        // descriptor bins (DESC_GRID^2 * DESC_ORI)
 constexpr int NORI = 36;       // orientation bins
 constexpr int MAX_ORI = 8;
 constexpr float PI_F = 3.141592653589793f;        // float32(pi)
 constexpr float TWO_PI_F = 6.283185307179586f;    // float32(2 pi)
 constexpr float ORI_SCALE = 1.2732395447351628f;  // float32(8 / (2 pi))
-static_assert(NB == NT, "one thread per descriptor bin in the final write");
 
 // out[b] = sum over the block's NTH threads of part[b * NTH + thread],
 // fixed summation order.
-template <int NTH = NT>
+template <int NTH>
 __device__ __forceinline__ void reduce_bins(const float* part, int nbins, float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int b = warp; b < nbins; b += NTH / 32) {
@@ -106,94 +118,6 @@ struct Window {
   int H, W, rs, cs, win;
   float fro, fco;
 };
-
-// 36-bin orientation histogram of the window into hist[0, 36): weight
-// exp(-d2 / (2 sw^2)) * mag with sw = 1.5 sigma, inside d2 < floor(3 sw)^2
-// + 0.5.  Every thread of the block calls it; part holds NORI * NT floats.
-__device__ void orientation_hist_block(const Window& w, float sig, float* part, float* hist) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < NORI * NT; i += NT) part[i] = 0.f;
-  __syncthreads();
-  const float sig_w = 1.5f * sig;
-  const float radius = floorf(3.0f * sig_w);
-  const float rad2 = radius * radius + 0.5f;
-  const float den = 2.0f * sig_w * sig_w;
-  const int n = w.win * w.win;
-  for (int idx = tid; idx < n; idx += NT) {
-    const int i = idx / w.win, j = idx - (idx / w.win) * w.win;
-    const float rr = static_cast<float>(i) - w.fro;
-    const float cc = static_cast<float>(j) - w.fco;
-    const float d2 = rr * rr + cc * cc;
-    if (!(d2 < rad2)) continue;
-    const int r = w.rs + i, c = w.cs + j;
-    if (r < 0 || r >= w.H || c < 0 || c >= w.W) continue;
-    const long long off = static_cast<long long>(r) * w.stride + c;
-    const float wt = expf(-d2 / den) * w.mag[off];
-    int b = static_cast<int>(floorf(36.0f * (w.ori[off] + PI_F) / TWO_PI_F));
-    b = min(max(b, 0), NORI - 1);
-    part[b * NT + tid] += wt;
-  }
-  __syncthreads();
-  reduce_bins(part, NORI, hist);
-  __syncthreads();
-}
-
-// Raw 4x4x8 descriptor of the window at `angle` into hist[0, 128): the
-// R(+angle) frame with trilinear weights and a Gaussian of sigma =
-// DESC_GRID / 2.  Every thread of the block calls it; part holds NB * NT
-// floats.
-__device__ void descriptor_hist_block(const Window& w, float sig, float angle, float* part,
-                                      float* hist) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < NB * NT; i += NT) part[i] = 0.f;
-  __syncthreads();
-  const float cos_t = cosf(angle), sin_t = sinf(angle);
-  const float spacing = 3.0f * sig;
-  const int n = w.win * w.win;
-  for (int idx = tid; idx < n; idx += NT) {
-    const int i = idx / w.win, j = idx - (idx / w.win) * w.win;
-    const float rr = static_cast<float>(i) - w.fro;
-    const float cc = static_cast<float>(j) - w.fco;
-    const float rrot = (cos_t * rr - sin_t * cc) / spacing;
-    const float crot = (sin_t * rr + cos_t * cc) / spacing;
-    const float rbin = rrot + 1.5f, cbin = crot + 1.5f;
-    if (!(rbin > -1.f && rbin < 4.f && cbin > -1.f && cbin < 4.f)) continue;
-    const int r = w.rs + i, c = w.cs + j;
-    if (r < 0 || r >= w.H || c < 0 || c >= w.W) continue;
-    const long long off = static_cast<long long>(r) * w.stride + c;
-    const float gw = expf(-(rrot * rrot + crot * crot) / 8.0f);
-    const float m = gw * w.mag[off];
-    float ob = (w.ori[off] - angle) * ORI_SCALE;
-    ob = ob - floorf(ob / 8.0f) * 8.0f;  // in [0, 8]
-    const int r0 = static_cast<int>(floorf(rbin));
-    const int c0 = static_cast<int>(floorf(cbin));
-    const int o0 = static_cast<int>(floorf(ob));
-    int oo[2];
-    float mo[2];
-    for (int q = 0; q < 2; ++q) {
-      oo[q] = (o0 + q) & 7;
-      float dd = fabsf(ob - static_cast<float>(oo[q]));
-      dd = fminf(dd, 8.0f - dd);
-      mo[q] = m * fmaxf(0.f, 1.f - dd);
-    }
-    for (int a = 0; a < 2; ++a) {
-      const int ri = r0 + a;
-      if (ri < 0 || ri > 3) continue;
-      const float wr = fmaxf(0.f, 1.f - fabsf(rbin - static_cast<float>(ri)));
-      for (int bb = 0; bb < 2; ++bb) {
-        const int cj = c0 + bb;
-        if (cj < 0 || cj > 3) continue;
-        const float wrc = wr * fmaxf(0.f, 1.f - fabsf(cbin - static_cast<float>(cj)));
-        const int cell = (ri * 4 + cj) * 8;
-        part[(cell + oo[0]) * NT + tid] += wrc * mo[0];
-        part[(cell + oo[1]) * NT + tid] += wrc * mo[1];
-      }
-    }
-  }
-  __syncthreads();
-  reduce_bins(part, NB, hist);
-  __syncthreads();
-}
 
 // K6's support boxes (see the note at the top), in window coordinates:
 // rows [r0, r1) and columns [c0, c1), empty where r1 <= r0 or c1 <= c0.
@@ -339,7 +263,8 @@ __device__ void k6_peaks(float* hist, int max_ori, float* ang_s, int* ok_s, floa
 // each sample of that quad to its 4 cells x 2 orientations, in its own
 // column of part (32 x K6_NT: corner slot (a, b) x 8 orientations); thread t
 // then sums bin t over the (corner, quad, sub) columns that reach it in a
-// fixed order.  The per-sample arithmetic is descriptor_hist_block's.
+// fixed order.  The per-sample arithmetic is that of the plain version
+// (ops/kernels/window.py::_descriptor_hists).
 __device__ void k6_descriptor(const Window& w, float sig, float angle, float* part, float* dst) {
   const int tid = threadIdx.x;
 #pragma unroll
@@ -487,15 +412,16 @@ __device__ __forceinline__ Window slot_window(const float* mag, const float* ori
 
 // K11a: one block per keypoint slot of one octave's gradient planes (`mag`
 // / `ori` point at the octave's (0, 0) sample of plane 0): its raw 36-bin
-// orientation histogram, zeros for an invalid slot.
-__global__ void __launch_bounds__(NT) orientation_hist_kernel(
+// orientation histogram by K6's step A over the orientation box, zeros for
+// an invalid slot.
+__global__ void __launch_bounds__(K6_NT, 1024 / K6_NT) orientation_hist_kernel(
     const float* __restrict__ mag, const float* __restrict__ ori, long long plane_stride,
     long long row_stride, int H, int W, const int* __restrict__ s_int,
     const float* __restrict__ fr, const float* __restrict__ fc,
     const float* __restrict__ sigma, const unsigned char* __restrict__ valid, int win,
     float* out) {
-  extern __shared__ float part[];  // NORI * NT per-thread partial sums
-  __shared__ float hist[NB];
+  __shared__ float part[NORI * K6_NT];   // per-thread private columns
+  __shared__ float hist[NORI];
   const int k = blockIdx.x, tid = threadIdx.x;
   float* dst = out + static_cast<long long>(k) * NORI;
   if (!valid[k]) {
@@ -504,29 +430,28 @@ __global__ void __launch_bounds__(NT) orientation_hist_kernel(
   }
   const Window w = slot_window(mag, ori, plane_stride, row_stride, H, W, s_int[k], fr[k], fc[k],
                                win);
-  orientation_hist_block(w, sigma[k], part, hist);
+  k6_orientation(w, sigma[k], part, hist);
   if (tid < NORI) dst[tid] = hist[tid];
 }
 
-// K11b: as K11a, the raw 128-bin descriptor of each slot at its angle.
-__global__ void __launch_bounds__(NT) descriptor_hist_kernel(
+// K11b: as K11a, the raw 128-bin descriptor of each slot at its angle, by
+// K6's step C over the 25 quad boxes (k6_descriptor writes the row).
+__global__ void __launch_bounds__(K6_NT, 1024 / K6_NT) descriptor_hist_kernel(
     const float* __restrict__ mag, const float* __restrict__ ori, long long plane_stride,
     long long row_stride, int H, int W, const int* __restrict__ s_int,
     const float* __restrict__ fr, const float* __restrict__ fc,
     const float* __restrict__ sigma, const float* __restrict__ angle,
     const unsigned char* __restrict__ valid, int win, float* out) {
-  extern __shared__ float part[];  // NB * NT per-thread partial sums
-  __shared__ float hist[NB];
+  __shared__ float part[32 * K6_NT];     // per-thread private columns
   const int k = blockIdx.x, tid = threadIdx.x;
   float* dst = out + static_cast<long long>(k) * NB;
   if (!valid[k]) {
-    dst[tid] = 0.f;
+    if (tid < NB) dst[tid] = 0.f;
     return;
   }
   const Window w = slot_window(mag, ori, plane_stride, row_stride, H, W, s_int[k], fr[k], fc[k],
                                win);
-  descriptor_hist_block(w, sigma[k], angle[k], part, hist);
-  dst[tid] = hist[tid];
+  k6_descriptor(w, sigma[k], angle[k], part, dst);
 }
 
 }  // namespace
@@ -561,7 +486,7 @@ extern "C" int sift_orient_desc(const void* mag, const void* ori, int rows, int 
 // elements; the octave is H x W.  Per keypoint slot (n of them): s_int
 // (1-based scale index, int32), fr/fc (octave-local), sigma and, for K11b,
 // angle (f32), valid (uint8).  out: (n, 36) f32 histograms (K11a) or
-// (n, 128) f32 raw descriptors (K11b).
+// (n, 128) f32 raw descriptors (K11b).  One launch each.
 extern "C" int sift_orientation_hist(const void* mag, const void* ori, long long plane_stride,
                                      long long row_stride, int H, int W, int n,
                                      const void* s_int, const void* fr, const void* fc,
@@ -569,8 +494,7 @@ extern "C" int sift_orientation_hist(const void* mag, const void* ori, long long
                                      void* stream) {
   if (win < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
   if (n > 0) {
-    orientation_hist_kernel<<<n, NT, sizeof(float) * NORI * NT,
-                              static_cast<cudaStream_t>(stream)>>>(
+    orientation_hist_kernel<<<n, K6_NT, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(mag), static_cast<const float*>(ori), plane_stride,
         row_stride, H, W, static_cast<const int*>(s_int), static_cast<const float*>(fr),
         static_cast<const float*>(fc), static_cast<const float*>(sigma),
@@ -585,13 +509,8 @@ extern "C" int sift_descriptor_hist(const void* mag, const void* ori, long long 
                                     const void* sigma, const void* angle, const void* valid,
                                     int win, void* out, void* stream) {
   if (win < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * NB * NT;
-  cudaError_t e = cudaFuncSetAttribute(descriptor_hist_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   if (n > 0) {
-    descriptor_hist_kernel<<<n, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+    descriptor_hist_kernel<<<n, K6_NT, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(mag), static_cast<const float*>(ori), plane_stride,
         row_stride, H, W, static_cast<const int*>(s_int), static_cast<const float*>(fr),
         static_cast<const float*>(fc), static_cast<const float*>(sigma),

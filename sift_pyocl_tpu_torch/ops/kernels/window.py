@@ -17,9 +17,11 @@ lane limit).  The plain versions share one body of histogram arithmetic
 K6's kernel walks only each keypoint's support inside that window: the
 boxes ``support_boxes`` computes (the orientation circle's, and at each
 angle the 25 descriptor quads'), which hold every sample the plain
-arithmetic counts (``tests/test_torch_window_support.py``).  It computes
-each window's origin from fr/fc itself, so a call with the main path's
-argument types is one CUDA launch.
+arithmetic counts (``tests/test_torch_window_support.py``).  K11a and K11b
+run K6's own step A and step C over the same boxes, so K11b at K6's angles
+gives K6's raw descriptors bit for bit.  Each kernel computes each window's
+origin from fr/fc itself, so a call with the main path's argument types is
+one CUDA launch.
 """
 
 from __future__ import annotations
@@ -395,19 +397,20 @@ def _check_slots(mag_p, arrays, win: int) -> None:
         raise ValueError("need win >= 1")
 
 
-def _launch_hist(name, mag_p, ori_p, s_int, fr, fc, sigma, valid, win, angle=None):
-    """One launch of K11a (angle None) or K11b over padded planes; the
-    kernel computes each window's origin itself (``window_origin``), so a
-    call is this one launch when the slot arrays already have the kernel's
-    types."""
+def _launch_hist(name, mag_p, ori_p, s_int, floats, valid, win: int, nbins: int):
+    """One launch of K11a or K11b (C entry `name`) over padded planes, after
+    one validation of the planes and the slot arrays: (n, nbins) f32.  The
+    kernel computes each window's origin itself (``window_origin``), and
+    the casts are no-ops for the slot arrays' own types (int32 s_int, f32
+    coordinates, sigma and angle, a bool mask viewed as bytes), so the call
+    is that one launch."""
+    _check_slots(mag_p, (s_int, *floats, valid), win)
     mag, ori, H, W = _octave_view(mag_p.contiguous(), ori_p.contiguous())
-    n = fr.shape[0]
+    n = s_int.shape[0]
     slots = [s_int.to(torch.int32).contiguous()]
-    slots += [t.to(torch.float32).contiguous()
-              for t in (fr, fc, sigma) + (() if angle is None else (angle,))]
+    slots += [t.to(torch.float32).contiguous() for t in floats]
     slots.append(_build.as_bytes(valid))
-    out = torch.empty(n, N_ORI_BINS if angle is None else 128, dtype=torch.float32,
-                      device=mag.device)
+    out = torch.empty(n, nbins, dtype=torch.float32, device=mag.device)
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = _build.function(name, [vp, vp, ll, ll, ci, ci, ci] + [vp] * len(slots) + [ci, vp, vp])
     p = _build.ptr
@@ -425,11 +428,10 @@ def orientation_hist(mag_p: torch.Tensor, ori_p: torch.Tensor, s_int: torch.Tens
     a win x win window of its octave's padded gradient planes (``mag_p`` /
     ``ori_p``: ``pad_grad_planes`` output).  Returns (n, 36) f32, zeros for
     invalid slots."""
-    _octave_view(mag_p, ori_p)
-    _check_slots(mag_p, (s_int, fr, fc, sigma, valid), win)
     if not on_cuda(mag_p):
         return orientation_hist_ref(mag_p, ori_p, s_int, fr, fc, sigma, valid, win)
-    out = _launch_hist("sift_orientation_hist", mag_p, ori_p, s_int, fr, fc, sigma, valid, win)
+    out = _launch_hist("sift_orientation_hist", mag_p, ori_p, s_int, (fr, fc, sigma), valid,
+                       win, N_ORI_BINS)
     orientation_hist.launches += 1
     return out
 
@@ -454,12 +456,10 @@ def descriptor_hist(mag_p: torch.Tensor, ori_p: torch.Tensor, s_int: torch.Tenso
     at its ``angle``, over a win x win window of its octave's padded
     gradient planes.  Returns (n, 128) f32, zeros for invalid slots;
     ``ops.orient_desc.quantize_descriptors`` makes them u8."""
-    _octave_view(mag_p, ori_p)
-    _check_slots(mag_p, (s_int, fr, fc, sigma, angle, valid), win)
     if not on_cuda(mag_p):
         return descriptor_hist_ref(mag_p, ori_p, s_int, fr, fc, sigma, angle, valid, win)
-    out = _launch_hist("sift_descriptor_hist", mag_p, ori_p, s_int, fr, fc, sigma, valid, win,
-                       angle)
+    out = _launch_hist("sift_descriptor_hist", mag_p, ori_p, s_int, (fr, fc, sigma, angle),
+                       valid, win, 128)
     descriptor_hist.launches += 1
     return out
 

@@ -303,6 +303,103 @@ def test_split_window_kernels_match_plain(stage_inputs):
     assert n_ok > 10
 
 
+def _split_octaves(stage_inputs):
+    """Per octave of the stage inputs: K11a's arguments (padded planes,
+    keypoint slots, sigma, the orientation window), and K6's outputs on the
+    octave's unpadded planes with K11b's arguments at K6's angles and slots
+    (keypoint-major, the descriptor window)."""
+    from sift_pyocl_tpu_torch.ops import orient_desc as od
+    from sift_pyocl_tpu_torch.ops.detect import detect_octave_pallas
+
+    _, octaves, _, _, caps = stage_inputs
+    m, win_d = CFG.max_ori, od._desc_window_size(CFG)
+    out = []
+    for o, (blurs, dogs) in enumerate(octaves):
+        kps, _ = detect_octave_pallas(dogs, CFG, o, caps[o])
+        mags, oris = od.gradient_planes(blurs, CFG)
+        mag_p, ori_p = od.pad_grad_planes(mags, oris)
+        sig = od._sigma(CFG, kps.fs)
+        ori_args = (mag_p, ori_p, kps.s_int, kps.fr, kps.fc, sig, kps.valid,
+                    od._ori_window_size(CFG))
+        k6 = window.orient_desc_fused(mags.contiguous(), oris.contiguous(), kps.s_int, kps.fr,
+                                      kps.fc, sig, kps.valid, win_d, m,
+                                      *window.slot_octave_geometry([caps[o]], [0], [mags]))
+
+        def rep(x):
+            return torch.repeat_interleave(x, m, dim=0)
+
+        desc_args = (mag_p, ori_p, rep(kps.s_int), rep(kps.fr), rep(kps.fc), rep(sig),
+                     k6[0].reshape(-1), k6[1].reshape(-1), win_d)
+        out.append((ori_args, k6, desc_args))
+    return out
+
+
+def test_split_window_kernels_give_k6_bits_and_launch_once(stage_inputs):
+    """K11b at K6's angles and slots gives K6's raw descriptors bit for bit
+    (the same 104 window, quad boxes and fixed-order sums); each wrapper
+    call is one CUDA launch, and two calls give the same bits."""
+    n_ok = 0
+    for ori_args, k6, desc_args in _split_octaves(stage_inputs):
+        reset_launch_counts()
+        h, d = window.orientation_hist(*ori_args), window.descriptor_hist(*desc_args)
+        assert torch.equal(h, window.orientation_hist(*ori_args))
+        assert torch.equal(d, window.descriptor_hist(*desc_args))
+        assert window.orientation_hist.launches == 2 and window.descriptor_hist.launches == 2
+        assert torch.equal(d, k6[2].reshape(-1, 128))
+        assert _cuda_launches(lambda: window.orientation_hist(*ori_args),
+                              "orientation_hist_kernel") == (3, 0)
+        assert _cuda_launches(lambda: window.descriptor_hist(*desc_args),
+                              "descriptor_hist_kernel") == (3, 0)
+        n_ok += int(k6[1].sum())
+    assert n_ok > 10
+
+
+def test_split_window_kernels_all_invalid_and_graph_replay(stage_inputs, cuda):
+    """K11a and K11b: every slot invalid gives zeros; captured once in a
+    CUDA graph and replayed 5 times on new inputs copied into the captured
+    buffers, every replay equals an eager call on the same inputs."""
+    ori_args, _, desc_args = max(_split_octaves(stage_inputs),
+                                 key=lambda t: int(t[0][6].sum()))
+    none = torch.zeros_like(ori_args[6])
+    assert not bool(window.orientation_hist(*ori_args[:6], none, ori_args[7]).any())
+    none = torch.zeros_like(desc_args[7])
+    assert not bool(window.descriptor_hist(*desc_args[:7], none, desc_args[8]).any())
+    static_o = [t.clone() if torch.is_tensor(t) else t for t in ori_args]
+    static_d = [t.clone() if torch.is_tensor(t) else t for t in desc_args]
+    rng = np.random.default_rng(17)
+
+    def new_inputs(args, valid_at):
+        a = list(args)
+        a[0] = args[0] * float(rng.uniform(0.5, 2.0))
+        a[3] = args[3] + torch.from_numpy(rng.uniform(-0.5, 0.5, args[3].shape).astype(
+            np.float32)).to(cuda)
+        a[valid_at] = args[valid_at] & torch.from_numpy(
+            rng.random(args[valid_at].shape[0]) < 0.8).to(cuda)
+        return a
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):             # warm-up on the capturing stream
+        for _ in range(2):
+            window.orientation_hist(*static_o)
+            window.descriptor_hist(*static_d)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out_o = window.orientation_hist(*static_o)
+        out_d = window.descriptor_hist(*static_d)
+    for _ in range(5):
+        a_o, a_d = new_inputs(ori_args, 6), new_inputs(desc_args, 7)
+        for i in (0, 3, 6):
+            static_o[i].copy_(a_o[i])
+        for i in (0, 3, 7):
+            static_d[i].copy_(a_d[i])
+        graph.replay()
+        want_o, want_d = window.orientation_hist(*a_o), window.descriptor_hist(*a_d)
+        torch.cuda.synchronize()
+        assert torch.equal(out_o, want_o) and torch.equal(out_d, want_d)
+
+
 def test_plain_keypoint_path_matches_kernel_path(stage_inputs):
     """kp_backend="xla" on the card launches no keypoint kernel and finds
     the kernel path's keypoints."""

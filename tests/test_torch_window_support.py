@@ -2,11 +2,13 @@
 
 The CUDA kernel of K6 walks, for each keypoint, only the box of its
 orientation circle and, at each angle, the boxes of the 25 descriptor quads
-(the samples whose (floor(rbin), floor(cbin)) is one quad).  These tests
-show with the plain arithmetic of ``_orientation_hists`` and
+(the samples whose (floor(rbin), floor(cbin)) is one quad); K11a and K11b
+walk the same boxes on their own windows (48 and 104 at ``SiftConfig()``).
+These tests show with the plain arithmetic of ``_orientation_hists`` and
 ``_descriptor_hists`` (f32, as there) that every sample where the plain
 ``inside`` test holds lies in its box, whatever the magnitudes, and that
-the plain K6 on an atlas zeroed outside the boxes gives the same bits.
+the plain K6, K11a and K11b on planes zeroed outside the boxes give the
+same bits.
 """
 
 import math
@@ -15,12 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+from sift_pyocl_tpu_torch import SiftConfig
 from sift_pyocl_tpu_torch.oracle import DESC_GRID, MAG_FACTOR
 from sift_pyocl_tpu_torch.ops.kernels.window import (N_QUADS, _offsets, box_samples,
-                                                     orient_desc_fused_ref, support_boxes,
+                                                     descriptor_hist_ref, orient_desc_fused_ref,
+                                                     orientation_hist_ref, support_boxes,
                                                      window_origin)
+from sift_pyocl_tpu_torch.ops.orient_desc import (PAD_C, PAD_R, _desc_window_size,
+                                                  _ori_window_size, pad_grad_planes)
 
-WINDOWS = [16, 80, 104, 136]
+WINDOWS = [16, 48, 80, 104, 136]   # 48 and 104: K11a's and K11b's at SiftConfig()
 SIGMAS = [0.5, 1.3, 2.5, 4.53, 6.0]
 ANGLES = [math.pi, -math.pi, 0.0] + [k * math.pi / 4 for k in (-3, -2, -1, 1, 2, 3)]
 OCT = (61, 93)   # octave rows, columns
@@ -160,3 +166,50 @@ def test_plain_k6_ignores_samples_outside_the_boxes():
         for g, w in zip(got, want):
             assert torch.equal(g, w)
         assert float(mag_z[plane].abs().sum()) < float(mag[plane].abs().sum())
+
+
+@pytest.mark.parametrize("kernel", ["orientation_hist", "descriptor_hist"])
+def test_plain_k11_ignores_samples_outside_the_boxes(kernel):
+    """The plain K11a (K11b) on padded planes whose magnitudes and
+    orientations are zeroed outside one slot's orientation box (its quad
+    boxes at its angle), on SiftConfig()'s window, equals, bit for bit, the
+    plain K11a (K11b) on the full planes; one slot valid at a time."""
+    rng = np.random.default_rng(11)
+    S = 3
+    mags = torch.from_numpy(rng.gamma(2.0, 3.0, (S,) + OCT).astype(np.float32))
+    oris = torch.from_numpy(rng.uniform(-math.pi, math.pi, (S,) + OCT).astype(np.float32))
+    mag_p, ori_p = pad_grad_planes(mags, oris)
+    fr, fc, sig, ang = _keypoints(2.8, seed=13, n=8)
+    n = fr.shape[0]
+    s_int = torch.from_numpy(rng.integers(1, S + 1, n).astype(np.int32))
+    cfg = SiftConfig()
+    if kernel == "orientation_hist":
+        win = _ori_window_size(cfg)
+        assert win == 48
+        run = lambda mp, op, v: orientation_hist_ref(mp, op, s_int, fr, fc, sig, v, win)
+    else:
+        win = _desc_window_size(cfg)
+        assert win == 104
+        run = lambda mp, op, v: descriptor_hist_ref(mp, op, s_int, fr, fc, sig, ang, v, win)
+    rs, cs, _, _ = window_origin(fr, fc, win)
+    for k in range(n):
+        valid = torch.zeros(n, dtype=torch.bool)
+        valid[k] = True
+        want = run(mag_p, ori_p, valid)
+        assert bool(want[k].any())
+        one = (fr[k:k + 1], fc[k:k + 1], sig[k:k + 1], win, *OCT)
+        if kernel == "orientation_hist":
+            keep = _in_box(support_boxes(*one), win)[0]
+        else:
+            keep = _in_box(support_boxes(*one, angle=ang[k:k + 1])[0], win).any(0)
+        r = rs[k].long() + torch.arange(win)
+        c = cs[k].long() + torch.arange(win)
+        rr, cc = torch.meshgrid(r, c, indexing="ij")
+        mask = torch.zeros(mag_p.shape[1:], dtype=torch.bool)
+        mask[PAD_R + rr[keep], PAD_C + cc[keep]] = True
+        plane = int(s_int[k]) - 1
+        mag_z, ori_z = mag_p.clone(), ori_p.clone()
+        mag_z[plane][~mask] = 0.0
+        ori_z[plane][~mask] = 0.0
+        assert float(mag_z[plane].abs().sum()) < float(mag_p[plane].abs().sum())
+        assert torch.equal(run(mag_z, ori_z, valid), want)
