@@ -88,7 +88,11 @@
    call's shapes (one frame's 8320 slots against a 2048-slot map from
    another frame): descriptors /512 (exact sums) and /255 (rounded sums),
    d1/d2 within a stated tolerance of the plain version, i1 equal outside
-   near-ties (counted); timed beside torch.mm + torch.topk.
+   near-ties (counted); at /512 times 2^18 equal to K7 on the u8
+   descriptors bit for bit; the same bits on two calls; one CUDA launch a
+   call, of best2_l2_f32_kernel and nothing else (fullest of five profiler
+   sessions), whose mean device time is the row's device ms; timed beside
+   torch.mm + torch.topk.
 16. Phase A, the reference library's API at 1080x1920 (frames: crops of
    the VO scene, the reference at (32, 32)): LinearAlign recovers a (-3,
    +5) translation (matrix within 0.02, offset within 0.3 px, interior
@@ -1683,10 +1687,22 @@ def check_matcher_f32(bufs, rec: Kernels) -> dict:
     print("P8 (f32 match_descriptors_dense, 2 calls) launch counts:", counts, flush=True)
     for name, n in counts.items():
         assert n == (2 if name == "best2_l2_f32" else 0), f"P8: {name} launched {n} times"
+    # at 1/512 every partial sum is exact: K7's bits times 2^-18
+    d2u = f0.desc[map_ids].clone()
+    got = matchk.best2_l2_f32(f1.desc.float() / 512.0, d2u.float() / 512.0, v2, v1)
+    want = matchk.best2_l2(f1.desc, d2u, v2, v1)
+    torch.cuda.synchronize()
+    for f, g, w in zip(("d1", "d2"), got[:2], want[:2]):
+        assert torch.equal(g * 2.0 ** 18, w), \
+            f"K7f (1/512) {f} x 2^18 differs from K7 on {int((g * 2.0 ** 18 != w).sum())} rows"
+    assert torch.equal(got[2], want[2]), "K7f (1/512) i1 differs from K7"
+    print(f"best2_l2_f32 (1/512) x 2^18 equals K7 on the u8 descriptors bit for bit "
+          f"({n_valid} valid rows)", flush=True)
     worst = 0.0
     for scale in (512.0, 255.0):
         a, b = f1.desc.float() / scale, f0.desc[map_ids].float() / scale
         got = matchk.best2_l2(a, b, v2, v1)
+        again = matchk.best2_l2(a, b, v2, v1)
         want = matchk.best2_l2_ref(a, b, v2)
         torch.cuda.synchronize()
         mag = (a * a).sum(1) + float((b * b).sum(1).max())
@@ -1695,6 +1711,8 @@ def check_matcher_f32(bufs, rec: Kernels) -> dict:
         diff_i = v1 & (got[2] != want[2])
         assert err <= F32_RTOL, f"K7f (1/{scale:g}) d1/d2 differ by {err} of their magnitude"
         assert not bool((diff_i & ~near).any()), f"K7f (1/{scale:g}): i1 differs off a near-tie"
+        for g, r in zip(got, again):
+            assert torch.equal(g, r), f"K7f (1/{scale:g}) gave other bits on a second call"
         print(f"best2_l2_f32 (1/{scale:g}, {a.shape[0]} x {b.shape[0]}, {n_valid} valid rows): "
               f"d1/d2 within {err:.3g} of their magnitude (limit {F32_RTOL:g}); i1 differs "
               f"on {int(diff_i.sum())} rows, {int((near & v1).sum())} valid rows are near-ties",
@@ -1705,13 +1723,28 @@ def check_matcher_f32(bufs, rec: Kernels) -> dict:
     def library():
         torch.topk(torch.mm(a, b.T), 2, dim=1, largest=False)
 
-    # least work: 2 x 128 f32 operations a (valid row, column) pair at the
-    # f32 rate outside the tensor cores; each input read once
-    rec.record("best2_l2_f32", "sift_pyocl_tpu_torch/csrc/matchk.cu",
-               f"{ROOT}/ops/pallas/matchk.py:113", worst,
-               lambda: matchk.best2_l2(a, b, v2, v1), lambda: matchk.best2_l2_ref(a, b, v2), 50,
-               n_bytes=4 * (a.numel() + b.numel()) + v1.numel() + v2.numel() + 12 * a.shape[0],
-               ops=2 * 128 * n_valid * b.shape[0], library=library)
+    # least work: 2 x 128 f32 operations a valid (row, column) pair, at the
+    # f32 rate outside the tensor cores (an invalid column is +inf and
+    # needs none); each input read once
+    row = rec.record("best2_l2_f32", "sift_pyocl_tpu_torch/csrc/matchk.cu",
+                     f"{ROOT}/ops/pallas/matchk.py:113", worst,
+                     lambda: matchk.best2_l2(a, b, v2, v1),
+                     lambda: matchk.best2_l2_ref(a, b, v2), 50,
+                     n_bytes=4 * (a.numel() + b.numel()) + v1.numel() + v2.numel()
+                     + 12 * a.shape[0], ops=2 * 128 * n_valid * int(v2.sum()),
+                     library=library)
+    # one launch of the kernel a call and nothing else, by name, from the
+    # fullest of five sessions; the device ms is a launch's mean, which a
+    # lost record does not lower
+    calls = 5
+    events = cuda_events(lambda: matchk.best2_l2_f32(a, b, v2, v1), calls)
+    named = [e for e in events if "best2_l2_f32_kernel" in e.name]
+    assert len(named) == calls and len(events) == calls, \
+        f"K7f: {len(named)} kernel, {len(events) - len(named)} other launches in {calls} calls"
+    row["cuda_launches"] = len(named) / calls
+    row["device_ms"] = sum(e.device_time_total for e in named) / 1e3 / len(named)
+    print(f"best2_l2_f32: 1 CUDA launch a call (best2_l2_f32_kernel), device "
+          f"{row['device_ms']:.4f} ms a launch", flush=True)
     return counts
 
 

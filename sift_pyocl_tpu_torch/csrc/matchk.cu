@@ -70,19 +70,57 @@
 //     column among equal minima whatever the order of merging, so the
 //     result does not depend on block order.
 //
-// K7f, the f32-operand form of the same TPU kernel (matchk.py:73-78,
-// 136-141): the same function with f32 descriptors (or mixed u8/f32, which
-// the wrapper casts to f32, as the JAX wrapper does), distances
-// max((|a|^2 + |b|^2) - 2 a.b, 0) in f32.  Plain CUDA-core f32, no tensor
-// cores (so no TF32), each sum over k = 0..127 in ascending order with one
-// rounding per operation: the results differ from the plain version's
-// matmul only by its summation order.  Bound by f32 operations (2 x 128 a
-// pair: 0.01 ms for 1390 valid rows x 2048 columns at 67 TFLOP/s).  Design
-// as the earlier u8 kernel: 8 query rows a block, one a warp, skipped when
-// valid1 is false; the rows sit in shared memory and every lane reads the same
-// word (a broadcast); desc2 is staged in tiles of CTF columns with a
-// 129-float row pitch, so lane l reads bank (l + k) % 32; lane l takes
-// columns l and l + 32 of each tile, and the lanes merge as above.
+// K7f, the f32-operand form of the same TPU kernel (matchk.py:131-141):
+// the same function with f32 descriptors (or mixed u8/f32, which the
+// wrapper casts to f32, as the JAX wrapper does), distances
+// max((|a|^2 + |b|^2) - 2 a.b, 0) in f32.
+//
+// What bounds it: f32 operations on the CUDA cores, 2 x 128 a valid
+// (row, column) pair (0.0056 ms for 1213 valid rows x 1201 valid columns
+// at 67 TFLOP/s; an invalid column is +inf and needs none); its bytes (5.3
+// MB at the VO map call's shapes, 1.6 us) come second.  No tensor cores: TF32 (and its 3xTF32 split) would change the
+// rounding that the f32 tolerance is written for.  The earlier design (8
+// query rows a block, one a warp, every block restaging all of desc2 by
+// synchronous loads, |b|^2 recomputed in every block by a quarter of its
+// threads, two shared-memory loads a multiply-add) took 0.32 ms of device
+// time at the VO map call's shapes, this one 0.045, 8.2x the bound
+// (tools/ab_best2_f32.py; NVIDIA H100 80GB HBM3, 700 W).  What keeps it
+// above the bound: the blocks that compute hold 39 % valid (row, column)
+// pairs there (2.6x), and over the launch they issue their FMAs at ~31 %
+// of the card's f32 rate, 2 resident blocks an SM (96 registers a thread)
+// in ~1.7 waves.
+//
+// Design (one launch a call):
+//   * Grid and merge: K7's.  (Row tile of FM = 64 query rows) x (column
+//     split of FN = 128 columns); a row tile with no valid row is written
+//     as zeros by its split-0 block, a split with no valid column loads
+//     nothing, and the splits' partial (best, index, second) are merged on
+//     the card by the last block of the row tile (merge_splits, shared
+//     with K7).
+//   * Register tile: 256 threads, each owning 8 rows (ty + 8 i) x 4
+//     columns (tx + 32 j) of the 64 x 128 block tile, 32 accumulators: a
+//     4-k step is 8 row and 4 column 16-byte shared-memory loads for 128
+//     FMAs (the earlier design: two loads an FMA).  A warp covers 4 row
+//     groups x 8 column groups, so a warp's load reads 4 (rows) or 8
+//     (columns) distinct 16-byte chunks.  (An 8 x 8 tile in 128 threads,
+//     3 blocks an SM, was no faster.)
+//   * Staging: desc1's row tile and desc2's column tile in k chunks of
+//     FK = 16, row-major with an FP = 20-float pitch (80 bytes: rows or
+//     columns that differ mod 8 fall in different 16-byte bank groups, so
+//     the float4 loads are free of conflicts), by cp.async 16 bytes a
+//     thread (past n1 / n2 zero-filled), in a ring of 3 stages: two chunks
+//     in flight while one is multiplied.  46 KB of static shared memory,
+//     no attribute to set.
+//   * Arithmetic: every dot product and every norm is summed in ascending
+//     k with __fmaf_rn (one rounding a step; the library's --fmad=false
+//     stays for the other kernels).  The 64 row norms and 128 column norms
+//     are summed once a block, by threads 0-191, from the chunks as they
+//     land.  Where every partial sum is exact (integers, or integers times
+//     a power of two, below 2^24) the result is K7's, bit for bit.
+//   * Epilogue: each thread visits its 4 columns in ascending order
+//     (visit); the 8 lanes sharing a row merge by shuffles and the 4 warps
+//     sharing it through shared memory (merge), so the second best
+//     excludes only the argmin column.
 #include "common.cuh"
 
 #include <cuda_pipeline.h>
@@ -133,6 +171,94 @@ __device__ __forceinline__ void merge_quad(Best2& st) {
   }
 }
 
+// Whether the row tile at r0 holds a valid row (every thread calls it); a
+// tile with none is written as zeros by its split-0 block.
+__device__ __forceinline__ bool tile_has_rows(int tid, int r0, int n1, int split,
+                                              const unsigned char* __restrict__ valid1,
+                                              float* __restrict__ out_d1,
+                                              float* __restrict__ out_d2,
+                                              int* __restrict__ out_i1) {
+  const int my_row = r0 + tid;
+  const bool row_ok = tid < MT && my_row < n1 && (valid1 == nullptr || valid1[my_row] != 0);
+  if (__syncthreads_or(row_ok)) return true;
+  if (split == 0 && tid < MT && my_row < n1) {
+    out_d1[my_row] = 0.0f;
+    out_d2[my_row] = 0.0f;
+    out_i1[my_row] = 0;
+  }
+  return false;
+}
+
+// The split's n valid2 bytes into sval (0 past c_hi); whether any is set
+// (every thread calls it).
+template <int NT>
+__device__ __forceinline__ bool load_split_valid(int tid, int c_lo, int c_hi, int n,
+                                                 const unsigned char* __restrict__ valid2,
+                                                 unsigned char* sval) {
+  bool col_ok = false;
+  for (int i = tid; i < n; i += NT) {
+    const unsigned char v = c_lo + i < c_hi ? valid2[c_lo + i] : 0;
+    sval[i] = v;
+    col_ok = col_ok || v != 0;
+  }
+  return __syncthreads_or(col_ok);
+}
+
+// With more than one split: after every thread has written its rows'
+// partials to part[(split * 3 + f) * n1 + row] (f = best, index, second),
+// the block publishes them (__threadfence) and takes a ticket from its row
+// tile's counter; the block that draws the last ticket resets the counter
+// to 0 on the device (ready for the next call, and for each replay of a
+// CUDA graph) and merges the splits, NT / MT threads a row, each over its
+// share of them in ascending split order, the lower shares' states then
+// taking the upper ones'.  Every thread calls it.
+template <int NT>
+__device__ __forceinline__ void merge_splits(int tid, int r0, int n1, int n_splits,
+                                             const int* __restrict__ part,
+                                             int* __restrict__ counters, int& s_last,
+                                             const unsigned char* __restrict__ valid1,
+                                             float* __restrict__ out_d1,
+                                             float* __restrict__ out_d2,
+                                             int* __restrict__ out_i1) {
+  constexpr int TPR = NT / MT;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(counters + blockIdx.x, 1);
+    s_last = ticket == n_splits - 1;
+    if (s_last) atomicExch(counters + blockIdx.x, 0);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const size_t plane = static_cast<size_t>(n1);
+  const int row = r0 + tid / TPR, h = tid % TPR;
+  const int share = (n_splits + TPR - 1) / TPR;
+  const int s_end = min(n_splits, (h + 1) * share);
+  Best2 m = {CUDART_INF_F, 0x7fffffff, CUDART_INF_F};
+  if (row < n1) {
+#pragma unroll 4
+    for (int s = h * share; s < s_end; ++s) {
+      const int* q = part + static_cast<size_t>(s) * 3 * plane;
+      merge(m, __int_as_float(__ldcg(q + row)), __ldcg(q + plane + row),
+            __int_as_float(__ldcg(q + 2 * plane + row)));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1) {
+    const float ob = __shfl_down_sync(0xffffffffu, m.best, off);
+    const int oi = __shfl_down_sync(0xffffffffu, m.idx, off);
+    const float os = __shfl_down_sync(0xffffffffu, m.second, off);
+    if ((h & (2 * off - 1)) == 0) merge(m, ob, oi, os);
+  }
+  if (h == 0 && row < n1) {
+    const bool ok = valid1 == nullptr || valid1[row] != 0;
+    out_d1[row] = ok ? m.best : 0.0f;
+    out_d2[row] = ok ? m.second : 0.0f;
+    out_i1[row] = ok ? m.idx : 0;
+  }
+}
+
 __device__ __forceinline__ void mma_u8(int (&d)[4], unsigned a0, unsigned a1, unsigned a2,
                                        unsigned a3, unsigned b0, unsigned b1) {
   asm volatile(
@@ -175,25 +301,8 @@ best2_l2_kernel(const uint4* __restrict__ d1q, const uint4* __restrict__ d2q,
   const int c_lo = split * split_cols;
   const int c_hi = min(n2, c_lo + split_cols);
 
-  // rows: any valid row in the tile?
-  const int my_row = r0 + tid;
-  const bool row_ok = tid < MT && my_row < n1 && (valid1 == nullptr || valid1[my_row] != 0);
-  if (!__syncthreads_or(row_ok)) {
-    if (split == 0 && tid < MT && my_row < n1) {
-      out_d1[my_row] = 0.0f;
-      out_d2[my_row] = 0.0f;
-      out_i1[my_row] = 0;
-    }
-    return;
-  }
-  // columns: the split's valid2 bytes (0 past n2), and any valid one?
-  bool col_ok = false;
-  for (int i = tid; i < MAX_TILES * CT; i += NTHR) {
-    const unsigned char v = c_lo + i < c_hi ? valid2[c_lo + i] : 0;
-    sval[i] = v;
-    col_ok = col_ok || v != 0;
-  }
-  const bool any_col = __syncthreads_or(col_ok);
+  if (!tile_has_rows(tid, r0, n1, split, valid1, out_d1, out_d2, out_i1)) return;
+  const bool any_col = load_split_valid<NTHR>(tid, c_lo, c_hi, MAX_TILES * CT, valid2, sval);
 
   // this thread's rows g and g + 8 of its warp, chunks t4 and t4 + 4
   const int ra = r0 + warp * 16 + g, rb = ra + 8;
@@ -303,119 +412,196 @@ best2_l2_kernel(const uint4* __restrict__ d1q, const uint4* __restrict__ d2q,
       pb[2 * plane + rb] = __float_as_int(st[1].second);
     }
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    const int ticket = atomicAdd(counters + blockIdx.x, 1);
-    s_last = ticket == n_splits - 1;
-    if (s_last) atomicExch(counters + blockIdx.x, 0);
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // two threads a row: thread h merges splits [h * half, (h + 1) * half) in
-  // ascending order, then the lower half's state takes the upper half's
-  const int row = r0 + (tid >> 1), h = tid & 1;
-  const int half = (n_splits + 1) / 2;
-  const int s_end = min(n_splits, (h + 1) * half);
-  Best2 m = {CUDART_INF_F, 0x7fffffff, CUDART_INF_F};
-  if (row < n1) {
-#pragma unroll 4
-    for (int s = h * half; s < s_end; ++s) {
-      const int* q = part + static_cast<size_t>(s) * 3 * plane;
-      merge(m, __int_as_float(__ldcg(q + row)), __ldcg(q + plane + row),
-            __int_as_float(__ldcg(q + 2 * plane + row)));
-    }
-  }
-  const float ob = __shfl_down_sync(0xffffffffu, m.best, 1);
-  const int oi = __shfl_down_sync(0xffffffffu, m.idx, 1);
-  const float os = __shfl_down_sync(0xffffffffu, m.second, 1);
-  if (h == 0 && row < n1) {
-    merge(m, ob, oi, os);
-    const bool ok = valid1 == nullptr || valid1[row] != 0;
-    out_d1[row] = ok ? m.best : 0.0f;
-    out_d2[row] = ok ? m.second : 0.0f;
-    out_i1[row] = ok ? m.idx : 0;
-  }
+  merge_splits<NTHR>(tid, r0, n1, n_splits, part, counters, s_last, valid1, out_d1, out_d2,
+                     out_i1);
 }
 
-constexpr int ROWS = 8;     // K7f: query rows (warps) per block
-constexpr int CTF = 64;     // desc2 columns per f32 tile
 constexpr int DIM = 128;
-constexpr int LDF = DIM + 1;
+constexpr int FM = MT;          // K7f: query rows a block (K7's row tile)
+constexpr int FN = 128;         // K7f: desc2 columns a block, its column split
+constexpr int FK = 16;          // k a staged chunk
+constexpr int FP = FK + 4;      // staged row pitch in floats (80 bytes)
+constexpr int FSTAGES = 3;
+constexpr int FCHUNKS = DIM / FK;
+constexpr int FTHR = 256;       // 8 warps: 2 (row halves) x 4 (column quarters)
 
-__global__ void __launch_bounds__(ROWS * 32)
+// One k chunk of the row tile (FM x FK) and of the column tile (FN x FK)
+// into sa and sb, 16 bytes a copy, rows past n1 and columns past c_hi
+// zero-filled; one commit group.
+__device__ __forceinline__ void stage_f32(const float* __restrict__ d1f,
+                                          const float* __restrict__ d2f, int n1, int r0,
+                                          int c_lo, int c_hi, int chunk, int tid,
+                                          float* sa, float* sb) {
+  const int k0 = chunk * FK;
+#pragma unroll
+  for (int m = 0; m < FM * (FK / 4) / FTHR; ++m) {
+    const int i = tid + m * FTHR;
+    const int r = i >> 2, q = i & 3;
+    const bool in = r0 + r < n1;
+    const float* src = d1f + (in ? static_cast<size_t>(r0 + r) * DIM + k0 + 4 * q : 0);
+    __pipeline_memcpy_async(sa + r * FP + 4 * q, src, 16, in ? 0 : 16);
+  }
+#pragma unroll
+  for (int m = 0; m < FN * (FK / 4) / FTHR; ++m) {
+    const int i = tid + m * FTHR;
+    const int c = i >> 2, q = i & 3;
+    const bool in = c_lo + c < c_hi;
+    const float* src = d2f + (in ? static_cast<size_t>(c_lo + c) * DIM + k0 + 4 * q : 0);
+    __pipeline_memcpy_async(sb + c * FP + 4 * q, src, 16, in ? 0 : 16);
+  }
+  __pipeline_commit();
+}
+
+// x . x over a staged row's FK floats, added in ascending k to acc.
+__device__ __forceinline__ float sq_norm_f32(const float* p, float acc) {
+#pragma unroll
+  for (int q = 0; q < FK / 4; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * q);
+    acc = __fmaf_rn(v.x, v.x, acc);
+    acc = __fmaf_rn(v.y, v.y, acc);
+    acc = __fmaf_rn(v.z, v.z, acc);
+    acc = __fmaf_rn(v.w, v.w, acc);
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(FTHR, 2)
 best2_l2_f32_kernel(const float* __restrict__ d1f, const float* __restrict__ d2f,
                     const unsigned char* __restrict__ valid1,
                     const unsigned char* __restrict__ valid2, int n1, int n2,
                     float* __restrict__ out_d1, float* __restrict__ out_d2,
-                    int* __restrict__ out_i1) {
-  __shared__ float tile[CTF * LDF];
-  __shared__ float arow[ROWS][DIM];
-  __shared__ float tnorm[CTF];
-  __shared__ int any_active;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * ROWS + warp;
-  const bool active = row < n1 && (valid1 == nullptr || valid1[row] != 0);
-  if (threadIdx.x == 0) any_active = 0;
-  __syncthreads();
-  if (active && lane == 0) any_active = 1;
-  __syncthreads();
-  if (!active) {
-    if (row < n1 && lane == 0) {
-      out_d1[row] = 0.0f;
-      out_d2[row] = 0.0f;
-      out_i1[row] = 0;
-    }
-    if (!any_active) return;
-  }
-  for (int k = lane; k < DIM; k += 32)
-    arow[warp][k] = active ? __ldg(d1f + static_cast<size_t>(row) * DIM + k) : 0.0f;
-  __syncwarp();
-  float na = 0.0f;
-  for (int k = 0; k < DIM; ++k) na += arow[warp][k] * arow[warp][k];
-  Best2 st = {CUDART_INF_F, 0x7fffffff, CUDART_INF_F};
-  for (int t0 = 0; t0 < n2; t0 += CTF) {
-    const int nt = min(CTF, n2 - t0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nt * DIM; i += ROWS * 32) {
-      const int col = i / DIM, k = i % DIM;
-      tile[col * LDF + k] = __ldg(d2f + static_cast<size_t>(t0 + col) * DIM + k);
-    }
-    __syncthreads();
-    for (int col = threadIdx.x; col < nt; col += ROWS * 32) {
-      const float* b = tile + col * LDF;
-      float nb = 0.0f;
-      for (int k = 0; k < DIM; ++k) nb += b[k] * b[k];
-      tnorm[col] = valid2[t0 + col] ? nb : -1.0f;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int col = lane; col < nt; col += 32) {
-      const float* b = tile + col * LDF;
-      const float* a = arow[warp];
-      float ab = 0.0f;
-#pragma unroll 8
-      for (int k = 0; k < DIM; ++k) ab += a[k] * b[k];
-      const float nb = tnorm[col];
-      const float v = nb < 0.0f ? CUDART_INF_F : fmaxf((na + nb) - 2.0f * ab, 0.0f);
-      merge(st, v, t0 + col, CUDART_INF_F);
-    }
-  }
-  if (!active) return;
+                    int* __restrict__ out_i1, int* __restrict__ part,
+                    int* __restrict__ counters) {
+  __shared__ __align__(16) float sa[FSTAGES][FM * FP];
+  __shared__ __align__(16) float sb[FSTAGES][FN * FP];
+  __shared__ float s_na[FM], s_nb[FN];
+  __shared__ unsigned char sval[FN];
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  // this thread's rows ty + 8 i (i < 8) and columns tx + 32 j (j < 4)
+  const int ty = (warp >> 2) * 4 + (lane >> 3), tx = (warp & 3) * 8 + (lane & 7);
+  const int r0 = blockIdx.x * FM;
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int c_lo = split * FN;
+  const int c_hi = min(n2, c_lo + FN);
+
+  if (!tile_has_rows(tid, r0, n1, split, valid1, out_d1, out_d2, out_i1)) return;
+  const bool any_col = load_split_valid<FTHR>(tid, c_lo, c_hi, FN, valid2, sval);
+
+  // the final state of row r0 + tid (tid < FM): the split's first column
+  // and no distance where the split has no valid column
+  Best2 m = {CUDART_INF_F, c_lo, CUDART_INF_F};
+  if (any_col) {
+    float acc[8][4];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, st.best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, st.idx, off);
-    const float os = __shfl_xor_sync(0xffffffffu, st.second, off);
-    merge(st, ob, oi, os);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    float nrm = 0.0f;  // |a|^2 of row tid (tid < FM), |b|^2 of column tid - FM (< FM + FN)
+    stage_f32(d1f, d2f, n1, r0, c_lo, c_hi, 0, tid, sa[0], sb[0]);
+    stage_f32(d1f, d2f, n1, r0, c_lo, c_hi, 1, tid, sa[1], sb[1]);
+    for (int c = 0; c < FCHUNKS; ++c) {
+      __pipeline_wait_prior(1);  // chunk c has landed; c + 1 may be in flight
+      __syncthreads();           // ... for every thread, and chunk c - 1 is done with
+      if (c + 2 < FCHUNKS) {
+        const int s2 = (c + 2) % FSTAGES;
+        stage_f32(d1f, d2f, n1, r0, c_lo, c_hi, c + 2, tid, sa[s2], sb[s2]);
+      } else {
+        __pipeline_commit();     // an empty group keeps wait_prior's count
+      }
+      const float* A = sa[c % FSTAGES];
+      const float* B = sb[c % FSTAGES];
+      if (tid < FM) {
+        nrm = sq_norm_f32(A + tid * FP, nrm);
+      } else if (tid < FM + FN) {
+        nrm = sq_norm_f32(B + (tid - FM) * FP, nrm);
+      }
+#pragma unroll
+      for (int kq = 0; kq < FK / 4; ++kq) {
+        float4 av[8], bv[4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          av[i] = *reinterpret_cast<const float4*>(A + (ty + 8 * i) * FP + 4 * kq);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(B + (tx + 32 * j) * FP + 4 * kq);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float s = acc[i][j];
+            s = __fmaf_rn(av[i].x, bv[j].x, s);
+            s = __fmaf_rn(av[i].y, bv[j].y, s);
+            s = __fmaf_rn(av[i].z, bv[j].z, s);
+            acc[i][j] = __fmaf_rn(av[i].w, bv[j].w, s);
+          }
+      }
+    }
+    if (tid < FM) {
+      s_na[tid] = nrm;
+    } else if (tid < FM + FN) {
+      s_nb[tid - FM] = nrm;
+    }
+    __syncthreads();  // the norms are in; the stages are free
+    // red: the 4 column quarters' states of each row, over stage 0
+    float* red_best = sb[0];
+    float* red_second = red_best + 4 * FM;
+    int* red_idx = reinterpret_cast<int*>(red_second + 4 * FM);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + 8 * i;
+      const float na = s_na[r];
+      Best2 st = {CUDART_INF_F, c_lo, CUDART_INF_F};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 32 * j;
+        const float v = sval[col] != 0 ? fmaxf((na + s_nb[col]) - 2.0f * acc[i][j], 0.0f)
+                                       : CUDART_INF_F;
+        visit(st, v, c_lo + col);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, st.best, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, st.idx, off);
+        const float os = __shfl_xor_sync(0xffffffffu, st.second, off);
+        merge(st, ob, oi, os);
+      }
+      if ((lane & 7) == 0) {
+        const int slot = (warp & 3) * FM + r;
+        red_best[slot] = st.best;
+        red_second[slot] = st.second;
+        red_idx[slot] = st.idx;
+      }
+    }
+    __syncthreads();
+    if (tid < FM) {
+      m = Best2{red_best[tid], red_idx[tid], red_second[tid]};
+#pragma unroll
+      for (int q = 1; q < 4; ++q)
+        merge(m, red_best[q * FM + tid], red_idx[q * FM + tid], red_second[q * FM + tid]);
+    }
   }
-  if (lane == 0) {
-    out_d1[row] = st.best;
-    out_d2[row] = st.second;
-    out_i1[row] = st.idx;
+
+  const int row = r0 + tid;
+  if (n_splits == 1) {
+    if (tid < FM && row < n1) {
+      const bool ok = valid1 == nullptr || valid1[row] != 0;
+      out_d1[row] = ok ? m.best : 0.0f;
+      out_d2[row] = ok ? m.second : 0.0f;
+      out_i1[row] = ok ? m.idx : 0;
+    }
+    return;
   }
+  if (tid < FM && row < n1) {
+    const size_t plane = static_cast<size_t>(n1);
+    int* pb = part + static_cast<size_t>(split) * 3 * plane;
+    pb[row] = __float_as_int(m.best);
+    pb[plane + row] = m.idx;
+    pb[2 * plane + row] = __float_as_int(m.second);
+  }
+  merge_splits<FTHR>(tid, r0, n1, n_splits, part, counters, s_last, valid1, out_d1, out_d2,
+                     out_i1);
 }
 
 }  // namespace
@@ -423,7 +609,7 @@ best2_l2_f32_kernel(const float* __restrict__ d1f, const float* __restrict__ d2f
 // desc1: (n1, 128) u8, desc2: (n2, 128) u8, both 16-byte aligned rows;
 // valid1: (n1,) u8 or null (every row computed); valid2: (n2,) u8.
 // Outputs (n1,) f32 d1, f32 d2, int32 i1.  split_cols: desc2 columns a
-// block, a multiple of 64 up to 256.  With more than one split (n2 > split_cols),
+// block, 64 or 128.  With more than one split (n2 > split_cols),
 // part: 3 * n_splits * n1 int32 of scratch (any contents), and counters:
 // ceil(n1 / 64) int32, zero before the first call and left zero by every
 // call; with one split both may be null.
@@ -445,17 +631,22 @@ extern "C" int sift_best2_l2(const void* desc1, const void* desc2, const void* v
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7f.  desc1: (n1, 128) f32, desc2: (n2, 128) f32, contiguous; the rest as
-// sift_best2_l2.
+// K7f.  desc1: (n1, 128) f32, desc2: (n2, 128) f32, both 16-byte aligned
+// rows; the rest as sift_best2_l2, with split_cols = 128 (FN) only: the
+// wrapper passes its one SPLIT_COLS to both entries.
 extern "C" int sift_best2_l2_f32(const void* desc1, const void* desc2, const void* valid1,
-                                 const void* valid2, int n1, int n2, void* d1, void* d2,
-                                 void* i1, void* stream) {
-  if (n1 < 0 || n2 < 1) return cudaErrorInvalidValue;
+                                 const void* valid2, int n1, int n2, int split_cols, void* d1,
+                                 void* d2, void* i1, void* part, void* counters, void* stream) {
+  if (n1 < 0 || n2 < 1 || split_cols != FN) return cudaErrorInvalidValue;
   if (n1 == 0) return cudaSuccess;
-  best2_l2_f32_kernel<<<(n1 + ROWS - 1) / ROWS, ROWS * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const int n_splits = (n2 + FN - 1) / FN;
+  if (n_splits > 65535 || (n_splits > 1 && (part == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((n1 + FM - 1) / FM, n_splits);
+  best2_l2_f32_kernel<<<grid, FTHR, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(desc1), static_cast<const float*>(desc2),
       static_cast<const unsigned char*>(valid1), static_cast<const unsigned char*>(valid2), n1,
-      n2, static_cast<float*>(d1), static_cast<float*>(d2), static_cast<int*>(i1));
+      n2, static_cast<float*>(d1), static_cast<float*>(d2), static_cast<int*>(i1),
+      static_cast<int*>(part), static_cast<int*>(counters));
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,10 +12,11 @@ number of columns.  ``two_pass`` chooses how the TPU kernel reduces a
 distance tile; both of its values compute this one function, which the
 port's kernels compute whichever is given.
 
-K7 splits the columns into blocks of ``SPLIT_COLS`` and merges the splits'
-best-2 on the card by one rule (one launch a call); ``best2_split_merge``
-is the same merge in plain PyTorch, held to ``best2_l2_ref`` on the CPU
-(``tests/test_torch_match_splits.py``).
+K7 and K7f split the columns into blocks of ``SPLIT_COLS`` and merge the
+splits' best-2 on the card by one rule
+(one launch a call); ``best2_split_merge`` is the same merge in plain
+PyTorch, held to ``best2_l2_ref`` (and, for f32 operands, to the JAX
+package's kernel) on the CPU (``tests/test_torch_match_splits.py``).
 """
 
 from __future__ import annotations
@@ -29,11 +30,11 @@ from .. import _build, on_cuda
 
 Best2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-SPLIT_COLS = 128     # desc2 columns a K7 block (its two 64-column tiles)
-ROW_TILE = 64        # query rows a K7 block (csrc/matchk.cu's MT)
+SPLIT_COLS = 128  # desc2 columns a K7 or K7f block (K7's two 64-column tiles; K7f's FN)
+ROW_TILE = 64     # query rows a K7 or K7f block (csrc/matchk.cu's MT, FM)
 
-# K7's per-row-tile ticket counters, per (device, stream): zeroed at their
-# first use there and left zero by every call (csrc/matchk.cu).
+# K7's and K7f's per-row-tile ticket counters, per (device, stream): zeroed
+# at their first use there and left zero by every call (csrc/matchk.cu).
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -85,9 +86,11 @@ def _outputs(a: torch.Tensor) -> Best2:
     return d1, torch.empty_like(d1), torch.empty(n1, dtype=torch.int32, device=a.device)
 
 
-def _launch_u8(a: torch.Tensor, b: torch.Tensor, valid2: torch.Tensor,
-               valid1: Optional[torch.Tensor]) -> Best2:
-    """One launch of K7 on aligned u8 operands."""
+def _launch(entry: str, a: torch.Tensor, b: torch.Tensor, valid2: torch.Tensor,
+            valid1: Optional[torch.Tensor]) -> Best2:
+    """One launch of K7 (``sift_best2_l2``, u8) or K7f (``sift_best2_l2_f32``,
+    f32) on aligned operands, ``SPLIT_COLS`` columns a block, the splits
+    merged on the card with the stream's ticket counters."""
     n1, n2 = a.shape[0], b.shape[0]
     d1, d2, i1 = _outputs(a)
     v2, v1 = _valid_bytes(valid2, valid1)
@@ -98,27 +101,12 @@ def _launch_u8(a: torch.Tensor, b: torch.Tensor, valid2: torch.Tensor,
         part = torch.empty(3 * n_splits * n1, dtype=torch.int32, device=a.device)
         counters = _counters_of(a.device, stream, -(-n1 // ROW_TILE))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sift_best2_l2", [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp])
+    fn = _build.function(entry, [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp])
     p = _optional_ptr
     with torch.cuda.device(a.device):
         err = fn(p(a), p(b), p(v1), p(v2), n1, n2, SPLIT_COLS, p(d1), p(d2), p(i1),
                  p(part), p(counters), ctypes.c_void_p(stream))
-    _build.check(err, "best2_l2")
-    return d1, d2, i1
-
-
-def _launch_f32(a: torch.Tensor, b: torch.Tensor, valid2: torch.Tensor,
-                valid1: Optional[torch.Tensor]) -> Best2:
-    """One launch of K7f on contiguous f32 operands."""
-    d1, d2, i1 = _outputs(a)
-    v2, v1 = _valid_bytes(valid2, valid1)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sift_best2_l2_f32", [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp])
-    p = _optional_ptr
-    with torch.cuda.device(a.device):
-        err = fn(p(a), p(b), p(v1), p(v2), a.shape[0], b.shape[0], p(d1), p(d2), p(i1),
-                 _build.stream_of(a))
-    _build.check(err, "best2_l2_f32")
+    _build.check(err, entry.removeprefix("sift_"))
     return d1, d2, i1
 
 
@@ -138,7 +126,7 @@ def best2_l2(desc1: torch.Tensor, desc2: torch.Tensor, valid2: torch.Tensor,
         return best2_l2_ref(desc1, desc2, valid2)
     if desc1.dtype != torch.uint8 or desc2.dtype != torch.uint8:
         return best2_l2_f32(desc1, desc2, valid2, valid1)
-    out = _launch_u8(_aligned(desc1), _aligned(desc2), valid2, valid1)
+    out = _launch("sift_best2_l2", _aligned(desc1), _aligned(desc2), valid2, valid1)
     best2_l2.launches += 1
     return out
 
@@ -154,8 +142,8 @@ def best2_l2_f32(desc1: torch.Tensor, desc2: torch.Tensor, valid2: torch.Tensor,
     _check(desc1, desc2, valid2, valid1)
     if not on_cuda(desc1):
         return best2_l2_ref(desc1, desc2, valid2)
-    out = _launch_f32(desc1.to(torch.float32).contiguous(),
-                      desc2.to(torch.float32).contiguous(), valid2, valid1)
+    out = _launch("sift_best2_l2_f32", _aligned(desc1.to(torch.float32)),
+                  _aligned(desc2.to(torch.float32)), valid2, valid1)
     best2_l2_f32.launches += 1
     return out
 

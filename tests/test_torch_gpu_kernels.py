@@ -899,6 +899,33 @@ def _vo_like_match_inputs(rng, n1, n2, cuda):
     return d1, d2, v1, v2
 
 
+def _assert_graph_replays(fn, inputs, make, keep_v1: bool):
+    """fn(desc1, desc2, valid2, valid1) captured in a CUDA graph on
+    `inputs` and replayed 5 times on new inputs from make() (desc1, desc2,
+    valid1, valid2; valid1 kept as given with `keep_v1`), each replay equal
+    to an eager call."""
+    static = [t.clone() for t in inputs]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):             # warm-up on the capturing stream
+        for _ in range(2):
+            fn(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(*static)
+    for _ in range(5):
+        new = make()
+        new = (new[0], new[1], new[3], inputs[3] if keep_v1 else new[2])
+        for t, n in zip(static, new):
+            t.copy_(n)
+        graph.replay()
+        eager = fn(*new)
+        torch.cuda.synchronize()
+        for f, g, w in zip(("d1", "d2", "i1"), out, eager):
+            assert torch.equal(g, w), f"replay {f}: {int((g != w).sum())} rows differ"
+
+
 @pytest.mark.parametrize("n1,n2,single", [(8320, 2048, False), (256, 8320, False),
                                           (256, 8320, True)])
 def test_best2_l2_one_launch_repeats_and_replays(cuda, n1, n2, single):
@@ -923,26 +950,68 @@ def test_best2_l2_one_launch_repeats_and_replays(cuda, n1, n2, single):
     named, other = _cuda_launches(lambda: matchk.best2_l2(d1, d2, v2, v1), "best2_l2_kernel")
     assert other == 0 and 1 <= named <= 3 and matchk.best2_l2.launches == 16, (named, other)
 
-    static = [t.clone() for t in (d1, d2, v2, v1)]
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):             # warm-up on the capturing stream
-        for _ in range(2):
-            matchk.best2_l2(*static)
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        out = matchk.best2_l2(*static)
-    for _ in range(5):
-        new = _vo_like_match_inputs(rng, n1, n2, cuda)
-        new = (new[0], new[1], new[3], v1 if single else new[2])
-        for t, n in zip(static, new):
-            t.copy_(n)
-        graph.replay()
-        eager = matchk.best2_l2(*new)
-        torch.cuda.synchronize()
-        for f, g, w in zip(("d1", "d2", "i1"), out, eager):
-            assert torch.equal(g, w), f"replay {f}: {int((g != w).sum())} rows differ"
+    _assert_graph_replays(matchk.best2_l2, (d1, d2, v2, v1),
+                          lambda: _vo_like_match_inputs(rng, n1, n2, cuda), single)
+
+
+def _f32_match_inputs(rng, n1, n2, cuda):
+    """K7f's inputs with the VO step's validity: u8 values over 255 as f32,
+    so the products and their sums round."""
+    d1, d2, v1, v2 = _vo_like_match_inputs(rng, n1, n2, cuda)
+    return d1.float() / 255.0, d2.float() / 255.0, v1, v2
+
+
+@pytest.mark.parametrize("n1,n2,single", [(8320, 2048, False), (256, 8320, False),
+                                          (256, 8320, True)])
+def test_best2_l2_f32_one_launch_k7_bits_repeats_and_replays(cuda, n1, n2, single):
+    """K7f at the VO map call's shape, the keyframe call's, and with a
+    single valid row in a row tile: within 1e-5 of |a|^2 + max |b|^2 of its
+    plain version on f32 values whose sums round (i1 equal off near-ties);
+    on integer-valued f32, and on the same integers over 512, K7's bits
+    (ties at the minimum planted inside one column split and across two);
+    one CUDA launch a call and nothing else; the same bits on two calls;
+    and captured in a CUDA graph and replayed 5 times on new inputs, each
+    replay equal to an eager call."""
+    rng = np.random.default_rng(n1 * 5 + n2 + single)
+    u1, u2, v1, v2 = _vo_like_match_inputs(rng, n1, n2, cuda)
+    if single:
+        v1 = torch.zeros_like(v1)
+        v1[130] = True
+    ra, rb = (torch.nonzero(v1).flatten().tolist() + [130])[:2]
+    s = matchk.SPLIT_COLS
+    u2[5] = u2[3]                       # row ra: tied at columns 3 and 5 (split 0)
+    u1[ra] = u2[3]
+    u2[s + 4] = u2[2 * s + 88] = u1[rb]  # row rb: tied in splits 1 and 2
+    v2[[3, 5, s + 4, 2 * s + 88]] = True
+    for a, b, scale in ((u1.float(), u2.float(), 1.0), (u1.float() / 512, u2.float() / 512,
+                                                          2.0 ** 18)):
+        got = matchk.best2_l2_f32(a, b, v2, v1)
+        want = matchk.best2_l2(u1, u2, v2, v1)
+        for f, g, w in zip(("d1", "d2", "i1"), got, want):
+            g = g * scale if f != "i1" else g
+            assert torch.equal(g, w), f"{f} (1/{scale:g}): {int((g != w).sum())} rows differ from K7"
+    assert int(got[2][ra]) == 3 and float(got[0][ra]) == float(got[1][ra]) == 0.0
+    if rb != ra:
+        assert int(got[2][rb]) == s + 4 and float(got[0][rb]) == float(got[1][rb]) == 0.0
+
+    a, b, _, _ = _f32_match_inputs(rng, n1, n2, cuda)
+    got = matchk.best2_l2_f32(a, b, v2, v1)
+    again = matchk.best2_l2_f32(a, b, v2, v1)
+    want = matchk.best2_l2_ref(a, b, v2)
+    mag = (a * a).sum(1) + (b * b).sum(1).max()
+    for g, w in zip(got[:2], want[:2]):
+        assert bool((((g - w).abs() / mag)[v1] <= 1e-5).all())
+    near = (want[1] - want[0]) <= 1e-5 * mag
+    assert not bool((v1 & ~near & (got[2] != want[2])).any())
+    for f, g, w in zip(("d1", "d2", "i1"), got, again):
+        assert not g[~v1].any() and torch.equal(g, w), f"{f}: invalid rows or a second call"
+    reset_launch_counts()
+    named, other = _cuda_launches(lambda: matchk.best2_l2_f32(a, b, v2, v1),
+                                  "best2_l2_f32_kernel")
+    assert other == 0 and 1 <= named <= 3 and matchk.best2_l2_f32.launches == 16, (named, other)
+
+    _assert_graph_replays(matchk.best2_l2_f32, (a, b, v2, v1),
+                          lambda: _f32_match_inputs(rng, n1, n2, cuda), single)
 
 
 def _mask_edge_octaves(rng, cfg, cuda):

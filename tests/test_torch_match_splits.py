@@ -1,17 +1,34 @@
-"""K7's column splits on the CPU: ``matchk.best2_split_merge`` (each split's
-best-2, merged in ascending split order by the kernel's rule) equals
-``best2_l2_ref`` bit for bit on random u8 descriptors, with the minimum
-tied inside one split and across two splits, an all-invalid split, every
-column invalid, and N2 not a multiple of the split width.  Port only: no
-JAX."""
+"""K7's and K7f's column splits on the CPU: ``matchk.best2_split_merge``
+(each split's best-2, merged in ascending split order by the kernels'
+rule) equals ``best2_l2_ref`` bit for bit on random u8 descriptors, with
+the minimum tied inside one split and across two splits, an all-invalid
+split, every column invalid, and N2 not a multiple of the split width.
+For f32 operands (K7f's), at K7f's split width and at one that leaves a
+short last split, it is held to the JAX package's ``best2_l2_pallas`` in
+interpret mode on the same inputs, and equals ``best2_l2_ref`` bit for bit
+on integer-valued f32."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sift_pyocl_tpu.ops.pallas.matchk import best2_l2_pallas
+
 from sift_pyocl_tpu_torch.ops.kernels import matchk
 
 N1 = 300
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU runs: the suite's parallel
+    workers each take a thread per core by default, and small ops then
+    wait on oversubscribed cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _data(n2: int, seed: int, p_valid: float = 0.8):
@@ -96,3 +113,59 @@ def test_merge_rule_gives_the_lowest_column_in_any_order():
             out = matchk._merge(out, parts[k])
         for g, w in zip(out, want):
             assert torch.equal(g, w)
+
+
+# (N2, n_splits): K7f's split width with full splits, the same width with
+# a short last split (128, 128, 126), and another width with a short last
+# split (86, 86, 85)
+F32_SPLITS = [(3 * matchk.SPLIT_COLS, 3), (3 * matchk.SPLIT_COLS - 2, 3), (257, 3)]
+
+
+def _f32_data(n2: int, seed: int):
+    """u8 descriptors with the minimum tied inside one split (row 0:
+    columns 3 and 5) and across two (row 1: columns 150 and 40 + the last
+    split's first column), and a near-duplicate row (row 2)."""
+    d1, d2, v2 = _data(n2, seed)
+    last = (-(-n2 // 3)) * 2
+    d2[5] = d2[3]
+    d1[0] = d2[3]
+    d2[150] = d2[last + 40] = d1[1]
+    d1[2] = d2[10]
+    d1[2, 0] ^= 1
+    v2[[3, 5, 10, 150, last + 40]] = True
+    return d1, d2, v2
+
+
+@pytest.mark.parametrize("n2,n_splits", F32_SPLITS)
+def test_f32_splits_match_jax(n2, n_splits):
+    """K7f's merge on f32 values whose sums round (u8 over 255) against
+    best2_l2_pallas in interpret mode: d1/d2 within 1e-5 of |a|^2 + max
+    |b|^2 (the two sum the dot products in other orders; as
+    tests/test_torch_fused_mask.py::test_best2_f32_operands_match_jax), i1
+    equal except where the two best distances are that close."""
+    d1, d2, v2 = _f32_data(n2, n2 + 11)
+    a, b = d1.astype(np.float32) / 255.0, d2.astype(np.float32) / 255.0
+    p1, p2, pi = (np.asarray(x) for x in best2_l2_pallas(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(v2), interpret=True))
+    g1, g2, gi = (x.numpy() for x in matchk.best2_split_merge(
+        *(torch.from_numpy(x) for x in (a, b, v2)), n_splits))
+    mag = (a * a).sum(1) + (b[v2] * b[v2]).sum(1).max()
+    assert np.all(np.abs(g1 - p1) <= 1e-5 * mag)
+    assert np.all(np.abs(np.where(np.isinf(g2), 1e30, g2) - np.where(np.isinf(p2), 1e30, p2))
+                  <= 1e-5 * mag)
+    near = (p2 - p1) <= 1e-5 * mag
+    assert not np.any((gi != pi) & ~near)
+    # the planted ties: equal columns give equal distances, the lowest wins
+    assert gi[0] == 3 and g1[0] == g2[0] and gi[1] == 150 and g1[1] == g2[1]
+
+
+@pytest.mark.parametrize("n2,n_splits", F32_SPLITS)
+def test_f32_splits_exact_on_integer_values(n2, n_splits):
+    """On integer-valued f32 (and the same integers over 512) every sum is
+    exact, so the merged splits equal best2_l2_ref bit for bit, ties
+    included."""
+    d1, d2, v2 = _f32_data(n2, n2 + 12)
+    for scale in (1.0, 512.0):
+        a, b = d1.astype(np.float32) / scale, d2.astype(np.float32) / scale
+        want = _check(a, b, v2, n_splits)
+        assert int(want[2][0]) == 3 and int(want[2][1]) == 150

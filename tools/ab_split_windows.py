@@ -22,77 +22,17 @@ frame's 7 wrapper calls:
 ``k6_per_octave``: K6 (``orient_desc_fused``) launched once an octave on
 the same keypoints' unpadded planes, device ms a frame and a launch: the
 same boxes and sums in one launch an octave, a yardstick for the launches'
-fixed cost and tails.  ``--turns`` runs this script once a tree, each from
-its own root (``--root``), and prints one JSON object a run with the
-card's ``nvidia-smi`` name and power limit.  Requires a CUDA device.
+fixed cost and tails.  ``--turns`` runs this script once a tree
+(``tools/ab_turns.py``).  Requires a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
 import sys
-from pathlib import Path
+
+from ab_turns import event_ms, kernel_ms, main
 
 SHAPE = (1080, 1920)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def event_ms(fn, iters: int = 20) -> float:
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def device_events(fn, calls: int = 5, sessions: int = 5) -> list:
-    """The records of work on the card over `calls` calls of fn(), from the
-    fullest of `sessions` torch.profiler sessions (a lost record only ever
-    lowers a count)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from sift_pyocl_tpu_torch.utils import profiling
-
-    fn()
-    torch.cuda.synchronize()
-    best = []
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            profiling.open_session()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = profiling.device_events(prof)
-        if len(events) > len(best):
-            best = events
-    return best
-
-
-def kernel_ms(fn, name: str, calls: int = 5):
-    """(device ms a call of the kernels named `name`, device ms of each of
-    their launches in one call in launch order, CUDA launches a call)."""
-    ev = device_events(fn, calls)
-    named = sorted((e for e in ev if name in e.name), key=lambda e: e.time_range.start)
-    per = len(named) // calls
-    each = [sum(named[c * per + i].device_time_total for c in range(calls)) / 1e3 / calls
-            for i in range(per)]
-    return sum(e.device_time_total for e in named) / 1e3 / calls, each, len(ev) / calls
 
 
 def measure() -> dict:
@@ -133,7 +73,7 @@ def measure() -> dict:
         return (mag_p, ori_p, okps.s_int, okps.fr, okps.fc, od._sigma(cfg, okps.fs),
                 okps.angle, okps.valid, win_d)
 
-    out = {"card": nvidia_smi_line(), "torch": torch.__version__, "octaves": len(per)}
+    out = {"torch": torch.__version__, "octaves": len(per)}
     for name, args, valid_at in (("orientation_hist", ori_args, 6),
                                  ("descriptor_hist", desc_args, 7)):
         fn = getattr(window, name)
@@ -157,28 +97,5 @@ def measure() -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent),
-                    help="the tree whose sift_pyocl_tpu_torch is measured")
-    ap.add_argument("--turns", nargs="+", metavar="TREE",
-                    help="trees to measure in turns (A B: A, B, B, A), each in its own process")
-    args = ap.parse_args()
-    if args.turns:
-        order = args.turns + args.turns[::-1]
-        for tree in order:
-            root = str(Path(tree).resolve())
-            res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--root", root],
-                                 cwd=root, check=False)
-            if res.returncode:
-                return res.returncode
-        return 0
-    sys.path.insert(0, args.root)
-    res = measure()
-    res["tree"] = args.root
-    print(json.dumps(res), flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(__doc__, __file__, measure))
