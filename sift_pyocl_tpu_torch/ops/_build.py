@@ -41,6 +41,14 @@ MAX_ENTRIES = 64
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[Tuple[str, tuple], ctypes._CFuncPtr] = {}
+_events = {"builds": 0, "loads": 0}
+
+
+def build_counts() -> Dict[str, int]:
+    """How many times this process compiled the library (``build`` running
+    nvcc) and loaded it (``library``): a long run asserts that neither
+    grows after its first steps."""
+    return dict(_events)
 
 
 def nvcc_path() -> str:
@@ -79,6 +87,7 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _events["builds"] += 1
     cu, _ = _sources()
     nvcc = nvcc_path()
     tag = f"{out.stem}.{os.getpid()}"
@@ -125,6 +134,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
+            _events["loads"] += 1
             lib.sift_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sift_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

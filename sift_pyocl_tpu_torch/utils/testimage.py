@@ -1,9 +1,9 @@
 """Synthetic test scenes and keypoint-set comparison (numpy only).
 
-``synthetic_scene``, ``textured_scene`` (with ``_bilinear_upsample``) and
-``transformed_pair`` are copies of ``sift_pyocl_tpu/utils/testimage.py``'s
-(that package imports jax); ``tests/test_torch_config.py`` holds each equal
-to its original.  ``match_keypoint_sets`` is the set comparison of the JAX package's
+``synthetic_scene``, ``textured_scene`` (with ``_bilinear_upsample``),
+``blob_cloud``, ``render_point_cloud`` and ``transformed_pair`` are copies
+of ``sift_pyocl_tpu/utils/testimage.py``'s (that package imports jax);
+``tests/test_torch_config.py`` holds each equal to its original.  ``match_keypoint_sets`` is the set comparison of the JAX package's
 test suite (``tests/conftest.py``), so ``chip_smoke.py`` can hold the
 kernel path to the plain path with the suite's own measure.
 """
@@ -84,6 +84,69 @@ def textured_scene(shape=(256, 256), seed: int = 0) -> np.ndarray:
     # smooth multiplicative illumination gradient (diagonal, 0.55x-1.45x)
     g = 0.55 + 0.9 * (rr / max(h - 1, 1) + cc / max(w - 1, 1)) / 2.0
     img = (img - img.mean()) * g
+    img -= img.min()
+    img *= 255.0 / max(img.max(), 1e-9)
+    return img.astype(np.float32)
+
+
+def blob_cloud(n: int = 120, seed: int = 0, depth=(3.5, 8.0), span: float = 4.0):
+    """Random 3-D blob cloud in front of the origin (camera looks down +z).
+
+    Returns (points (n,3) f32, radii (n,) f32, amps (n,) f32): world-space
+    blob centres, physical radii, and signed intensity amplitudes — feed to
+    ``render_point_cloud`` to image the same rigid scene from many poses.
+    """
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(depth[0], depth[1], n)
+    x = rng.uniform(-span / 2, span / 2, n)
+    y = rng.uniform(-span / 2, span / 2, n)
+    pts = np.stack([x, y, z], axis=-1).astype(np.float32)
+    radii = rng.uniform(0.04, 0.22, n).astype(np.float32)
+    amps = (rng.uniform(60.0, 160.0, n) * rng.choice([-1.0, 1.0], n)).astype(
+        np.float32
+    )
+    return pts, radii, amps
+
+
+def render_point_cloud(points, radii, amps, K, R, t, shape=(256, 256),
+                       seed: int = 0) -> np.ndarray:
+    """Pinhole render of a 3-D blob cloud: each point becomes a Gaussian blob
+    whose on-screen sigma is ``f * radius / depth``, so the same physical blob
+    is re-detected by SIFT at a consistent scale from every viewpoint. Adds
+    the ``synthetic_scene`` smoothed-noise background (static per ``seed``,
+    i.e. attached to the image plane, not the world — keep its keypoints out
+    of geometric assertions by using enough cloud blobs).
+    """
+    points = np.asarray(points, np.float64)
+    h, w = shape
+    Xc = points @ np.asarray(R, np.float64).T + np.asarray(t, np.float64)
+    z = Xc[:, 2]
+    fx, fy = float(K[0][0]), float(K[1][1])
+    cx, cy = float(K[0][2]), float(K[1][2])
+    vis = z > 1e-3
+    u = np.where(vis, fx * Xc[:, 0] / np.where(vis, z, 1.0) + cx, -1e9)
+    v = np.where(vis, fy * Xc[:, 1] / np.where(vis, z, 1.0) + cy, -1e9)
+    sig = np.where(vis, fx * np.asarray(radii, np.float64) / np.where(vis, z, 1.0), 1.0)
+    rng = np.random.default_rng(seed)
+    coarse = rng.normal(size=(h // 16 + 2, w // 16 + 2))
+    ys = np.linspace(0, coarse.shape[0] - 1.001, h)
+    xs = np.linspace(0, coarse.shape[1] - 1.001, w)
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fyw = (ys - y0)[:, None]
+    fxw = (xs - x0)[None, :]
+    img = 30.0 * (
+        coarse[np.ix_(y0, x0)] * (1 - fyw) * (1 - fxw)
+        + coarse[np.ix_(y0 + 1, x0)] * fyw * (1 - fxw)
+        + coarse[np.ix_(y0, x0 + 1)] * (1 - fyw) * fxw
+        + coarse[np.ix_(y0 + 1, x0 + 1)] * fyw * fxw
+    )
+    rr = np.arange(h)[:, None]
+    cc = np.arange(w)[None, :]
+    for i in np.nonzero(vis & (u > -4 * sig) & (u < w + 4 * sig)
+                        & (v > -4 * sig) & (v < h + 4 * sig))[0]:
+        img += amps[i] * np.exp(
+            -((rr - v[i]) ** 2 + (cc - u[i]) ** 2) / (2 * sig[i] ** 2)
+        )
     img -= img.min()
     img *= 255.0 / max(img.max(), 1e-9)
     return img.astype(np.float32)
