@@ -31,20 +31,28 @@
    frames (the first slice's path, plain pyramid) with every launch counter
    reset just before, and holds its keypoints to the plain-version path.
 5. The main path: vo_init + 10 vo_step at 1080x1920 with SiftConfig() and
-   VOConfig(), counters reset just before and read just after; every frame
-   tracked with enough matches and a finite pose, K1-K6 launched once and K7
-   twice a frame; the same run with plain=True agrees (keypoint counts,
-   tracking, final camera centre, rotation).  Prints ms per step, the stage
-   split, device time and launches per step, and host syncs per step; gates
-   the per-step CUDA launches of K1's, K2's, K3's, K4's, K6's and K7's
-   kernels and K8's (STEP_LAUNCHES, from torch.profiler; P1 and P7
-   likewise), and each path's total at least the plain decode's launches
-   (measured in step 3) below that of the host-decode design
-   (LAUNCHES_BEFORE).
-6. P1: the same VO run with SiftConfig(mask_backend="pallas"): K8 once,
-   K1-K6 once and K7 twice a step, every frame's keypoint buffer equal to
-   the default run's and the final pose within 1e-6 of it; ms per step,
-   stage split, device time and launches beside the default mask's.
+   VOConfig().  vo_step on the card replays one CUDA graph per (shape, cfg,
+   vo) (utils/graphs.py): 10 eager steps (models.vo._vo_step_eager, every
+   frame's keypoint buffer kept) with K1-K6 launched once and K7 twice a
+   step, then the same 10 steps through vo_step from an empty graph cache,
+   counters reset just before and read just after (the step's body runs
+   twice, at the graph's warm-up and capture; replays count nothing), every
+   VOState field and VOOut of every step bit-equal to the eager steps',
+   every frame tracked with enough matches and a finite pose; the same run
+   with plain=True agrees (keypoint counts, tracking, final camera centre,
+   rotation).  Prints ms per step eager and replayed in turns (eager,
+   replay, replay, eager; median of the warm steps) beside nvidia-smi's
+   line, the stage split (eager), device time, launches and top ops of an
+   eager and a replayed step; gates the replayed step's CUDA launches of
+   K1's, K2's, K3's, K4's, K5's, K6's and K7's kernels and K8's
+   (STEP_LAUNCHES, from torch.profiler; P1 and P7 likewise), its total at
+   least the plain decode's launches (measured in step 3) below that of
+   the host-decode design (LAUNCHES_BEFORE), and its host syncs at 0.
+6. P1: the same with SiftConfig(mask_backend="pallas"): K8 once, K1-K6
+   once and K7 twice a step, replays bit-equal to eager steps, every
+   frame's keypoint buffer equal to the default run's and the final pose
+   within 1e-6 of it; ms per replayed step in turns against the default
+   mask's, stage split, device time and launches beside the default's.
 7. P2: SiftPlan.keypoints with kp_multi_launch=False: K10a, K10b and K6
    launched once per octave a frame, K3-K5 never; its keypoint buffer equal,
    bit for bit, to the multi-launch one with grad_backend="xla".
@@ -72,14 +80,14 @@
    stacks within 1e-3 and no mask pixel different away from a decision;
    K2m one CUDA launch a call and K1m at most 7; timed and profiled beside
    K1 + K8, K2 + K8 and the plain versions.
-13. P7: the main path with SiftConfig(mask_backend="fused"): K1m and K2m
-   once a step (their kernels gated per step: K2m's one cooperative
-   launch, K1m's six level launches and one mask launch), K1, K2 and
-   K8 never, the plain stencil never called, K3-K6
-   once and K7 twice a step, every frame's keypoint buffer equal to the
-   default run's, final pose within 1e-6; ms per step in turns (default,
-   fused, fused, default), stage split and device time beside P1's and the
-   default's.
+13. P7: the main path with SiftConfig(mask_backend="fused"), as step 5:
+   K1m and K2m once a step (their kernels gated per replayed step: K2m's
+   one cooperative launch, K1m's six level launches and one mask launch),
+   K1, K2 and K8 never, the plain stencil never called, K3-K6 once and K7
+   twice a step, replays bit-equal to eager steps, every frame's keypoint
+   buffer equal to the default run's, final pose within 1e-6; ms per
+   replayed step in turns (default, fused, fused, default), stage split and
+   device time beside P1's and the default's.
 14. SiftPlan.keypoints with SiftConfig(mask_backend="fused", scales=2):
    octave 0 through K9 and the stencil (the fused mask's None fallback),
    octaves >= 1 through K2m; buffer equal to scales=2 without fusion,
@@ -157,12 +165,16 @@
    its parity, not scaling across cards.
 21. Phase F: the 200-frame VO fence (tests/test_vo_longrun.py's 224x224
    blob-cloud orbit and settings; utils/longrun.py) through vo_init /
-   vo_step on the kernels: the reference test's asserts (finite state every
-   25 frames, tracked >= 0.95, 0.45 < path ratio < 2.5, ATE < 0.35, RSS
-   growth < 500 MB), no kernel library built or loaded and no carried
-   shape changed after frame 2, memory_allocated flat within 1 MiB from
-   frame 2 to the last, K1-K6 once a frame and K7 twice a step.  Prints ms
-   a warm step (median), tracked, ATE, path ratio, max_memory_allocated.
+   vo_step on the kernels, vo_step replaying its graph (captured once, at
+   the first step): the reference test's asserts (finite state every 25
+   frames, tracked >= 0.95, 0.45 < path ratio < 2.5, ATE < 0.35, RSS growth
+   < 500 MB), no kernel library built or loaded and no carried shape
+   changed after frame 2, memory_allocated flat within 1 MiB from frame 2
+   to the last, the step's body run twice (warm-up and capture), a replayed
+   step launching each kernel once and K7 twice (torch.profiler); then the
+   same run with the eager step, whose tracked, ATE and path ratio the
+   graph's equal.  Prints ms a warm step (median) of both runs, tracked,
+   ATE, path ratio, max_memory_allocated.
 22. Phase G: BASELINE config 2 (tools/bench_configs.py's config2_*),
    pairwise 1080p matching: the pair (a frame and its vertical flip:
    detect, L2 ratio match at 0.5329^2, RANSAC-H) with its match and fit
@@ -175,11 +187,15 @@
    launches and device ms.
 23. Phase H: the evaluate CLI on the card over config 4's frames written as
    PGM and TUM files (save_sequence), read by the native loader: sfm mode
-   50 of 50 registered, ATE < 0.12; vo mode ATE < 0.17 (twice the JAX
-   package's 0.0848 on the same files).
+   50 of 50 registered, ATE < 0.12; vo mode (vo_step's graph) ATE < 0.17
+   (twice the JAX package's 0.0848 on the same files), its JSON line equal
+   to the eager step's run on the same files.
 24. Prints the card's nvidia-smi line again, a JSON line of per-kernel
-   results (16 rows, launches from the path that runs each kernel,
-   config3_launches for K3-K6 and K8 from phase D, cuda_launches and
+   results (16 rows, launches from the path that runs each kernel: on
+   the VO paths the wrapper calls of the replayed steps, from a replayed
+   step's device profile, with capture_launches the wrappers' counters
+   over the graph's warm-up and capture; config3_launches for K3-K6 and
+   K8 from phase D, cuda_launches and
    device_ms a wrapper call from the profiler), then, as its last line,
    {"ok": true, "device": {...}}.
 
@@ -854,39 +870,50 @@ def frontend_recorder(bufs: list):
         vo_mod.detect_and_describe = frontend
 
 
-def run_vo(imgs, K, cfg, vo, plain: bool, bufs=None):
-    """vo_init + VO_STEPS vo_step; returns (state, outs, step ms, init
-    counts).  With a list `bufs`, every frame's KeypointBuffer goes in it."""
+def run_vo(imgs, K, cfg, vo, plain: bool, bufs=None, eager: bool = False):
+    """vo_init + VO_STEPS steps; returns (states, outs, step ms, init
+    counts), a state and an output for each step.  The steps are vo_step's
+    (on the card one CUDA graph; the first step of a key new to
+    STEP_GRAPHS captures it), or with `eager` the eager step's.  With a
+    list `bufs` (eager or plain only: a replay runs no Python), every
+    frame's KeypointBuffer goes in it."""
     from sift_pyocl_tpu_torch import vo_init, vo_step
+    from sift_pyocl_tpu_torch.models.vo import _vo_step_eager
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
+    if bufs is not None and not (eager or plain):
+        raise ValueError("keypoint buffers are recorded from eager steps only")
+    step = _vo_step_eager if eager else vo_step
     with frontend_recorder([] if bufs is None else bufs):
         reset_launch_counts()
         state = vo_init(imgs[0], K, cfg, vo, plain=plain)
         init_counts = launch_counts()
         torch.cuda.synchronize()
         reset_launch_counts()
-        outs, ms = [], []
+        states, outs, ms = [], [], []
         for img in imgs[1:VO_STEPS + 1]:
             t = time.perf_counter()
-            state, out = vo_step(state, img, K, cfg, vo, plain=plain)
+            state, out = step(state, img, K, cfg, vo, plain=plain)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t))
+            states.append(state)
             outs.append(out)
-    return state, outs, ms, init_counts
+    return states, outs, ms, init_counts
 
 
-def timed_vo_steps(imgs, K, cfg, vo):
-    """vo_init + VO_STEPS vo_step; per step the wall ms (synchronised) and
-    the host thread's CPU ms."""
+def timed_vo_steps(imgs, K, cfg, vo, eager: bool = False):
+    """vo_init + VO_STEPS steps (vo_step, or with `eager` the eager step);
+    per step the wall ms (synchronised) and the host thread's CPU ms."""
     from sift_pyocl_tpu_torch import vo_init, vo_step
+    from sift_pyocl_tpu_torch.models.vo import _vo_step_eager
 
+    step = _vo_step_eager if eager else vo_step
     state = vo_init(imgs[0], K, cfg, vo)
     torch.cuda.synchronize()
     wall, cpu = [], []
     for img in imgs[1:VO_STEPS + 1]:
         t, c = time.perf_counter(), time.thread_time()
-        state, _ = vo_step(state, img, K, cfg, vo)
+        state, _ = step(state, img, K, cfg, vo)
         torch.cuda.synchronize()
         wall.append(1e3 * (time.perf_counter() - t))
         cpu.append(1e3 * (time.thread_time() - c))
@@ -898,33 +925,40 @@ VO_KERNELS = ("octave0_ladder", "small_octaves_ladder", "compact_masks_multi", "
 
 
 FUSED_LADDERS = ("octave0_ladder_mask", "small_octaves_ladder_mask")
+# The step's Python body runs twice in a run of vo_step on a key new to the
+# graph cache: the warm-up on the capture stream and the capture.  The
+# wrappers count there (a launch into the stream, then into the graph); a
+# replay runs no Python, and its launches are read from torch.profiler.
+GRAPH_BODIES = 2
 
 
-def check_vo_counts(init_counts, counts, extra=(), ladders=VO_KERNELS[:2]):
+def check_vo_counts(init_counts, counts, extra=(), ladders=VO_KERNELS[:2], bodies=VO_STEPS):
     """The ladders (K1/K2, or `ladders`), K3-K6 (and `extra`) once in
-    vo_init and once a step, K7 twice a step, every other kernel never."""
+    vo_init and once in each of `bodies` runs of the step's body, K7 twice,
+    every other kernel never."""
     on_path = tuple(ladders) + VO_KERNELS[2:] + tuple(extra)
     for name, n in init_counts.items():
         want = 1 if name in on_path and name != "best2_l2" else 0
         assert n == want, f"vo_init: {name} launched {n} times (want {want})"
     for name, n in counts.items():
-        want = (2 if name == "best2_l2" else 1) * VO_STEPS if name in on_path else 0
-        assert n == want, f"{name} launched {n} times in {VO_STEPS} steps (want {want})"
+        want = (2 if name == "best2_l2" else 1) * bodies if name in on_path else 0
+        assert n == want, f"{name} launched {n} times in {bodies} step bodies (want {want})"
 
 
-# Per-step CUDA launches of the redesigned kernels on a VO path (kernel name
-# substrings in torch.profiler's trace): K2's one cooperative launch and
-# K3's one launch, where the per-level design launched 35 level and downsample kernels
-# (and a copy) for K2 and three kernels (and a fill) for K3; K1's six level
-# launches; K6's one launch, where its wrapper launched 12 more; K7's one
-# launch a call (map and keyframe), where its wrapper cast both valid masks
-# first; K8's one launch on P1; K4's one launch, where its wrapper cast the
-# valid mask and its caller decoded K3's output in ~100 small launches.  On
-# P7, K2m is small_octaves_kernel_masks (one launch, was 41.6 a call), and
-# K1m is K1's six level launches and one launch of K8's mask_kernel.
+# Per-step CUDA launches of the hand-written kernels on a VO path (kernel
+# name substrings in torch.profiler's trace of a replayed step): K2's one
+# cooperative launch and K3's one launch, where the per-level design
+# launched 35 level and downsample kernels (and a copy) for K2 and three
+# kernels (and a fill) for K3; K1's six level launches; K5's one launch; K6's
+# one launch, where its wrapper launched 12 more; K7's one launch a call (map
+# and keyframe), where its wrapper cast both valid masks first; K8's one
+# launch on P1; K4's one launch, where its wrapper cast the valid mask and
+# its caller decoded K3's output in ~100 small launches.  On P7, K2m is
+# small_octaves_kernel_masks (one launch, was 41.6 a call), and K1m is K1's
+# six level launches and one launch of K8's mask_kernel.
 STEP_LAUNCHES = {"small_octaves_kernel": 1, "compact_kernel": 1,
-                 "blur_level_kernel": 6, "orient_desc_kernel": 1, "best2_l2_kernel": 2,
-                 "mask_kernel": 0, "refine_kernel": 1}
+                 "blur_level_kernel": 6, "grad_kernel": 1, "orient_desc_kernel": 1,
+                 "best2_l2_kernel": 2, "mask_kernel": 0, "refine_kernel": 1}
 STEP_LAUNCHES_P1 = {**STEP_LAUNCHES, "mask_kernel": 1}
 STEP_LAUNCHES_FUSED = {**STEP_LAUNCHES, "mask_kernel": 1}
 # CUDA launches a step with the host-side decode before K4 (this script on
@@ -933,19 +967,50 @@ STEP_LAUNCHES_FUSED = {**STEP_LAUNCHES, "mask_kernel": 1}
 LAUNCHES_BEFORE = {"main path": 3548, "P1": 2639, "P7": 2639}
 
 
-def check_step_launches(tag: str, prof: dict, want: dict, decode_launches: float) -> None:
-    """Gate a VO path's per-step launches of each kernel in `want` (from the
-    device profile of its warm steps), and its total: at least
-    `decode_launches` (the plain decode's CUDA launches, measured in this
-    run) below LAUNCHES_BEFORE[tag]."""
-    by_name = prof.pop("launches_by_name_per_frame")
+# Each VO-path wrapper's kernel (a name substring in torch.profiler's
+# trace) and its CUDA launches a wrapper call: K1 and K1m launch six level
+# kernels a call (K1m's mask launch is counted by the levels), K2m's kernel
+# is small_octaves_kernel_masks.
+GRAPH_PATH_KERNELS = {"octave0_ladder": ("blur_level_kernel", 6),
+                      "small_octaves_ladder": ("small_octaves_kernel", 1),
+                      "compact_masks_multi": ("compact_kernel", 1),
+                      "refine_multi": ("refine_kernel", 1), "grad_atlas": ("grad_kernel", 1),
+                      "orient_desc_fused": ("orient_desc_kernel", 1),
+                      "best2_l2": ("best2_l2_kernel", 1), "extrema_masks": ("mask_kernel", 1),
+                      "octave0_ladder_mask": ("blur_level_kernel", 6),
+                      "small_octaves_ladder_mask": ("small_octaves_kernel", 1)}
+
+
+def graph_path_calls(name: str, replay_launches: dict) -> int:
+    """A VO-path wrapper's calls in one replayed step, from that step's
+    gated CUDA launches by kernel name (check_step_launches)."""
+    kernel, per_call = GRAPH_PATH_KERNELS[name]
+    calls, rest = divmod(replay_launches[kernel], per_call)
+    assert calls > 0 and rest == 0, f"{name}: {replay_launches[kernel]} launches of {kernel}"
+    return calls
+
+
+def check_kernel_launches(tag: str, by_name: dict, want: dict) -> dict:
+    """Gate the launches of each kernel in `want` (name substrings) in a
+    profile's launches by name; returns them."""
     got = {k: sum(n for name, n in by_name.items() if k in name) for k in want}
-    total = prof["kernel_launches_per_frame"]
-    print(f"{tag}: CUDA launches a step {total:.0f} (was {LAUNCHES_BEFORE[tag]}, the "
-          f"decode alone {decode_launches:g}); of the redesigned kernels {got}", flush=True)
     assert got == want, f"{tag}: launches a step {got}, want {want}"
+    return got
+
+
+def check_step_launches(tag: str, prof: dict, want: dict, decode_launches: float) -> dict:
+    """Gate a VO path's per-step launches of each kernel in `want` (from the
+    device profile of a replayed step), and its total: at least
+    `decode_launches` (the plain decode's CUDA launches, measured in this
+    run) below LAUNCHES_BEFORE[tag]; returns the gated launches."""
+    by_name = prof.pop("launches_by_name_per_frame")
+    total = prof["kernel_launches_per_frame"]
+    got = check_kernel_launches(tag, by_name, want)
+    print(f"{tag}: CUDA launches a replayed step {total:.0f} (was {LAUNCHES_BEFORE[tag]}, the "
+          f"decode alone {decode_launches:g}); of the hand-written kernels {got}", flush=True)
     assert total <= LAUNCHES_BEFORE[tag] - decode_launches, \
         f"{tag}: {total} CUDA launches a step, not {decode_launches} below {LAUNCHES_BEFORE[tag]}"
+    return got
 
 
 def host_syncs(fn) -> list:
@@ -970,35 +1035,117 @@ def check_tracked(outs, vo):
         assert torch.isfinite(o.R).all() and torch.isfinite(o.t).all(), f"frame {i + 1}: pose"
 
 
-def check_vo(dev, decode_launches: float) -> dict:
-    """The main path: vo_init + VO_STEPS vo_step at 1080x1920, defaults.
-    Returns what P1 is compared with: the frames, K, counts, every frame's
-    keypoint buffer, the outputs, step ms, stage split, device profile and
-    `decode_launches` (check_step_launches)."""
-    from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_step
+def check_steps_equal(tag: str, states, outs, want_states, want_outs) -> None:
+    """Every VOState field and VOOut of every step bit-equal."""
+    assert len(states) == len(want_states) == len(outs) == len(want_outs) == VO_STEPS
+    for i, pairs in enumerate(zip(states, outs, want_states, want_outs)):
+        got_s, got_o, want_s, want_o = pairs
+        for name, g, w in zip(got_s._fields + got_o._fields, (*got_s, *got_o),
+                              (*want_s, *want_o)):
+            assert g.dtype == w.dtype and g.shape == w.shape, f"{tag} step {i + 1}: {name}"
+            assert torch.equal(g, w), \
+                f"{tag} step {i + 1}: {name} differs in {int((g != w).sum())} places"
+
+
+def _ms(ms) -> str:
+    return (f"median {np.median(ms[1:]):.3f} (mean {np.mean(ms[1:]):.3f}, range "
+            f"{min(ms[1:]):.3f}-{max(ms[1:]):.3f})")
+
+
+def drive_vo_path(tag: str, cfg, vo, imgs, K, want: dict, decode_launches: float,
+                  count_kw: dict) -> dict:
+    """One VO path at 1080x1920 (`tag`: "main path", P1 or P7): VO_STEPS
+    eager steps with their counters and every frame's keypoint buffer; the
+    same steps through vo_step from an empty graph cache with their counters
+    (the body runs at the warm-up and the capture only), every state field
+    and output bit-equal to the eager steps'; eager and replayed ms a step in
+    turns (eager, replay, replay, eager), beside nvidia-smi's line; the
+    stage split (eager: its stage callbacks are host calls); an eager step's
+    and a replayed step's device profile, the replayed step's per-kernel
+    launches gated by `want` and its total by LAUNCHES_BEFORE; a replayed
+    step's host syncs (none)."""
+    from sift_pyocl_tpu_torch import vo_step
+    from sift_pyocl_tpu_torch.models.vo import STEP_GRAPHS, _vo_step_eager
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts
+    from sift_pyocl_tpu_torch.utils import profiling
+
+    run_vo(imgs[:3], K, cfg, vo, plain=False, eager=True)    # warm-up: allocator, cuDNN
+    bufs = []
+    estates, eouts, ems, einit = run_vo(imgs, K, cfg, vo, plain=False, bufs=bufs, eager=True)
+    ecounts = launch_counts()
+    print(f"{tag}: launch counts over {VO_STEPS} eager steps:", ecounts, flush=True)
+    check_vo_counts(einit, ecounts, **count_kw)
+    STEP_GRAPHS.clear()
+    captures = STEP_GRAPHS.captures
+    states, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False)
+    counts = launch_counts()
+    print(f"{tag}: launch counts over {VO_STEPS} vo_step (the graph's warm-up and capture; "
+          f"replays count nothing):", counts, flush=True)
+    check_vo_counts(init_counts, counts, bodies=GRAPH_BODIES, **count_kw)
+    assert STEP_GRAPHS.captures == captures + 1 and len(STEP_GRAPHS) == 1
+    check_steps_equal(tag, states, outs, estates, eouts)
+    check_tracked(outs, vo)
+    print(f"{tag}: {VO_STEPS} replayed steps bit-equal to the eager steps in every VOState "
+          f"field and VOOut; vo_step {SHAPE} ms (host clock, synchronised; the first "
+          f"captures): {[round(m, 3) for m in step_ms]}; eager "
+          f"{[round(m, 3) for m in ems]}", flush=True)
+    turns = {"eager": [], "replay": []}
+    smi = nvidia_smi_line()
+    for turn in ("eager", "replay", "replay", "eager"):
+        gc.collect()
+        wall, cpu = timed_vo_steps(imgs, K, cfg, vo, eager=turn == "eager")
+        turns[turn].append(float(np.median(wall[1:])))
+        print(f"  {tag} turn {turn}: warm ms/step {_ms(wall)}, host thread CPU ms/step "
+              f"{np.mean(cpu[1:]):.3f}  [{smi}]", flush=True)
+    rest = iter(imgs[VO_STEPS + 1:])
+    state, stages = profiling.vo_stage_ms(states[-1], [next(rest) for _ in range(3)], K, cfg, vo)
+    print(f"{tag}: vo stage split (eager step, device ms, CUDA events):",
+          {k: round(v, 3) for k, v in stages.items()}, flush=True)
+    box = [state]
+
+    def one(step):
+        box[0], _ = step(box[0], next(rest), K, cfg, vo)
+
+    eager_prof = profiling.device_profile(lambda: one(_vo_step_eager), 1, sessions=2)
+    eager_prof.pop("launches_by_name_per_frame")
+    prof = profiling.device_profile(lambda: one(vo_step), 1, sessions=2)
+    replay_launches = check_step_launches(tag, prof, want, decode_launches)
+    for name, p in (("eager step", eager_prof), ("replayed step", prof)):
+        print(f"{tag}: {name}: device ms {p['kernel_ms_per_frame']:.3f}, CUDA launches "
+              f"{p['kernel_launches_per_frame']:.0f}, busy share {p['busy_share']:.3f}; top ops "
+              f"{json.dumps([[n, round(ms, 4)] for n, ms in p['top_kernels_ms_per_frame']])}",
+              flush=True)
+    syncs = host_syncs(lambda: one(vo_step))
+    print(f"{tag}: host synchronisations in one replayed vo_step: {len(syncs)}", flush=True)
+    for line in sorted(set(syncs)):
+        print("  sync:", line[:160])
+    assert not syncs, f"{tag}: a replayed step synchronised the host {len(syncs)} times"
+    return {"counts": counts, "replay_launches": replay_launches, "bufs": bufs, "outs": outs,
+            "step_ms": step_ms, "stages": stages, "profile": prof, "eager_profile": eager_prof,
+            "turns": turns}
+
+
+def check_vo(dev, decode_launches: float) -> dict:
+    """The main path: vo_init + VO_STEPS vo_step at 1080x1920, defaults
+    (drive_vo_path), and the plain path beside it.  Returns what P1 and P7
+    are compared with: the frames, K, counts, every frame's keypoint buffer
+    (eager), the outputs, step ms, stage split, device profile and
+    `decode_launches` (check_step_launches)."""
+    from sift_pyocl_tpu_torch import SiftConfig, VOConfig
     from sift_pyocl_tpu_torch.utils import profiling
 
     cfg, vo = SiftConfig(), VOConfig()
     h, w = SHAPE
     K = torch.tensor([[1000.0, 0, w / 2], [0, 1000.0, h / 2], [0, 0, 1]], device=dev)
-    host = profiling.vo_frames(SHAPE, VO_STEPS + 8)
+    host = profiling.vo_frames(SHAPE, VO_STEPS + 12)
     imgs = [torch.from_numpy(f).to(dev) for f in host]
-    run_vo(imgs[:3], K, cfg, vo, plain=False)      # warm-up: allocator, cuDNN
-    bufs = []
-    state, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False, bufs=bufs)
-    counts = launch_counts()
-    print("vo_init launch counts:", init_counts, flush=True)
-    print(f"launch counts over {VO_STEPS} vo_step:", counts, flush=True)
-    check_vo_counts(init_counts, counts)
-    check_tracked(outs, vo)
+    run = drive_vo_path("main path", cfg, vo, imgs, K, STEP_LAUNCHES, decode_launches, {})
+    outs = run["outs"]
     print("n_kp", [int(o.n_kp) for o in outs], "n_matches", [int(o.n_matches) for o in outs],
           "rms_px", [round(float(o.rms_px), 3) for o in outs], flush=True)
-    print(f"vo_step {SHAPE} ms (host clock, synchronised): {[round(m, 3) for m in step_ms]}; "
-          f"warm mean (steps 2-{VO_STEPS}) {np.mean(step_ms[1:]):.3f}", flush=True)
 
     # the kernel path against the plain path on the same card
-    pstate, pouts, pms, _ = run_vo(imgs, K, cfg, vo, plain=True)
+    _, pouts, pms, _ = run_vo(imgs, K, cfg, vo, plain=True)
     for i, (o, p) in enumerate(zip(outs, pouts)):
         assert abs(int(o.n_kp) - int(p.n_kp)) <= max(2, int(p.n_kp) // 50), (i, int(o.n_kp), int(p.n_kp))
         assert bool(o.tracked) == bool(p.tracked), i
@@ -1013,81 +1160,62 @@ def check_vo(dev, decode_launches: float) -> dict:
           f"rotation gap {rot_deg:.4g} deg; plain ms/step {np.mean(pms[1:]):.3f}", flush=True)
     assert dc <= 0.05 * travelled, f"camera centre {dc} apart over {travelled}"
     assert rot_deg <= 0.1, f"rotation {rot_deg} deg apart"
+    print("vo_step device profile (a replay):", json.dumps(run["profile"]), flush=True)
+    return {**run, "imgs": imgs, "K": K, "decode_launches": decode_launches}
 
-    # stage split, device profile and host synchronisations of warm steps
-    rest = iter(imgs[VO_STEPS + 1:])
-    state, stages = profiling.vo_stage_ms(state, [next(rest) for _ in range(3)], K, cfg, vo)
-    print("vo stage split (device ms, CUDA events):",
-          {k: round(v, 3) for k, v in stages.items()}, flush=True)
-    box = [state]
 
-    def one():
-        box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
+def check_vo_against_base(tag: str, run: dict, base: dict) -> float:
+    """A mask backend's run against the default's on the same frames: every
+    frame's keypoint buffer equal, the final pose within 1e-6."""
+    assert len(run["bufs"]) == len(base["bufs"]) == VO_STEPS + 1
+    for i, (a, b) in enumerate(zip(run["bufs"], base["bufs"])):
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f"{tag} frame {i}: {f} differs"
+    outs = run["outs"]
+    gap = max(float((outs[-1].R - base["outs"][-1].R).abs().max()),
+              float((outs[-1].t - base["outs"][-1].t).abs().max()))
+    assert gap <= 1e-6, f"{tag}: final pose {gap} from the default mask's run"
+    print(f"{tag}: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
+          f"mask's, final pose {gap:.3g} apart", flush=True)
+    return gap
 
-    prof = profiling.device_profile(one, 1, sessions=2)
-    check_step_launches("main path", prof, STEP_LAUNCHES, decode_launches)
-    print("vo_step device profile:", json.dumps(prof), flush=True)
-    syncs = host_syncs(one)
-    print(f"host synchronisations in one vo_step: {len(syncs)}", flush=True)
-    for line in sorted(set(syncs)):
-        print("  sync:", line[:160])
-    return {"imgs": imgs, "K": K, "counts": counts, "bufs": bufs, "outs": outs,
-            "step_ms": step_ms, "stages": stages, "profile": prof,
-            "decode_launches": decode_launches}
+
+def mask_turns(tags_cfgs, imgs, K, vo) -> None:
+    """Two mask backends' replayed steps in turns (a, b, b, a) in this one
+    process: warm steps' wall ms and the host thread's CPU ms."""
+    for tag, turn_cfg in tags_cfgs:
+        gc.collect()
+        wall, cpu = timed_vo_steps(imgs, K, turn_cfg, vo)
+        print(f"  turn {tag} (replayed): warm ms/step {_ms(wall)}, host thread CPU ms/step "
+              f"{np.mean(cpu[1:]):.3f}", flush=True)
+
+
+def print_vo_paths(runs) -> None:
+    for tag, run in runs:
+        ms, dev_prof = run["step_ms"], run["profile"]
+        print(f"  {tag}: replayed ms/step warm {_ms(ms)}; eager stage split "
+              f"{({k: round(v, 3) for k, v in run['stages'].items()})}; device ms/step "
+              f"{dev_prof['kernel_ms_per_frame']:.3f} (eager "
+              f"{run['eager_profile']['kernel_ms_per_frame']:.3f}), launches/step "
+              f"{dev_prof['kernel_launches_per_frame']:.0f} (eager "
+              f"{run['eager_profile']['kernel_launches_per_frame']:.0f}), busy share "
+              f"{dev_prof['busy_share']:.3f}", flush=True)
 
 
 def check_vo_k8(base: dict) -> dict:
     """P1: the main path with SiftConfig(mask_backend="pallas"), against the
     default mask's run of check_vo on the same frames."""
-    from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_step
-    from sift_pyocl_tpu_torch.ops.kernels import launch_counts
-    from sift_pyocl_tpu_torch.utils import profiling
+    from sift_pyocl_tpu_torch import SiftConfig, VOConfig
 
     cfg, vo = SiftConfig(mask_backend="pallas"), VOConfig()
     imgs, K = base["imgs"], base["K"]
-    run_vo(imgs[:3], K, cfg, vo, plain=False)      # warm-up
-    bufs = []
-    state, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False, bufs=bufs)
-    counts = launch_counts()
-    print(f"P1 (mask_backend='pallas') launch counts over {VO_STEPS} vo_step:", counts,
-          flush=True)
-    check_vo_counts(init_counts, counts, extra=("extrema_masks",))
-    check_tracked(outs, vo)
-    assert len(bufs) == len(base["bufs"]) == VO_STEPS + 1
-    for i, (a, b) in enumerate(zip(bufs, base["bufs"])):
-        for f in a._fields:
-            assert torch.equal(getattr(a, f), getattr(b, f)), f"frame {i}: {f} differs"
-    gap = max(float((outs[-1].R - base["outs"][-1].R).abs().max()),
-              float((outs[-1].t - base["outs"][-1].t).abs().max()))
-    assert gap <= 1e-6, f"final pose {gap} from the default mask's run"
-    rest = iter(imgs[VO_STEPS + 1:])
-    state, stages = profiling.vo_stage_ms(state, [next(rest) for _ in range(3)], K, cfg, vo)
-    box = [state]
-
-    def one():
-        box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
-
-    prof = profiling.device_profile(one, 1, sessions=2)
-    check_step_launches("P1", prof, STEP_LAUNCHES_P1, base["decode_launches"])
-    print(f"P1: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
-          f"mask's, final pose {gap:.3g} apart", flush=True)
-    # the two mask backends in turns (default, K8, K8, default) in this one
-    # process: warm steps' wall ms and the host thread's CPU ms
-    for tag, turn_cfg in (("default", SiftConfig()), ("K8", cfg), ("K8", cfg),
-                          ("default", SiftConfig())):
-        gc.collect()
-        wall, cpu = timed_vo_steps(imgs, K, turn_cfg, vo)
-        print(f"  turn {tag}: warm ms/step {np.mean(wall[1:]):.3f} (range {min(wall[1:]):.3f}-"
-              f"{max(wall[1:]):.3f}), host thread CPU ms/step {np.mean(cpu[1:]):.3f}", flush=True)
-    for tag, ms, st, dev_prof in (("default mask", base["step_ms"], base["stages"],
-                                   base["profile"]), ("K8 mask", step_ms, stages, prof)):
-        print(f"  {tag}: ms/step warm mean {np.mean(ms[1:]):.3f} (range {min(ms[1:]):.3f}-"
-              f"{max(ms[1:]):.3f}); stage split {({k: round(v, 3) for k, v in st.items()})}; "
-              f"device ms/step {dev_prof['kernel_ms_per_frame']:.3f}, launches/step "
-              f"{dev_prof['kernel_launches_per_frame']:.0f}, busy share "
-              f"{dev_prof['busy_share']:.3f}",
-              flush=True)
-    return {"counts": counts, "step_ms": step_ms, "stages": stages, "profile": prof}
+    run = drive_vo_path("P1", cfg, vo, imgs, K, STEP_LAUNCHES_P1, base["decode_launches"],
+                        {"extra": ("extrema_masks",)})
+    check_vo_against_base("P1", run, base)
+    mask_turns((("default", SiftConfig()), ("K8", cfg), ("K8", cfg), ("default", SiftConfig())),
+               imgs, K, vo)
+    print_vo_paths((("default mask", base), ("K8 mask", run)))
+    return run
 
 
 def check_per_octave(img, dev) -> dict:
@@ -1590,60 +1718,24 @@ def check_fused_masks(x: torch.Tensor, rec: Kernels) -> None:
 
 def check_vo_fused(base: dict, p1: dict) -> dict:
     """P7: the main path with SiftConfig(mask_backend="fused"), against the
-    default mask's run of check_vo on the same frames, beside P1."""
-    from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_step
-    from sift_pyocl_tpu_torch.ops.kernels import launch_counts
+    default mask's run of check_vo on the same frames, beside P1; the plain
+    stencil never called (eager steps, the graph's warm-up and capture)."""
+    from sift_pyocl_tpu_torch import SiftConfig, VOConfig
     from sift_pyocl_tpu_torch.ops.kernels.maskk import stencil_mask
-    from sift_pyocl_tpu_torch.utils import profiling
 
     cfg, vo = SiftConfig(mask_backend="fused"), VOConfig()
     imgs, K = base["imgs"], base["K"]
-    run_vo(imgs[:3], K, cfg, vo, plain=False)      # warm-up
-    bufs = []
     stencil_mask.calls = 0
-    state, outs, step_ms, init_counts = run_vo(imgs, K, cfg, vo, plain=False, bufs=bufs)
-    counts = launch_counts()
-    stencil_calls = stencil_mask.calls
-    print(f"P7 (mask_backend='fused') launch counts over {VO_STEPS} vo_step:", counts,
-          f"plain stencil calls (vo_init and the steps): {stencil_calls}", flush=True)
-    check_vo_counts(init_counts, counts, ladders=FUSED_LADDERS)
-    assert stencil_calls == 0, f"the plain stencil ran {stencil_calls} times on the fused path"
-    check_tracked(outs, vo)
-    assert len(bufs) == len(base["bufs"]) == VO_STEPS + 1
-    for i, (a, b) in enumerate(zip(bufs, base["bufs"])):
-        for f in a._fields:
-            assert torch.equal(getattr(a, f), getattr(b, f)), f"P7 frame {i}: {f} differs"
-    gap = max(float((outs[-1].R - base["outs"][-1].R).abs().max()),
-              float((outs[-1].t - base["outs"][-1].t).abs().max()))
-    assert gap <= 1e-6, f"P7: final pose {gap} from the default mask's run"
-    rest = iter(imgs[VO_STEPS + 1:])
-    state, stages = profiling.vo_stage_ms(state, [next(rest) for _ in range(3)], K, cfg, vo)
-    box = [state]
-
-    def one():
-        box[0], _ = vo_step(box[0], next(rest), K, cfg, vo)
-
-    prof = profiling.device_profile(one, 1, sessions=2)
-    check_step_launches("P7", prof, STEP_LAUNCHES_FUSED, base["decode_launches"])
-    print(f"P7: {VO_STEPS} frames tracked, every keypoint buffer equal to the default "
-          f"mask's, final pose {gap:.3g} apart", flush=True)
-    for tag, turn_cfg in (("default", SiftConfig()), ("fused", cfg), ("fused", cfg),
-                          ("default", SiftConfig())):
-        gc.collect()
-        wall, cpu = timed_vo_steps(imgs, K, turn_cfg, vo)
-        print(f"  turn {tag}: warm ms/step {np.mean(wall[1:]):.3f} (range {min(wall[1:]):.3f}-"
-              f"{max(wall[1:]):.3f}), host thread CPU ms/step {np.mean(cpu[1:]):.3f}", flush=True)
-    for tag, run in (("default mask", base), ("K8 mask (P1)", p1),
-                     ("fused mask (P7)", {"step_ms": step_ms, "stages": stages,
-                                          "profile": prof})):
-        ms, dev_prof = run["step_ms"], run["profile"]
-        print(f"  {tag}: ms/step warm mean {np.mean(ms[1:]):.3f} (range {min(ms[1:]):.3f}-"
-              f"{max(ms[1:]):.3f}); stage split "
-              f"{({k: round(v, 3) for k, v in run['stages'].items()})}; device ms/step "
-              f"{dev_prof['kernel_ms_per_frame']:.3f}, launches/step "
-              f"{dev_prof['kernel_launches_per_frame']:.0f}, busy share "
-              f"{dev_prof['busy_share']:.3f}", flush=True)
-    return counts
+    run = drive_vo_path("P7", cfg, vo, imgs, K, STEP_LAUNCHES_FUSED, base["decode_launches"],
+                        {"ladders": FUSED_LADDERS})
+    print(f"P7: plain stencil calls (vo_init and the steps): {stencil_mask.calls}", flush=True)
+    assert stencil_mask.calls == 0, \
+        f"the plain stencil ran {stencil_mask.calls} times on the fused path"
+    check_vo_against_base("P7", run, base)
+    mask_turns((("default", SiftConfig()), ("fused", cfg), ("fused", cfg),
+                ("default", SiftConfig())), imgs, K, vo)
+    print_vo_paths((("default mask", base), ("K8 mask (P1)", p1), ("fused mask (P7)", run)))
+    return run
 
 
 def check_fused_scales2(img, x, dev) -> None:
@@ -2762,46 +2854,70 @@ def check_spatial(x: torch.Tensor, dev) -> dict:
 FENCE_MEM_SLACK = 1 << 20
 
 
+@contextlib.contextmanager
+def eager_vo_steps():
+    """vo_step as its eager form for the fence and the CLI (the references
+    of their runs through the graph)."""
+    from sift_pyocl_tpu_torch.models import vo as vo_mod
+    from sift_pyocl_tpu_torch.utils import longrun
+
+    saved = vo_mod.vo_step, longrun.vo_step
+    vo_mod.vo_step = longrun.vo_step = vo_mod._vo_step_eager
+    try:
+        yield
+    finally:
+        vo_mod.vo_step, longrun.vo_step = saved
+
+
 def check_fence(dev) -> dict:
     """Phase F: vo_init + 199 vo_step on the 224x224 fence on the card with
-    the hand-written kernels.  Gates: the reference test's asserts (finite
-    t, lam and map every 25 frames, tracked >= 0.95, 0.45 < path ratio <
-    2.5, ATE < 0.35, RSS growth < 500 MB), no kernel library built or loaded
-    and no carried-state shape changed after frame 2, memory_allocated
-    after the last step at most FENCE_MEM_SLACK above its value after frame
-    2, K1-K6 once a frame and K7 twice a step.  Prints ms per warm step
-    (host clock, synchronised, median), tracked, ATE, path ratio and
-    max_memory_allocated."""
+    the hand-written kernels, through vo_step's graph (captured at the first
+    step), then again with the eager step.  Gates: the reference test's
+    asserts (finite t, lam and map every 25 frames, tracked >= 0.95, 0.45 <
+    path ratio < 2.5, ATE < 0.35, RSS growth < 500 MB), no kernel library
+    built or loaded and no carried-state shape changed after frame 2,
+    memory_allocated after the last step at most FENCE_MEM_SLACK above its
+    value after frame 2; one capture, the step's body run twice (its
+    warm-up and capture: K1-K6 three times with vo_init's, K7 four times);
+    a replayed step's launches of each kernel once, K7's twice
+    (torch.profiler); tracked, ATE and path ratio equal to the eager run's.
+    Prints ms per warm step (host clock, synchronised, median) of both runs,
+    tracked, ATE, path ratio and max_memory_allocated."""
+    from sift_pyocl_tpu_torch import vo_step
+    from sift_pyocl_tpu_torch.models.vo import STEP_GRAPHS
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from sift_pyocl_tpu_torch.utils import longrun
+    from sift_pyocl_tpu_torch.utils import longrun, profiling
 
     t = time.perf_counter()
     frames = longrun.render_frames()
     render_s = time.perf_counter() - t
     last = longrun.N_FRAMES - 1
-    mem = {}
+    mem, kept = {}, {}
 
     def after_step(i, st, out):
         if i in (longrun.WARM, last):
             mem[i] = torch.cuda.memory_allocated(dev)
+        if i == last:
+            kept["state"] = st
 
+    STEP_GRAPHS.clear()             # the memory figures are the fence's own
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
+    captures = STEP_GRAPHS.captures
     r = longrun.run(dev, frames, after_step)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    steps = last
     step_ms = 1e3 * float(np.median(r["step_s"][longrun.WARM:]))
     growth = mem[last] - mem[longrun.WARM]
     print(f"[fence] {r['frames']} frames {longrun.SHAPE} on {dev} (rendered in {render_s:.1f} s): "
           f"tracked {r['tracked']:.3f}, ATE {r['ate']:.4f}, path ratio {r['path_ratio']:.3f}, "
-          f"{step_ms:.3f} ms a warm step (host clock, synchronised, median; min "
+          f"{step_ms:.3f} ms a warm replayed step (host clock, synchronised, median; min "
           f"{1e3 * min(r['step_s'][longrun.WARM:]):.3f}, max {1e3 * max(r['step_s'][longrun.WARM:]):.3f}), "
           f"memory_allocated {mem[longrun.WARM]} -> {mem[last]} B ({growth:+d}), "
           f"max_memory_allocated {peak} B, RSS growth {r['rss_growth_mb']:.1f} MB", flush=True)
-    print("[fence] launch counts:", counts, flush=True)
+    print("[fence] launch counts (vo_init, the graph's warm-up and capture):", counts, flush=True)
     assert r["frames"] == longrun.N_FRAMES
     assert not r["not_finite"], f"t, lam or the map not finite at frames {r['not_finite']}"
     assert r["tracked"] >= longrun.TRACKED, f"tracked only {r['tracked']:.3f}"
@@ -2813,11 +2929,33 @@ def check_fence(dev) -> dict:
     assert not r["rebuilt"], f"kernel library built or loaded at frames {r['rebuilt']}"
     assert r["rss_growth_mb"] < longrun.RSS_MB, f"RSS grew {r['rss_growth_mb']:.0f} MB"
     assert growth <= FENCE_MEM_SLACK, f"device memory grew {growth} B after frame 2"
+    assert STEP_GRAPHS.captures == captures + 1, "the fence captured more than one graph"
     for name, n in counts.items():
-        want = 1 + steps if name in FRONTEND else 2 * steps if name == "best2_l2" else 0
+        want = (1 + GRAPH_BODIES if name in FRONTEND else 2 * GRAPH_BODIES
+                if name == "best2_l2" else 0)
         assert n == want, f"fence: {name} launched {n} times (want {want})"
+
+    def replay():
+        vo_step(kept["state"], frames[last], longrun.K, longrun.CFG, longrun.VO)
+
+    prof = profiling.device_profile(replay, 1, sessions=2)
+    got = check_kernel_launches("fence", prof.pop("launches_by_name_per_frame"), STEP_LAUNCHES)
+    print(f"[fence] a replayed step: CUDA launches {prof['kernel_launches_per_frame']:.0f}, "
+          f"device ms {prof['kernel_ms_per_frame']:.3f}, of the hand-written kernels {got}; top "
+          f"ops {json.dumps([[n, round(ms, 4)] for n, ms in prof['top_kernels_ms_per_frame'][:6]])}",
+          flush=True)
+    with eager_vo_steps():
+        e = longrun.run(dev, frames)
+    eager_ms = 1e3 * float(np.median(e["step_s"][longrun.WARM:]))
+    print(f"[fence] eager run: tracked {e['tracked']:.3f}, ATE {e['ate']:.4f}, path ratio "
+          f"{e['path_ratio']:.3f}, {eager_ms:.3f} ms a warm step (median)  [{nvidia_smi_line()}]",
+          flush=True)
+    for k in ("tracked", "ate", "path_ratio"):
+        assert r[k] == e[k], f"fence: {k} {r[k]} through the graph, {e[k]} eager"
     return {"frames": r["frames"], "render_s": render_s, "tracked": r["tracked"],
             "ate": r["ate"], "path_ratio": r["path_ratio"], "step_ms_median": step_ms,
+            "eager_step_ms_median": eager_ms, "replay_device_ms": prof["kernel_ms_per_frame"],
+            "replay_launches": prof["kernel_launches_per_frame"],
             "memory_allocated": [mem[longrun.WARM], mem[last]], "max_memory_allocated": peak,
             "rss_growth_mb": r["rss_growth_mb"], "launch_counts": counts}
 
@@ -3019,11 +3157,11 @@ CLI_VO_ATE = 2 * CLI_VO_JAX_ATE
 def check_evaluate_cli(dev, seq) -> dict:
     """Phase H: save_sequence writes config 4's frames and truth into a
     temporary directory; evaluate.main runs over them in sfm and in vo
-    mode on the card.  Gates: rc 0, the JSON line's keys, the frames read
-    by the native loader (FrameSource.backend), 50 of 50 registered in sfm
-    mode, ATE below CLI_SFM_ATE / CLI_VO_ATE.  Prints each mode's wall
-    time."""
-    import contextlib
+    mode on the card (vo: through vo_step's graph), then in vo mode with the
+    eager step.  Gates: rc 0, the JSON line's keys, the frames read by the
+    native loader (FrameSource.backend), 50 of 50 registered in sfm mode,
+    ATE below CLI_SFM_ATE / CLI_VO_ATE, the eager vo line equal to the
+    graph's.  Prints each run's wall time."""
     import io
     import tempfile
 
@@ -3065,6 +3203,21 @@ def check_evaluate_cli(dev, seq) -> dict:
                     assert line["n_registered"] == len(frames), line
                 assert line["ate_rmse"] < bound, (mode, line)
                 report[mode] = {**line, "wall_s": wall}
+            # vo mode went through vo_step's graph: the eager step on the same
+            # files gives the same trajectory
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf), eager_vo_steps():
+                rc = evaluate.main(["--frames", str(seq_dir), "--gt", str(gt), "--mode", "vo",
+                                    "--fx", str(float(K[0, 0])), "--device", str(dev)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            print(f"[evaluate] --mode vo with the eager step: rc {rc}, {line}, {wall:.3f} s "
+                  f"({wall / len(frames):.4f} s/frame)  [{nvidia_smi_line()}]", flush=True)
+            assert rc == 0 and line == {k: report["vo"][k] for k in line}, \
+                (line, report["vo"])
+            report["vo"]["eager_wall_s"] = wall
         finally:
             framesource.FrameSource = orig
     return report
@@ -3121,23 +3274,30 @@ def main() -> int:
     check_config2(dev)
     print("evaluate:", json.dumps(check_evaluate_cli(dev, seq4)), flush=True)
 
-    # each kernel's launches on its path: the main path (10 vo_step) for
-    # K1-K7, P1 (10 vo_step) for K8, P2 (FRAMES frames) for K10a/K10b, P4
-    # (FRAMES frames) for K9, P5 (one frame) for K11a/K11b, P7 (10 vo_step)
-    # for K1m/K2m, P8 (two f32 matches) for K7f
-    counts = {**base["counts"], "extrema_masks": p1["counts"]["extrema_masks"],
-              "compact_mask": p2["compact_mask"], "refine_octave": p2["refine_octave"],
-              "separable_blur": p4["separable_blur"],
-              "orientation_hist": p5["orientation_hist"],
-              "descriptor_hist": p5["descriptor_hist"],
-              "octave0_ladder_mask": p7["octave0_ladder_mask"],
-              "small_octaves_ladder_mask": p7["small_octaves_ladder_mask"],
-              "best2_l2_f32": p8["best2_l2_f32"]}
+    # each kernel's wrapper calls on its path.  On the VO paths (the main
+    # path for K1-K7, P1 for K8, P7 for K1m/K2m) the steps replay a graph,
+    # which runs no Python: their launches are the VO_STEPS replayed steps'
+    # calls, read from a replayed step's device profile, and
+    # capture_launches the wrappers' counters over the graph's warm-up and
+    # capture.  The other paths count their wrappers: P2 (FRAMES frames)
+    # for K10a/K10b, P4 (FRAMES frames) for K9, P5 (one frame) for
+    # K11a/K11b, P8 (two f32 matches) for K7f.
+    graph_paths = {name: run for run, names in ((base, VO_KERNELS), (p1, ("extrema_masks",)),
+                                                (p7, FUSED_LADDERS)) for name in names}
+    counts = {name: VO_STEPS * graph_path_calls(name, run["replay_launches"])
+              for name, run in graph_paths.items()}
+    counts.update({"compact_mask": p2["compact_mask"], "refine_octave": p2["refine_octave"],
+                   "separable_blur": p4["separable_blur"],
+                   "orientation_hist": p5["orientation_hist"],
+                   "descriptor_hist": p5["descriptor_hist"], "best2_l2_f32": p8["best2_l2_f32"]})
     # and on phase D: K3-K6 at B = 8 (one batch), K8 at B = 4 with "pallas"
     config3 = {**p_d["batches"][8]["counts"], "extrema_masks": p_d["pallas_b4"]["extrema_masks"]}
     kernels = []
     for name, row in rec.rows.items():
         row["launches"] = counts[name]
+        if name in graph_paths:
+            row["capture_launches"] = graph_paths[name]["counts"][name]
+            assert row["capture_launches"] > 0, f"{name}'s wrapper never ran on its path"
         if name in ("compact_masks_multi", "refine_multi", "grad_atlas", "orient_desc_fused",
                     "extrema_masks"):
             row["config3_launches"] = config3[name]

@@ -33,6 +33,7 @@ from ..ops.match import INT_MAX, match_descriptors_dense
 from ..sfm.ba import BAObs, BAParams, lm_iteration
 from ..sfm.geometry import triangulate_two_view
 from ..sfm.pnp import pnp_refine
+from ..utils import graphs
 from .sift import KeypointBuffer, detect_and_describe
 
 logger = logging.getLogger(__name__)
@@ -186,12 +187,47 @@ def vo_step(state: VOState, frame, K, cfg: SiftConfig, vo: VOConfig,
     """One VO frame on the device of `state`: detect -> match -> PnP ->
     roll -> BA.  ``plain=True`` runs every kernel's plain version instead;
     ``on_stage(name)``, if given, is called as each stage is enqueued
-    ("frontend", "match", "pnp", "roll_spawn", "ba")."""
+    ("frontend", "match", "pnp", "roll_spawn", "ba").
+
+    On a CUDA state the step is one CUDA graph per (device, frame shape and
+    dtype, cfg, vo), as the JAX package jits one program per (shape, cfg,
+    vo): the first call of a key captures it (``STEP_GRAPHS``), every call
+    copies the state, the frame and K (host arrays or tensors) into the
+    graph's buffers and replays it; the results are fresh tensors.  The CPU,
+    ``plain=True`` and ``on_stage`` (host callbacks between the stages) run
+    the step eagerly.  A capture or replay that fails raises."""
+    dev = state.Rs.device
+    if dev.type != "cuda" or plain or on_stage is not None:
+        return _vo_step_eager(state, frame, K, cfg, vo, plain=plain, on_stage=on_stage)
+    # host arrays stay on the host: the graph's input copy moves them
+    frame = frame if torch.is_tensor(frame) else torch.from_numpy(np.asarray(frame))
+    out = STEP_GRAPHS(dev, (cfg, vo), (*state, frame, torch.as_tensor(K, dtype=torch.float32)))
+    n = len(VOState._fields)
+    return VOState(*out[:n]), VOOut(*out[n:])
+
+
+def _vo_step_eager(state: VOState, frame, K, cfg: SiftConfig, vo: VOConfig,
+                   plain: bool = False,
+                   on_stage: Optional[Callable[[str], None]] = None) -> Tuple[VOState, VOOut]:
+    """``vo_step`` op by op (what its graph captures)."""
     dev = state.Rs.device
     buf = detect_and_describe(_as_frame(frame, dev), cfg, plain=plain)
     if on_stage is not None:
         on_stage("frontend")
     return _vo_update(state, buf, _as_K(K, dev), vo, plain=plain, on_stage=on_stage)
+
+
+def _step_flat(static: Tuple[SiftConfig, VOConfig], *tensors: torch.Tensor):
+    """The eager step on flat tensors (the state's fields, the frame, K),
+    returning the new state's fields and the output's."""
+    cfg, vo = static
+    n = len(VOState._fields)
+    state, out = _vo_step_eager(VOState(*tensors[:n]), tensors[n], tensors[n + 1], cfg, vo)
+    return (*state, *out)
+
+
+# vo_step's graphs on the card
+STEP_GRAPHS = graphs.GraphCache(_step_flat)
 
 
 def _vo_update(state: VOState, buf: KeypointBuffer, K: torch.Tensor, vo: VOConfig,

@@ -11,6 +11,7 @@ is.  Every C entry point launches on the stream it is given and returns
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +43,12 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[Tuple[str, tuple], ctypes._CFuncPtr] = {}
 _events = {"builds": 0, "loads": 0}
+# Device tensors that a CUDA graph being captured reads besides its inputs
+# and its own allocations: a kernel's per-stream scratch and counters and
+# the cached tap and schedule tables.  Their caches may drop or replace
+# them later, so a capture keeps them alive as long as its graph
+# (``graph_holds``; ``utils/graphs.py``).
+_graph_holds: Optional[List[torch.Tensor]] = None
 
 
 def build_counts() -> Dict[str, int]:
@@ -163,6 +170,27 @@ def check(err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """PyTorch's current stream on the device of `t`, as a C pointer."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@contextlib.contextmanager
+def graph_holds() -> Iterator[List[torch.Tensor]]:
+    """Collects, while it is open, every tensor passed to
+    ``hold_for_graph``: open it around a capture and keep the list with the
+    graph."""
+    global _graph_holds
+    held: List[torch.Tensor] = []
+    _graph_holds = held
+    try:
+        yield held
+    finally:
+        _graph_holds = None
+
+
+def hold_for_graph(*tensors: torch.Tensor) -> None:
+    """A wrapper passes here each cached device tensor that its kernel
+    reads; inside ``graph_holds`` the capture keeps it, else nothing."""
+    if _graph_holds is not None:
+        _graph_holds.extend(tensors)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -56,6 +56,7 @@ def _scratch_of(dev: torch.device, stream: int) -> torch.Tensor:
         words = _build.function("sift_compact_scratch_words", [])()
         buf = torch.zeros(words, dtype=torch.int64, device=dev)
         _scratch[key] = buf
+    _build.hold_for_graph(buf)
     return buf
 
 

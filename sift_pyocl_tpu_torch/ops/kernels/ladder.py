@@ -92,6 +92,7 @@ def octave0_ladder(img: torch.Tensor, pre_sigma: float, increments: Sequence[flo
     n = len(increments)
     taps, offsets, sizes = _taps_table((float(pre_sigma),) + tuple(map(float, increments)),
                                        img.device)
+    _build.hold_for_graph(taps)
     img = img.contiguous()
     blurs = torch.empty((n + 1, H, W), dtype=torch.float32, device=img.device)
     dogs = torch.empty((n, H, W), dtype=torch.float32, device=img.device)
@@ -122,6 +123,7 @@ def octave0_ladder_mask(img: torch.Tensor, pre_sigma: float, increments: Sequenc
         return octave0_ladder_mask_ref(img, pre_sigma, increments, mask_cfg)
     taps, offsets, sizes = _taps_table((float(pre_sigma),) + tuple(map(float, increments)),
                                        img.device)
+    _build.hold_for_graph(taps)
     img = img.contiguous()
     blurs = torch.empty((n + 1, H, W), dtype=torch.float32, device=img.device)
     dogs = torch.empty((n, H, W), dtype=torch.float32, device=img.device)
@@ -299,6 +301,7 @@ def _small_args(base1: torch.Tensor, increments: Sequence[float], n_oct: int, sc
     geo = _geometry(*base1.shape, n_oct)
     table, blocks, taps, n_taps, half = _small_plan(tuple(geo), tuple(map(float, increments)),
                                                     scales, dev, mask_bd)
+    _build.hold_for_graph(table, taps)
     blurs, dogs = _allocate(geo, len(increments), dev)
     vp = ctypes.c_void_p
     lead = (n_oct, (vp * n_oct)(*[b.data_ptr() for b in blurs]),

@@ -68,6 +68,7 @@ def _counters_of(dev: torch.device, stream: int, n: int) -> torch.Tensor:
                                "capturing a CUDA graph (its counters are made at a call)")
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
         _counters[key] = buf
+    _build.hold_for_graph(buf)
     return buf
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..config import SiftConfig
 from ..oracle import gaussian_kernel
+from . import _build
 
 Ladder = Tuple[torch.Tensor, torch.Tensor]
 
@@ -83,6 +84,7 @@ def blur(img: torch.Tensor, sigma: float, backend: str = "auto") -> torch.Tensor
     if backend not in ("xla", "auto", "pallas"):
         raise ValueError(f"unknown blur backend {backend!r}")
     taps = _taps(float(sigma), img.device)
+    _build.hold_for_graph(taps)
     if backend == "xla":
         return separable_blur_ref(img, taps)
     from .kernels.conv import separable_blur   # the kernel module imports this one

@@ -39,6 +39,7 @@ import sift_pyocl_tpu_torch as port
 from sift_pyocl_tpu_torch import (KP_DTYPE, LinearAlign, MatchPlan, SiftConfig, SiftPlan,
                                   affine_warp, config_from_par, fit_affine, ransac_affine)
 from sift_pyocl_tpu_torch.config import from_jax_config
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 jr = importlib.import_module("sift_pyocl_tpu.sfm.ransac")
 tr = importlib.import_module("sift_pyocl_tpu_torch.sfm.ransac")

@@ -32,6 +32,7 @@ from sift_pyocl_tpu_torch.utils import invariance as tinv
 from sift_pyocl_tpu_torch.utils import render3d as trender
 from sift_pyocl_tpu_torch.utils import testimage as timg
 from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, synthetic_scene
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 PORT_DIR = Path(port.__file__).resolve().parent
 

@@ -31,6 +31,7 @@ from sift_pyocl_tpu_torch.utils.convert import keypoint_buffer_from_jax
 from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets, synthetic_scene
 
 import chip_smoke
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 jr = importlib.import_module("sift_pyocl_tpu.sfm.ransac")
 
@@ -38,16 +39,6 @@ CFG = SiftConfig(kp_per_octave_cap=256)
 JCFG = jcfg.SiftConfig(kp_per_octave_cap=256)
 RATIO_SQ = 0.5329 ** 2          # tools/bench_configs.py's
 SHIFT = (3, -5)                 # (dy, dx) of the second crop
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's CPU runs (the suite's parallel
-    workers would otherwise oversubscribe the cores)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ from sift_pyocl_tpu.ops.pallas.conv import blur_taps, separable_blur_pallas
 from sift_pyocl_tpu_torch import SiftConfig
 from sift_pyocl_tpu_torch.ops import pyramid as tp
 from sift_pyocl_tpu_torch.ops.kernels import conv, ladder, launch_counts, reset_launch_counts
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 # the JAX suite's bound for its blur kernel against the XLA blur
 # (tests/test_pallas.py): up to 39 taps a pass summed in other orders

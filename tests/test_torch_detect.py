@@ -30,6 +30,7 @@ from sift_pyocl_tpu_torch.ops.kernels.maskk import extrema_masks, extrema_masks_
 from sift_pyocl_tpu_torch.ops.kernels.refine import (refine_candidates_ref, refine_multi,
                                                      refine_octave)
 from sift_pyocl_tpu_torch.utils.convert import to_torch
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -26,19 +26,10 @@ from sift_pyocl_tpu_torch.parallel import (frames_x_ba_mesh, global_ba_mesh,
 from sift_pyocl_tpu_torch.sfm import BAObs, BAParams, DistributedBA, lm_iteration, run_ba
 from sift_pyocl_tpu_torch.sfm import ba as tba
 from sift_pyocl_tpu_torch.sfm.distributed import merge_points, partition_problem
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 RANK_TIMEOUT_S = 120
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's CPU runs (the suite's parallel
-    workers would otherwise oversubscribe the cores)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _spawn(target, args_of_rank, world: int = 2) -> dict:

@@ -16,16 +16,7 @@ from sift_pyocl_tpu_torch.evaluate import (load_gt_centers, main, probe_pgm_shap
                                            quat_from_R, save_sequence, save_trajectory_tum)
 from sift_pyocl_tpu_torch.sfm.evaluate import camera_centers
 from sift_pyocl_tpu_torch.utils.render3d import render_sequence
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's CPU runs (the suite's parallel
-    workers would otherwise oversubscribe the cores)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _rotations(n, seed, scale=1.0):

@@ -31,6 +31,7 @@ from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space, build_scale_spac
 from sift_pyocl_tpu_torch.utils.convert import to_torch
 
 from conftest import match_keypoint_sets
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 FUSED = SiftConfig(mask_backend="fused", kp_per_octave_cap=256)
 

@@ -25,6 +25,7 @@ from sift_pyocl_tpu_torch.sfm import geometry as tg
 from sift_pyocl_tpu_torch.sfm.pnp import pnp_refine
 from sift_pyocl_tpu_torch.sfm.segment import segment_sum, segments
 from sift_pyocl_tpu_torch.utils.convert import ba_obs_from_jax, ba_params_from_jax
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 

@@ -868,6 +868,29 @@ def test_orient_desc_and_octave0_ladder_replay_in_a_cuda_graph(stage_inputs, cud
             assert torch.equal(g, w)
 
 
+def test_grad_atlas_replays_in_a_cuda_graph(stage_inputs, cuda):
+    """K5 captured once in a CUDA graph (it needs no first call: no scratch,
+    no table) and replayed 5 times on new blur stacks copied into the
+    captured buffers: every replay equals an eager call bit for bit."""
+    _, octaves, _, _, _ = stage_inputs
+    blurs = [b.clone() for b, _ in octaves]
+    rng = np.random.default_rng(14)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        mag, ori, rows = gradpad.grad_atlas(blurs, CFG.scales)
+    for _ in range(5):
+        new = [b * float(rng.uniform(0.5, 2.0)) + torch.from_numpy(
+            rng.normal(0.0, 1.0, b.shape).astype(np.float32)).to(cuda) for b, _ in octaves]
+        for b, n in zip(blurs, new):
+            b.copy_(n)
+        graph.replay()
+        want = gradpad.grad_atlas(new, CFG.scales)
+        torch.cuda.synchronize()
+        assert torch.equal(mag, want[0]) and torch.equal(ori, want[1]) and rows == want[2]
+
+
 def _cuda_launches(fn, name: str, calls: int = 3):
     """(launches of kernels named `name`, other CUDA launches: kernels,
     memsets, copies) that torch.profiler records over `calls` calls of

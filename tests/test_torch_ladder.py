@@ -17,6 +17,7 @@ from sift_pyocl_tpu_torch.ops import pyramid as tp
 from sift_pyocl_tpu_torch.ops.kernels import ladder, launch_counts, reset_launch_counts
 from sift_pyocl_tpu_torch.ops.kernels.maskk import extrema_masks_ref
 from sift_pyocl_tpu_torch.utils.testimage import synthetic_scene
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 # The JAX suite holds its ladders to 2e-3 on [0, 255] (tests/test_pyramid.py);
 # the two sides sum up to 27 taps a pass in different orders.

@@ -16,6 +16,7 @@ from sift_pyocl_tpu_torch.ops.kernels.ladder import (MASK_TH, MASK_TW, TILE_HEIG
                                                      LadderItem, _geometry, schedule_table,
                                                      small_octaves_schedule)
 from sift_pyocl_tpu_torch.ops.pyramid import small_octaves_ladder_ref
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _sizes(scales: int):

@@ -12,6 +12,7 @@ from sift_pyocl_tpu.ops.pallas.matchk import best2_l2_pallas
 
 from sift_pyocl_tpu_torch.ops import match as tm
 from sift_pyocl_tpu_torch.ops.kernels import matchk
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _problem(n1, n2, seed, frac1=0.7, frac2=0.8):

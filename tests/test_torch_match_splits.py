@@ -16,19 +16,9 @@ import torch
 from sift_pyocl_tpu.ops.pallas.matchk import best2_l2_pallas
 
 from sift_pyocl_tpu_torch.ops.kernels import matchk
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 N1 = 300
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's CPU runs: the suite's parallel
-    workers each take a thread per core by default, and small ops then
-    wait on oversubscribed cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _data(n2: int, seed: int, p_valid: float = 0.8):

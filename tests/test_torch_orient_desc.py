@@ -18,6 +18,7 @@ from sift_pyocl_tpu_torch.ops import orient_desc as tod
 from sift_pyocl_tpu_torch.ops.kernels.gradpad import grad_atlas
 from sift_pyocl_tpu_torch.ops.kernels.window import orient_desc_fused
 from sift_pyocl_tpu_torch.utils.convert import to_torch
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

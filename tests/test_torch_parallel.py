@@ -20,21 +20,10 @@ from sift_pyocl_tpu_torch.parallel import (TwoStagePipeline, VideoSiftFrontend, 
                                            make_frames_mesh, sharded_sift_fn)
 
 from conftest import match_keypoint_sets
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 FIELDS = ("x", "y", "scale", "angle", "desc")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's CPU runs: the suite's parallel
-    workers each take a thread per core by default, and these small ops
-    then wait on oversubscribed cores (six workers running the bit-equality
-    cases: 623 s each, against 6 s with one thread)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _records(buf):

@@ -13,6 +13,7 @@ from sift_pyocl_tpu.ops import pyramid as jp
 from sift_pyocl_tpu_torch import SiftConfig
 from sift_pyocl_tpu_torch.ops import pyramid as tp
 from sift_pyocl_tpu_torch.utils.testimage import synthetic_scene
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 # Both sides sum up to 27 Gaussian taps per pass in f32, in different
 # orders (XLA's convolution vs PyTorch's); one f32 ulp at 255 is 1.5e-5 and

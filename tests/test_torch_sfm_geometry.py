@@ -31,6 +31,7 @@ from sift_pyocl_tpu_torch.sfm import posegraph as tpg
 from sift_pyocl_tpu_torch.sfm.pnp import (JITTER, SUBSET, pnp_draws, ransac_pnp,
                                           ransac_pnp_given_draws)
 from sift_pyocl_tpu_torch.sfm.twoview import initialize_two_view
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 # the modules, not the `ransac` functions both sfm packages export
 jr = importlib.import_module("sift_pyocl_tpu.sfm.ransac")

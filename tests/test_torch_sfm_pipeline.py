@@ -38,6 +38,7 @@ from sift_pyocl_tpu_torch.utils.convert import keypoint_buffer_from_jax
 from sift_pyocl_tpu_torch.utils.render3d import render_sequence
 
 from test_torch_sfm_geometry import jax_pnp_draws
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 CFG = SiftConfig(kp_per_octave_cap=256)
 JCFG = jcfg.SiftConfig(kp_per_octave_cap=256)

@@ -24,6 +24,7 @@ from sift_pyocl_tpu_torch.models import sift as tsift
 from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
 from conftest import match_keypoint_sets
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 CFG = dataclasses.replace(SLICE_CONFIG, kp_per_octave_cap=256)
 

@@ -17,19 +17,10 @@ from sift_pyocl_tpu.utils.testimage import synthetic_scene
 from sift_pyocl_tpu_torch import SiftConfig
 from sift_pyocl_tpu_torch.ops.pyramid import build_scale_space
 from sift_pyocl_tpu_torch.parallel import join_rows, make_frames_mesh, sharded_scale_space
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 KW = dict(conv_backend="xla", kp_per_octave_cap=256)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's CPU runs (the suite's parallel
-    workers would otherwise oversubscribe the cores)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _mesh(n: int):

@@ -30,6 +30,7 @@ from sift_pyocl_tpu_torch.sfm.ba import lm_iteration
 from sift_pyocl_tpu_torch.utils.convert import (keypoint_buffer_from_jax, vo_config_from_jax,
                                                 vo_state_from_jax)
 from sift_pyocl_tpu_torch.utils.profiling import vo_frames
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 H = W = 96
 K = np.array([[140.0, 0, W / 2], [0, 140.0, H / 2], [0, 0, 1.0]], np.float32)

@@ -16,16 +16,7 @@ from sift_pyocl_tpu.utils.testimage import blob_cloud as j_blob_cloud
 from sift_pyocl_tpu.utils.testimage import render_point_cloud as j_render
 
 from sift_pyocl_tpu_torch.utils import longrun
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file's CPU runs (the suite's parallel
-    workers would otherwise oversubscribe the cores)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def test_fence_frames_are_the_reference_scene():

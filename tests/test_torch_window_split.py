@@ -22,6 +22,7 @@ from sift_pyocl_tpu_torch.ops import orient_desc as tod
 from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, window
 from sift_pyocl_tpu_torch.utils.convert import (oriented_keypoints_from_jax,
                                                 refined_keypoints_from_jax, to_torch)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 CFG = dict(kp_per_octave_cap=256)
 

@@ -25,6 +25,7 @@ from sift_pyocl_tpu_torch.ops.kernels.window import (N_QUADS, _offsets, box_samp
                                                      window_origin)
 from sift_pyocl_tpu_torch.ops.orient_desc import (PAD_C, PAD_R, _desc_window_size,
                                                   _ori_window_size, pad_grad_planes)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 WINDOWS = [16, 48, 80, 104, 136]   # 48 and 104: K11a's and K11b's at SiftConfig()
 SIGMAS = [0.5, 1.3, 2.5, 4.53, 6.0]
