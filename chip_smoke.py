@@ -28,8 +28,14 @@
    full-capacity mask (octave 0's shape, density 1e-3, cap 2048, one tile
    past MAX_PER_TILE).
 4. Runs SiftPlan((1080, 1920), config=SLICE_CONFIG).keypoints for a few
-   frames (the first slice's path, plain pyramid) with every launch counter
-   reset just before, and holds its keypoints to the plain-version path.
+   frames (the first slice's path, plain pyramid) and holds its keypoints
+   to the plain-version path.  SiftPlan on the card replays one CUDA graph
+   per (shape, config) (models.sift.DETECT_GRAPHS): for every SiftPlan
+   configuration below (plan_frames) the replayed buffer is bit-equal to
+   the eager detector's, ms a frame is taken replayed and eager in turns,
+   and the kernels' CUDA launches over the replayed frames are read by
+   kernel name from torch.profiler's trace (a replay runs no Python) and
+   gated with the wrapper calls the counters were gated with before.
 5. The main path: vo_init + 10 vo_step at 1080x1920 with SiftConfig() and
    VOConfig().  vo_step on the card replays one CUDA graph per (shape, cfg,
    vo) (utils/graphs.py): 10 eager steps (models.vo._vo_step_eager, every
@@ -54,7 +60,7 @@
    within 1e-6 of it; ms per replayed step in turns against the default
    mask's, stage split, device time and launches beside the default's.
 7. P2: SiftPlan.keypoints with kp_multi_launch=False: K10a, K10b and K6
-   launched once per octave a frame, K3-K5 never; its keypoint buffer equal,
+   launched once per octave a replayed frame, K3-K5 never; its keypoint buffer equal,
    bit for bit, to the multi-launch one with grad_backend="xla".
 8. P3: SiftPlan.keypoints with desc_buckets=2: K6 twice a frame; held to its
    plain=True run.
@@ -108,24 +114,36 @@
    shift_only + double_check; relative over 4 frames drifting 2 px (within
    0.8 px); orsa (every returned match an inlier, < 9 px^2);
    MatchPlan(metric="L2") one K7 launch a match_index, indices equal to the
-   CPU's; K1-K6 once per align call (counters reset just before it).
-   Prints ms per warm align call (host image in, host result out) and its
-   split (keypoints, match, fit, warp), the L1 matcher's launches and
-   device time, and the host synchronisations of one call.
+   CPU's; K1-K6 once per align call (by kernel name: the plan's detector
+   replays), the plan's replayed buffer bit-equal to its eager one.
+   Prints ms per warm align call (host image in, host result out) replayed
+   and eager in turns and its split (keypoints, match, fit, warp), the L1
+   matcher's launches and device time, and the host synchronisations of
+   one call.
 17. Phase B: the invariance battery (utils/invariance.py) through the port
    at 256x256: both scenes, all 9 cases against FLOORS, the double_im_size
-   zoom fence and the angle fence.
+   zoom fence and the angle fence; both plans' replayed buffers bit-equal
+   to their eager ones.
 18. Phase C: BASELINE config 4 (tools/bench_configs.py::config4_sfm's
-   50-frame sequence, rendered from a seed) through IncrementalSfM, twice:
-   50 of 50 frames registered, ATE < 0.05, map points within 20 % of 672,
-   a loop edge, the two runs bit-equal in Rs, ts and points, K1-K6 once per
-   frame detected, K7 never.  Prints wall time, s/frame and the phase
-   split, one registered frame's CUDA launches, device ms and host
-   synchronisations, and the BA's segment sum against float64.  Then the
-   host loop (IncrementalSfM(fused=False)) once over the same frames: at
-   least the JAX package's host loop's 50 registered, ATE < 0.05, K1-K6
-   once a frame, K7 never; s/frame and one registered frame's launches,
-   device ms and host syncs beside the fused path's.
+   50-frame sequence, rendered from a seed) through IncrementalSfM three
+   times in turns: replayed (the detector, REGISTER_GRAPHS's fused
+   registration on the map padded to its power-of-two bucket), eager (the
+   eager functions patched in), replayed: each run 50 of 50 frames
+   registered, ATE < 0.05, map points within 20 % of 672, a loop edge;
+   the replayed runs bit-equal to the eager run in Rs, ts and points; the
+   eager run K1-K6 once per frame detected, K7 never; a replayed run at
+   most one detector capture and one registration capture a bucket, the
+   second none.  Prints each run's wall time, s/frame, phase split
+   (periodic BA, loop closure and final BA, which stay eager) and graph
+   captures; one registered frame replayed and eager: host ms, CUDA
+   launches, device ms and host synchronisations (the replayed frame K1-K6
+   once by kernel name), and its split; the BA's segment sum against
+   float64.  Then the host loop (IncrementalSfM(fused=False)) replayed
+   (its RANSAC-PnP a graph a bucket of matched rows) and eager: at least
+   the JAX package's host loop's 50 registered, ATE < 0.05, the runs
+   bit-equal, K1-K6 once a frame, K7 never; s/frame and one registered
+   frame's launches, device ms and host syncs, replayed and eager, beside
+   the fused path's.
 19. Phase D: BASELINE config 3, the batched video frontend
    (detect_and_describe_batched) on frames synthetic_scene((1080, 1920),
    n_blobs=200, seed=0) + i on the card, SiftConfig(): at B = 1, 2, 4, 8
@@ -188,13 +206,14 @@
 23. Phase H: the evaluate CLI on the card over config 4's frames written as
    PGM and TUM files (save_sequence), read by the native loader: sfm mode
    50 of 50 registered, ATE < 0.12; vo mode (vo_step's graph) ATE < 0.17
-   (twice the JAX package's 0.0848 on the same files), its JSON line equal
-   to the eager step's run on the same files.
+   (twice the JAX package's 0.0848 on the same files); each mode's JSON
+   line equal to its eager run's on the same files.
 24. Prints the card's nvidia-smi line again, a JSON line of per-kernel
    results (16 rows, launches from the path that runs each kernel: on
    the VO paths the wrapper calls of the replayed steps, from a replayed
    step's device profile, with capture_launches the wrappers' counters
-   over the graph's warm-up and capture; config3_launches for K3-K6 and
+   over the graph's warm-up and capture; K10a/K10b on P2 and K9 on P4
+   from their replayed frames' device profiles; config3_launches for K3-K6 and
    K8 from phase D, cuda_launches and
    device_ms a wrapper call from the profiler), then, as its last line,
    {"ok": true, "device": {...}}.
@@ -365,12 +384,14 @@ def window_samples(fr, fc, sigma, valid, win: int, oct_h, oct_w, angles=None, ok
     the ok angles, union of the circle and the squares), the counts of
     this run's keypoints."""
     from sift_pyocl_tpu_torch.oracle import DESC_GRID, MAG_FACTOR
-    from sift_pyocl_tpu_torch.ops.kernels.window import _offsets, _valid_chunks, window_origin
+    from sift_pyocl_tpu_torch.ops.kernels.window import _offsets, window_origin
 
     rs, cs, fro, fco = window_origin(fr.float(), fc.float(), win)
     ar = torch.arange(win, device=fr.device)
     n_circle = n_square = n_union = 0
-    for ks in _valid_chunks(valid, 256):
+    todo = torch.nonzero(valid.bool()).squeeze(1)
+    for k0 in range(0, todo.numel(), 256):
+        ks = todo[k0:k0 + 256]
         rr, cc = _offsets(fro[ks], fco[ks], win)
         sig = sigma[ks].float()[:, None, None]
         radius = torch.floor(3.0 * (1.5 * sig))
@@ -799,21 +820,112 @@ def check_matcher(buf, rec: Kernels) -> None:
                                                 "library_ms", "bound_ms", "bound_by")})
 
 
-def plan_frames(plan, img, frames: int = FRAMES):
-    """`frames` calls of plan.keypoints after one warm-up call (allocator,
-    cuDNN algorithm choice), launch counters reset just before them.
-    Returns (last records, host-clock ms per frame, launch counts)."""
-    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+# Each kernel's CUDA launches are read by name from torch.profiler's trace
+# (a replayed graph runs no Python, so the wrappers' counters miss it): the
+# pattern of each kernel's name, and each wrapper's kernels with their
+# launches a wrapper call (K1 and K1m launch six level kernels, K1m also
+# K8's mask kernel; K9 launches K1's level kernel; K3 and K10a share the
+# compaction kernel, K4 and K10b the refinement kernel).
+KERNEL_PATTERNS = {k: rf"\b{k}\b" for k in (
+    "small_octaves_kernel", "small_octaves_kernel_masks", "compact_kernel", "refine_kernel",
+    "grad_kernel", "orient_desc_kernel", "orientation_hist_kernel", "descriptor_hist_kernel",
+    "mask_kernel", "best2_l2_kernel", "best2_l2_f32_kernel")}
+KERNEL_PATTERNS["blur_level_kernel"] = r"\bblur_level(_any)?_kernel\b"
+WRAPPER_KERNELS = {
+    "octave0_ladder": {"blur_level_kernel": 6},
+    "octave0_ladder_mask": {"blur_level_kernel": 6, "mask_kernel": 1},
+    "small_octaves_ladder": {"small_octaves_kernel": 1},
+    "small_octaves_ladder_mask": {"small_octaves_kernel_masks": 1},
+    "separable_blur": {"blur_level_kernel": 1}, "compact_masks_multi": {"compact_kernel": 1},
+    "compact_mask": {"compact_kernel": 1}, "refine_multi": {"refine_kernel": 1},
+    "refine_octave": {"refine_kernel": 1}, "grad_atlas": {"grad_kernel": 1},
+    "orient_desc_fused": {"orient_desc_kernel": 1},
+    "orientation_hist": {"orientation_hist_kernel": 1},
+    "descriptor_hist": {"descriptor_hist_kernel": 1}, "extrema_masks": {"mask_kernel": 1},
+    "best2_l2": {"best2_l2_kernel": 1}, "best2_l2_f32": {"best2_l2_f32_kernel": 1}}
 
-    plan.keypoints(img)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    frame_ms = []
-    for _ in range(frames):
-        t = time.perf_counter()
-        kp = plan.keypoints(img)
-        frame_ms.append(1e3 * (time.perf_counter() - t))
-    return kp, frame_ms, launch_counts()
+
+def kernel_counts(fn, calls: int = 1) -> dict:
+    """Each hand-written kernel's CUDA launches over `calls` calls of fn()
+    (after one more), by name from torch.profiler's trace: the fullest of
+    three sessions (utils/profiling.py::kernel_launches)."""
+    from sift_pyocl_tpu_torch.utils.profiling import kernel_launches
+
+    per_call = kernel_launches(fn, KERNEL_PATTERNS.values(), calls)
+    return {k: round(calls * per_call[pat], 6) for k, pat in KERNEL_PATTERNS.items()}
+
+
+def check_wrapper_launches(tag: str, got: dict, wrappers: dict) -> dict:
+    """Gate kernel launches (kernel_counts) against the wrapper calls
+    `wrappers` (every other wrapper never called); returns `wrappers` with
+    every other wrapper at 0, the path's wrapper calls."""
+    want = {k: 0 for k in KERNEL_PATTERNS}
+    for name, n in wrappers.items():
+        for k, per in WRAPPER_KERNELS[name].items():
+            want[k] += per * n
+    assert got == want, f"{tag}: CUDA launches {got}, want {want} (wrapper calls {wrappers})"
+    return {name: wrappers.get(name, 0) for name in WRAPPER_KERNELS}
+
+
+@contextlib.contextmanager
+def eager_sift_programs():
+    """SiftPlan's detector, the fused registration and the host loop's
+    RANSAC-PnP as their eager functions (the references of the replayed
+    runs), for an eager turn."""
+    from sift_pyocl_tpu_torch.models.sift import SiftPlan
+    from sift_pyocl_tpu_torch.sfm import pipeline, pnp
+
+    def eager_raw(self, image):
+        img = image if torch.is_tensor(image) else torch.from_numpy(np.asarray(image))
+        return self._fn(img.to(self.device))
+
+    saved = SiftPlan.keypoints_raw, pipeline.register_from_buffers, pipeline.ransac_pnp
+    SiftPlan.keypoints_raw = eager_raw
+    pipeline.register_from_buffers = pipeline._register_from_buffers_eager
+    pipeline.ransac_pnp = pnp._ransac_pnp_eager
+    try:
+        yield
+    finally:
+        SiftPlan.keypoints_raw, pipeline.register_from_buffers, pipeline.ransac_pnp = saved
+
+
+def check_buffers_equal(tag: str, got, want) -> None:
+    for name, g, w in zip(got._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{tag}: {name}"
+        assert torch.equal(g, w), f"{tag}: {name} differs in {int((g != w).sum())} places"
+
+
+def plan_frames(tag: str, plan, img, frames: int = FRAMES):
+    """A SiftPlan on the card: its detector graph captured (a first call)
+    and its replayed buffer bit-equal to the eager detector's on the frame;
+    then `frames` calls of plan.keypoints replayed and eager in turns
+    (eager, replay, replay, eager; host image in, records out) and the
+    kernels' CUDA launches over `frames` replayed calls (kernel_counts).
+    Returns (last records, replayed ms per frame, launches, eager ms per
+    frame)."""
+    from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
+
+    x = torch.from_numpy(img).to(plan.device)
+    captures = DETECT_GRAPHS.captures
+    kp = plan.keypoints(img)
+    check_buffers_equal(f"{tag}: replay against eager", plan.keypoints_raw(img), plan._fn(x))
+    turns = {"eager": [], "replay": []}
+    for turn in ("eager", "replay", "replay", "eager"):
+        ctx = eager_sift_programs() if turn == "eager" else contextlib.nullcontext()
+        with ctx:
+            plan.keypoints(img)
+            torch.cuda.synchronize()
+            for _ in range(frames):
+                t = time.perf_counter()
+                kp = plan.keypoints(img)
+                turns[turn].append(1e3 * (time.perf_counter() - t))
+    counts = kernel_counts(lambda: plan.keypoints(img), frames)
+    new = DETECT_GRAPHS.captures - captures
+    print(f"{tag}: replayed buffer bit-equal to the eager detector's ({new} capture); "
+          f"ms/frame replayed {[round(m, 3) for m in turns['replay']]}, "
+          f"eager {[round(m, 3) for m in turns['eager']]}; memory reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB", flush=True)
+    return kp, turns["replay"], counts, turns["eager"]
 
 
 def check_slice_frontend(img, x, dev) -> dict:
@@ -823,14 +935,12 @@ def check_slice_frontend(img, x, dev) -> dict:
     from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
 
     cfg = SLICE_CONFIG
-    kp, frame_ms, counts = plan_frames(SiftPlan(SHAPE, config=cfg, device=dev), img)
-    print("SLICE_CONFIG launch counts over", FRAMES, "frames:", counts, flush=True)
-    for name in ("compact_masks_multi", "refine_multi", "grad_atlas", "orient_desc_fused"):
-        assert counts[name] == FRAMES, f"{name} launched {counts[name]} times in {FRAMES} frames"
-    for name in ("octave0_ladder", "small_octaves_ladder", "best2_l2", "extrema_masks",
-                 "separable_blur", "compact_mask", "refine_octave", "orientation_hist",
-                 "descriptor_hist") + FUSED_LADDERS + ("best2_l2_f32",):
-        assert counts[name] == 0, f"{name} launched {counts[name]} times"
+    kp, frame_ms, launches, _ = plan_frames("SLICE_CONFIG", SiftPlan(SHAPE, config=cfg,
+                                                                      device=dev), img)
+    print("SLICE_CONFIG CUDA launches over", FRAMES, "replayed frames:", launches, flush=True)
+    counts = check_wrapper_launches("SLICE_CONFIG", launches, {
+        name: FRAMES for name in ("compact_masks_multi", "refine_multi", "grad_atlas",
+                                  "orient_desc_fused")})
     assert len(kp) >= MIN_KEYPOINTS, f"only {len(kp)} keypoints"
     for f in ("x", "y", "scale", "angle"):
         assert np.isfinite(kp[f]).all(), f
@@ -1226,12 +1336,13 @@ def check_per_octave(img, dev) -> dict:
     n_oct = cfg.n_octaves(SHAPE)
     plan = SiftPlan(SHAPE, config=cfg, device=dev)
     multi = SiftPlan(SHAPE, config=SiftConfig(grad_backend="xla"), device=dev)
-    kp, frame_ms, counts = plan_frames(plan, img)
-    print(f"P2 (kp_multi_launch=False) launch counts over {FRAMES} frames:", counts, flush=True)
-    for name, n in counts.items():
-        want = {"compact_mask": n_oct, "refine_octave": n_oct, "orient_desc_fused": n_oct,
-                "octave0_ladder": 1, "small_octaves_ladder": 1}.get(name, 0) * FRAMES
-        assert n == want, f"P2: {name} launched {n} times in {FRAMES} frames (want {want})"
+    kp, frame_ms, launches, _ = plan_frames("P2", plan, img)
+    print(f"P2 (kp_multi_launch=False) CUDA launches over {FRAMES} replayed frames:", launches,
+          flush=True)
+    counts = check_wrapper_launches("P2", launches, {
+        name: n * FRAMES for name, n in (("compact_mask", n_oct), ("refine_octave", n_oct),
+                                         ("orient_desc_fused", n_oct), ("octave0_ladder", 1),
+                                         ("small_octaves_ladder", 1))})
     assert len(kp) >= MIN_KEYPOINTS, f"only {len(kp)} keypoints"
     got, want = plan.keypoints_raw(img), multi.keypoints_raw(img)
     for f in got._fields:
@@ -1249,11 +1360,11 @@ def check_buckets(img, x, dev) -> dict:
 
     cfg = SiftConfig(desc_buckets=2)
     assert _desc_buckets(cfg) is not None, "desc_buckets=2 would make one launch"
-    kp, frame_ms, counts = plan_frames(SiftPlan(SHAPE, config=cfg, device=dev), img)
-    print(f"P3 (desc_buckets=2) launch counts over {FRAMES} frames:", counts, flush=True)
-    for name, n in counts.items():
-        want = {"orient_desc_fused": 2}.get(name, 1 if name in VO_KERNELS[:5] else 0) * FRAMES
-        assert n == want, f"P3: {name} launched {n} times in {FRAMES} frames (want {want})"
+    kp, frame_ms, launches, _ = plan_frames("P3", SiftPlan(SHAPE, config=cfg, device=dev), img)
+    print(f"P3 (desc_buckets=2) CUDA launches over {FRAMES} replayed frames:", launches,
+          flush=True)
+    counts = check_wrapper_launches("P3", launches, {"orient_desc_fused": 2 * FRAMES,
+                                                     **{n: FRAMES for n in VO_KERNELS[:5]}})
     ref = to_keypoint_records(detect_and_describe(x, cfg, plain=True))
     hits, l1 = match_keypoint_sets(ref, kp)
     print(f"P3: {len(kp)} keypoints, plain path {len(ref)}, matched {hits}, desc L1 {l1:.4f}; "
@@ -1308,12 +1419,10 @@ def check_scales2(img, x, dev) -> dict:
     from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
 
     cfg = SiftConfig(scales=2)
-    kp, frame_ms, counts = plan_frames(SiftPlan(SHAPE, config=cfg, device=dev), img)
-    print(f"P4 (scales=2) launch counts over {FRAMES} frames:", counts, flush=True)
-    for name, n in counts.items():
-        want = {"separable_blur": 5, "octave0_ladder": 0}.get(
-            name, 1 if name in VO_KERNELS[1:6] else 0) * FRAMES
-        assert n == want, f"P4: {name} launched {n} times in {FRAMES} frames (want {want})"
+    kp, frame_ms, launches, _ = plan_frames("P4", SiftPlan(SHAPE, config=cfg, device=dev), img)
+    print(f"P4 (scales=2) CUDA launches over {FRAMES} replayed frames:", launches, flush=True)
+    counts = check_wrapper_launches("P4", launches, {"separable_blur": 5 * FRAMES,
+                                                     **{n: FRAMES for n in VO_KERNELS[1:6]}})
     ref = to_keypoint_records(detect_and_describe(x, cfg, plain=True))
     hits, l1 = match_keypoint_sets(ref, kp)
     print(f"P4: {len(kp)} keypoints, plain path {len(ref)}, matched {hits}, desc L1 {l1:.4f}; "
@@ -1533,12 +1642,10 @@ def check_plain_keypoints(img, dev) -> None:
     from sift_pyocl_tpu_torch import SiftConfig, SiftPlan
     from sift_pyocl_tpu_torch.utils.testimage import match_keypoint_sets
 
-    kp, frame_ms, counts = plan_frames(SiftPlan(SHAPE, config=SiftConfig(kp_backend="xla"),
-                                                device=dev), img, frames=1)
-    print("P6 (kp_backend='xla') launch counts over one frame:", counts, flush=True)
-    for name, n in counts.items():
-        want = 1 if name in ("octave0_ladder", "small_octaves_ladder") else 0
-        assert n == want, f"P6: {name} launched {n} times (want {want})"
+    kp, frame_ms, launches, _ = plan_frames(
+        "P6", SiftPlan(SHAPE, config=SiftConfig(kp_backend="xla"), device=dev), img, frames=1)
+    print("P6 (kp_backend='xla') CUDA launches over one replayed frame:", launches, flush=True)
+    check_wrapper_launches("P6", launches, {"octave0_ladder": 1, "small_octaves_ladder": 1})
     ref = SiftPlan(SHAPE, config=SiftConfig(), device=dev).keypoints(img)
     hits, l1 = match_keypoint_sets(ref, kp)
     print(f"P6: {len(kp)} keypoints, kernel path {len(ref)}, matched {hits}, desc L1 {l1:.4f}; "
@@ -1750,16 +1857,16 @@ def check_fused_scales2(img, x, dev) -> None:
 
     cfg = SiftConfig(mask_backend="fused", scales=2)
     plan = SiftPlan(SHAPE, config=cfg, device=dev)
+    kp, frame_ms, launches, _ = plan_frames("fused scales=2", plan, img)
     stencil_mask.calls = 0
-    kp, frame_ms, counts = plan_frames(plan, img)
+    plan._fn(torch.from_numpy(img).to(dev))
     stencil_calls = stencil_mask.calls
-    print(f"fused scales=2 launch counts over {FRAMES} frames:", counts,
-          f"plain stencil calls (with the warm-up frame): {stencil_calls}", flush=True)
-    for name, n in counts.items():
-        want = {"separable_blur": 5, "small_octaves_ladder_mask": 1}.get(
-            name, 1 if name in VO_KERNELS[2:6] else 0) * FRAMES
-        assert n == want, f"fused scales=2: {name} launched {n} times (want {want})"
-    assert stencil_calls == FRAMES + 1, f"the stencil ran {stencil_calls} times for octave 0"
+    print(f"fused scales=2 CUDA launches over {FRAMES} replayed frames:", launches,
+          f"plain stencil calls in an eager frame: {stencil_calls}", flush=True)
+    check_wrapper_launches("fused scales=2", launches, {
+        "separable_blur": 5 * FRAMES, "small_octaves_ladder_mask": FRAMES,
+        **{n: FRAMES for n in VO_KERNELS[2:6]}})
+    assert stencil_calls == 1, f"the stencil ran {stencil_calls} times for octave 0"
     got = plan.keypoints_raw(img)
     want = SiftPlan(SHAPE, config=SiftConfig(scales=2), device=dev).keypoints_raw(img)
     for f in got._fields:
@@ -1882,16 +1989,12 @@ def api_crop(base, dy: int = 0, dx: int = 0) -> np.ndarray:
 
 
 def counted_align(la, img, **kw):
-    """One align call with every launch counter reset just before it; K1-K6
-    once, K7 never (the default metric is L1)."""
-    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-
-    reset_launch_counts()
+    """One align call, and the CUDA launches of an align call with the same
+    arguments read by kernel name (kernel_counts: the plan's detector
+    replays a graph): K1-K6 once, K7 never (the default metric is L1)."""
     out = la.align(img, return_all=True, **kw)
-    counts = launch_counts()
-    for name in FRONTEND:
-        assert counts[name] == 1, f"align({kw}): {name} launched {counts[name]} times"
-    assert counts["best2_l2"] == 0, f"align({kw}): K7 launched {counts['best2_l2']} times"
+    check_wrapper_launches(f"align({kw})", kernel_counts(lambda: la.align(img, **kw)),
+                           {name: 1 for name in FRONTEND})
     assert out is not None, f"align({kw}) found too few matches"
     return out
 
@@ -1982,15 +2085,24 @@ def check_api_align(dev) -> dict:
     print(f"MatchPlan L2: {len(idx_l2)} matches, one K7 launch a call, equal to the CPU's; "
           f"L1 (default): {len(want_l1)} matches, equal to the CPU's", flush=True)
 
-    # ms per warm align call (host image in, host result out) and its split
+    # the plan's replayed buffer against its eager detector's
+    check_buffers_equal("align's plan", la.sift.keypoints_raw(img),
+                        la.sift._fn(torch.from_numpy(img).to(dev)))
+    # ms per warm align call (host image in, host result out) and its
+    # split; replayed and eager (the plan's detector) in turns
     counted_align(la, img)
     torch.cuda.synchronize()
-    align_ms = []
-    for _ in range(API_CALLS):
-        t = time.perf_counter()
-        la.align(img, return_all=True)
-        torch.cuda.synchronize()
-        align_ms.append(1e3 * (time.perf_counter() - t))
+    turns = {"eager": [], "replay": []}
+    for turn in ("eager", "replay", "replay", "eager"):
+        with eager_sift_programs() if turn == "eager" else contextlib.nullcontext():
+            la.align(img, return_all=True)
+            torch.cuda.synchronize()
+            for _ in range(API_CALLS):
+                t = time.perf_counter()
+                la.align(img, return_all=True)
+                torch.cuda.synchronize()
+                turns[turn].append(1e3 * (time.perf_counter() - t))
+    align_ms = turns["replay"][-API_CALLS:]
 
     p_r = np.stack([la.ref_kp["y"][out["matches"][:, 0]], la.ref_kp["x"][out["matches"][:, 0]]], 1)
     p_i = np.stack([kp["y"][out["matches"][:, 1]], kp["x"][out["matches"][:, 1]]], 1)
@@ -2010,8 +2122,10 @@ def check_api_align(dev) -> dict:
     syncs = host_syncs(lambda: la.align(img))
     syncs_orsa = host_syncs(lambda: la.align(img, orsa=True))
     n1, n2 = len(la.ref_kp), len(kp)
+    with eager_sift_programs():
+        split["keypoints_eager"] = host_ms(lambda: la.sift.keypoints(img))
     report = {"align_ms": align_ms, "align_ms_mean": float(np.mean(align_ms)),
-              "split_ms": split, "orsa_align_ms": orsa_ms,
+              "align_ms_turns": turns, "split_ms": split, "orsa_align_ms": orsa_ms,
               "keypoints": [n1, n2], "matches": len(out["matches"]),
               "l1_match": {"ms": split["match"], "cuda_launches": l1_launches,
                            "device_ms": l1_dev, "int_ops": 3 * 128 * n1 * n2},
@@ -2019,8 +2133,11 @@ def check_api_align(dev) -> dict:
               "warp": {"cuda_launches": warp_launches, "device_ms": warp_dev,
                        "bytes": 3 * 4 * SHAPE[0] * SHAPE[1]},
               "host_syncs": len(syncs), "host_syncs_orsa": len(syncs_orsa)}
-    print(f"align {SHAPE} ms (host clock, host image in, host result out, synchronised): "
-          f"{[round(v, 3) for v in align_ms]} (mean {report['align_ms_mean']:.3f}); split "
+    print(f"align {SHAPE} ms (host clock, host image in, host result out, synchronised; "
+          f"the plan's detector replayed): {[round(v, 3) for v in align_ms]} (mean "
+          f"{report['align_ms_mean']:.3f}); in turns replayed "
+          f"{[round(v, 3) for v in turns['replay']]}, eager "
+          f"{[round(v, 3) for v in turns['eager']]}  [{nvidia_smi_line()}]; split "
           f"{ {k: round(v, 3) for k, v in split.items()} }; orsa align {orsa_ms:.3f} ms; "
           f"keypoints {n1} / {n2}, matches {len(out['matches'])}", flush=True)
     print(f"L1 matcher (default): {split['match']:.3f} ms a call, {l1_launches:g} CUDA launches "
@@ -2039,7 +2156,8 @@ def check_invariance(dev) -> dict:
     """Phase B: the invariance battery (sift_pyocl_tpu_torch/utils/
     invariance.py) through the port at 256x256 on the card: default
     SiftConfig, both scenes, all 9 cases against FLOORS, the double_im_size
-    zoom fence and the angle fence."""
+    zoom fence and the angle fence; the plans' replayed buffers bit-equal
+    to their eager detectors' on both scenes."""
     from sift_pyocl_tpu_torch import MatchPlan, SiftConfig, SiftPlan
     from sift_pyocl_tpu_torch.utils import invariance as inv
 
@@ -2049,6 +2167,8 @@ def check_invariance(dev) -> dict:
     for scene, img in inv.scenes().items():
         kp0 = plan.keypoints(img)
         assert len(kp0) >= 50, f"{scene}: {len(kp0)} keypoints"
+        check_buffers_equal(f"[invariance] {scene}: replay against eager",
+                            plan.keypoints_raw(img), plan._fn(torch.as_tensor(img).to(dev)))
         for case in inv.CASES:
             res = inv.run_case(plan, mp, img, kp0, case, dev)
             floor = inv.FLOORS[(scene, case[0])]
@@ -2067,6 +2187,11 @@ def check_invariance(dev) -> dict:
             failures.append(f"{scene}: angle consistency {frac:.3f} of {n_match}")
     plan_d = SiftPlan(inv.SHAPE, config=SiftConfig(double_im_size=True), device=dev)
     rep, n_match = inv.zoom_fence(plan, plan_d, mp, dev)
+    for img in inv.scenes().values():
+        check_buffers_equal("[invariance] double_im_size: replay against eager",
+                            plan_d.keypoints_raw(img), plan_d._fn(torch.as_tensor(img).to(dev)))
+    print("[invariance] the plans' replayed buffers are bit-equal to their eager detectors' on "
+          "both scenes (default and double_im_size)", flush=True)
     rows["double_im_size/zoom_out"] = {"rep": rep, "matches": n_match}
     print(f"[invariance] double_im_size zoom_out: repeatability {rep:.3f}, matches {n_match} "
           f"(fence {inv.ZOOM_FENCE[0]}, {inv.ZOOM_FENCE[1]})", flush=True)
@@ -2123,105 +2248,187 @@ def captured_registration(sfm, frame: int, method: str = "_register_frame") -> l
     return kept
 
 
-def check_sfm(dev, seq) -> dict:
-    """Phase C: IncrementalSfM over the config-4 sequence on the card, twice
-    (two objects, one seed).  Gates: 50 of 50 frames registered, ATE <
-    0.05, map points within 20 % of 672, a loop edge, the two runs equal in
-    every bit of Rs, ts and points, K1-K6 once per frame detected (their
-    launch counters) and K7 never (the L1 matcher).  Prints the second
-    run's wall time, s/frame and phase_times; for one registered frame
-    (detection included) its CUDA launches and device ms (torch.profiler)
-    and its host synchronisations (sync debug mode); and the BA's segment
-    sum held to a float64 sum and to itself on the final BA's ids."""
-    from sift_pyocl_tpu_torch import SiftConfig
+def graph_buckets(cache, spec_at: int) -> list:
+    """The row counts (the P or N bucket: input `spec_at`'s first dimension)
+    of the keys a graph cache holds."""
+    return sorted({key[1][spec_at][0][0] for key in cache._graphs})
+
+
+def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
+    """One IncrementalSfM run over config 4's frames, its per-frame
+    programs replayed (or with `eager` their eager functions patched in),
+    with the run's gates: 50 of 50 registered (the host loop: at least the
+    JAX package's count), ATE below its bound, map points within 20 % of
+    672 (fused), a loop edge (fused); an eager run launches K1-K6 once a
+    frame detected and K7 never (the wrappers' counters), a replayed run
+    captures at most one detector key and one registration (or RANSAC-PnP)
+    key a bucket (its counters count the captures' bodies, two each)."""
+    from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from sift_pyocl_tpu_torch.sfm import IncrementalSfM, ate_rmse, camera_centers, pipeline, pnp
+
+    K, frames, gtR, gtT, _ = seq
+    fused = kw.get("fused", True)
+    reg_cache, at = (pipeline.REGISTER_GRAPHS, 8) if fused else (pnp.PNP_GRAPHS, 3)
+    before = DETECT_GRAPHS.captures, reg_cache.captures
+    sfm = IncrementalSfM(K, frames[0].shape, **kw)
+    kept = captured_registration(sfm, CONFIG4_FRAME,
+                                 "_register_frame" if fused else "_register_host")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with eager_sift_programs() if eager else contextlib.nullcontext():
+        res = sfm.run(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    det, regs = DETECT_GRAPHS.captures - before[0], reg_cache.captures - before[1]
+    assert res is not None, f"{tag}: bootstrap failed"
+    reg = res.frames_registered
+    ate = ate_rmse(camera_centers(res.Rs, res.ts), camera_centers(gtR[reg], gtT[reg]))
+    buckets = graph_buckets(reg_cache, at)
+    print(f"[config4] {tag}: {wall:.3f} s ({wall / len(frames):.4f} s/frame), {len(reg)} "
+          f"registered, ATE {ate:.5f}, {len(res.points)} points, {res.n_obs} observations, "
+          f"{sfm.n_loop_edges} loop edges, bootstrap (0, {reg[1]}), {sfm.n_detected} frames "
+          f"detected; graph captures: detector {det}, "
+          f"{'registration' if fused else 'RANSAC-PnP'} {regs} (buckets held {buckets}); "
+          f"phases (s) { {k: round(v, 4) for k, v in sfm.phase_times.items()} }; memory "
+          f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB  [{nvidia_smi_line()}]",
+          flush=True)
+    if fused:
+        assert len(reg) == len(frames), f"{tag}: {len(reg)} of {len(frames)} registered"
+        assert ate < 0.05, f"{tag}: ATE {ate}"
+        assert abs(len(res.points) - CONFIG4_POINTS) <= 0.2 * CONFIG4_POINTS, len(res.points)
+        assert sfm.n_loop_edges >= 1, f"{tag}: no loop edge"
+    else:
+        assert len(reg) >= CONFIG4_HOST_JAX["registered"], f"{tag}: {len(reg)} registered"
+        assert ate < CONFIG4_HOST_ATE, f"{tag}: ATE {ate}"
+        assert sfm.n_detected == len(frames)
+    bodies = sfm.n_detected if eager else GRAPH_BODIES * det
+    for name in FRONTEND:
+        assert counts[name] == bodies, \
+            f"{tag}: {name} launched {counts[name]} times, want {bodies} ({sfm.n_detected} frames)"
+    assert counts["best2_l2"] == 0, f"{tag}: K7 launched {counts['best2_l2']} times"
+    if not eager:
+        assert det <= 1 and regs <= len(buckets), (det, regs, buckets)
+        assert len(reg_cache) == len(buckets) or reg_cache.max_graphs < len(buckets)
+        assert all(b >= 256 and b & (b - 1) == 0 for b in buckets), buckets
+    return dict(sfm=sfm, res=res, wall=wall, ate=ate, counts=counts, kept=kept,
+                detected=sfm.n_detected, phases=dict(sfm.phase_times),
+                captures={"detector": det, "registration": regs, "buckets": buckets})
+
+
+def check_runs_equal(tag: str, runs, want) -> None:
+    for r in runs:
+        for field in ("Rs", "ts", "points"):
+            x, y = getattr(r["res"], field), getattr(want["res"], field)
+            assert x.shape == y.shape and np.array_equal(x, y), f"{tag}: runs differ in {field}"
+
+
+FRAME_CALLS = 20     # timed calls of one registered frame, each turn
+
+
+def frame_report(tag: str, one_frame) -> dict:
+    """One registered frame (detection included), replayed and eager: host
+    ms (the mean, median, least and most of FRAME_CALLS calls, each
+    synchronised), CUDA launches and device ms (torch.profiler), host syncs;
+    the replayed frame launches K1-K6 once (by kernel name) and K7 never."""
+    rows = {}
+    for turn in ("replay", "eager"):
+        with eager_sift_programs() if turn == "eager" else contextlib.nullcontext():
+            out = one_frame()
+            calls = []
+            for _ in range(FRAME_CALLS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                one_frame()
+                torch.cuda.synchronize()
+                calls.append(1e3 * (time.perf_counter() - t))
+            launches, dev_ms = profile_calls(one_frame)
+            syncs = host_syncs(one_frame)
+            rows[turn] = {"ms": float(np.mean(calls)), "ms_median": float(np.median(calls)),
+                          "ms_min": min(calls), "ms_max": max(calls), "cuda_launches": launches,
+                          "device_ms": dev_ms, "host_syncs": len(syncs)}
+            if turn == "replay":
+                check_wrapper_launches(f"{tag}: one replayed frame", kernel_counts(one_frame),
+                                       {name: 1 for name in FRONTEND})
+        r = rows[turn]
+        print(f"[config4] {tag}, one registered frame (frame {CONFIG4_FRAME}, detection "
+              f"included), {turn}: {r['ms']:.3f} ms host clock (median {r['ms_median']:.3f}, "
+              f"{r['ms_min']:.3f}-{r['ms_max']:.3f} over {FRAME_CALLS} calls), {launches:g} "
+              f"CUDA launches, {dev_ms:.4f} device ms, {len(syncs)} host synchronisations",
+              flush=True)
+        for line in sorted(set(syncs)):
+            print("  sync:", line[:160])
+    return {**rows["replay"], "eager": rows["eager"], "out": out}
+
+
+def check_sfm(dev, seq) -> dict:
+    """Phase C: IncrementalSfM over the config-4 sequence on the card, three
+    runs in turns (replayed, eager, replayed; sfm_run's gates each), the
+    replayed runs bit-equal to the eager run in Rs, ts and points (the
+    second replayed run captures nothing).  Prints each run's wall time,
+    s/frame and phase_times; for one registered frame (detection included)
+    replayed beside eager its host ms, CUDA launches and device ms
+    (torch.profiler) and host synchronisations (sync debug mode), and its
+    split; and the BA's segment sum held to a float64 sum and to itself on
+    the final BA's ids.  Then the host loop (check_sfm_host_loop)."""
+    from sift_pyocl_tpu_torch import SiftConfig
     from sift_pyocl_tpu_torch.ops.match import match_descriptors_dense
-    from sift_pyocl_tpu_torch.sfm import IncrementalSfM, ate_rmse, camera_centers
-    from sift_pyocl_tpu_torch.sfm.pnp import ransac_pnp
+    from sift_pyocl_tpu_torch.sfm import pipeline, pnp
     from sift_pyocl_tpu_torch.sfm.segment import segment_sum, segments
 
     K, frames, gtR, gtT, render_s = seq
     kw = dict(cfg=SiftConfig(kp_per_octave_cap=256), ba_every=8, device=dev)
-    runs, kept = [], None
-    for i in range(2):
-        sfm = IncrementalSfM(K, frames[0].shape, **kw)
-        if i == 1:
-            kept = captured_registration(sfm, CONFIG4_FRAME)
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = sfm.run(frames)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts = launch_counts()
-        assert res is not None, f"config 4 run {i}: bootstrap failed"
-        reg = res.frames_registered
-        ate = ate_rmse(camera_centers(res.Rs, res.ts), camera_centers(gtR[reg], gtT[reg]))
-        print(f"[config4] run {i}: {wall:.3f} s ({wall / len(frames):.4f} s/frame), "
-              f"{len(reg)} registered, ATE {ate:.5f}, {len(res.points)} points, {res.n_obs} "
-              f"observations, {sfm.n_loop_edges} loop edges, bootstrap (0, {reg[1]}), "
-              f"{sfm.n_detected} frames detected; phases (s) "
-              f"{ {k: round(v, 4) for k, v in sfm.phase_times.items()} }", flush=True)
-        assert len(reg) == len(frames), f"run {i}: {len(reg)} of {len(frames)} registered"
-        assert ate < 0.05, f"run {i}: ATE {ate}"
-        assert abs(len(res.points) - CONFIG4_POINTS) <= 0.2 * CONFIG4_POINTS, len(res.points)
-        assert sfm.n_loop_edges >= 1, f"run {i}: no loop edge"
-        for name in FRONTEND:
-            assert counts[name] == sfm.n_detected, \
-                f"run {i}: {name} launched {counts[name]} times for {sfm.n_detected} frames"
-        assert counts["best2_l2"] == 0, f"run {i}: K7 launched {counts['best2_l2']} times"
-        runs.append(dict(sfm=sfm, res=res, wall=wall, ate=ate, counts=counts,
-                         detected=sfm.n_detected, phases=dict(sfm.phase_times)))
-    a, b = runs[0]["res"], runs[1]["res"]
-    for field in ("Rs", "ts", "points"):
-        x, y = getattr(a, field), getattr(b, field)
-        assert x.shape == y.shape and np.array_equal(x, y), f"the two runs differ in {field}"
-    print("[config4] the two runs are bit-equal in Rs, ts and points", flush=True)
+    runs = {f"run {i} ({turn})": sfm_run(f"run {i} ({turn})", seq, kw, turn == "eager")
+            for i, turn in enumerate(("replayed", "eager", "replayed"))}
+    first, eager, last = runs.values()
+    check_runs_equal("config 4", (first, last), eager)
+    assert last["captures"]["detector"] == last["captures"]["registration"] == 0
+    print("[config4] the replayed runs are bit-equal to the eager run in Rs, ts and points; "
+          "the second replayed run captured nothing", flush=True)
 
-    # one registered frame, detection included: launches, device ms, syncs
-    sfm = runs[1]["sfm"]
-    assert kept, f"frame {CONFIG4_FRAME} was not registered"
-    args = kept[0]
+    # one registered frame, detection included: replayed beside eager
+    sfm = last["sfm"]
+    assert last["kept"], f"frame {CONFIG4_FRAME} was not registered"
+    args = last["kept"][0]
 
     def one_frame():
         sfm._bufs.pop(CONFIG4_FRAME, None)
         return sfm._register_frame(*args)
 
-    out = one_frame()
+    frame = frame_report("fused", one_frame)
+    out = frame.pop("out")
     assert int(out.n_inl) >= 10, int(out.n_inl)
-    launches, dev_ms = profile_calls(one_frame)
-    syncs = host_syncs(one_frame)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(5):
-        one_frame()
-    frame_ms = 1e3 * (time.perf_counter() - t) / 5
-    print(f"[config4] one registered frame (frame {CONFIG4_FRAME}, map {len(args[3])} points, "
-          f"detection included): {frame_ms:.3f} ms host clock, {launches:g} CUDA launches, "
-          f"{dev_ms:.4f} device ms, {len(syncs)} host synchronisations", flush=True)
-    for line in sorted(set(syncs)):
-        print("  sync:", line[:160])
-    # its split: detection, the L1 map match, RANSAC-PnP (the same inputs)
+    # its split: detection, the L1 map match, RANSAC-PnP on the map's bucket
+    # (the same inputs), each replayed and eager where it is a graph
     buf = sfm._buf(CONFIG4_FRAME)
+    n = len(args[3])
+    P = pipeline._pow2_pad(n)
     mdesc, mvalid, mX = (sfm._dev(a) for a in (args[2], args[1], args[3]))
+    pad, uv_p, keep_p = (pipeline._pad_rows(a, P, np.float32)
+                         for a in (args[3], out.uv, out.keep))
     R0, t0 = sfm._dev(args[7]), sfm._dev(args[8])
-    keep = torch.from_numpy(out.keep).to(dev).float()
-    uv_m = torch.from_numpy(out.uv).to(dev)
     split = {}
     for name, fn in (
             ("detect", lambda: sfm.sift.keypoints_raw(frames[CONFIG4_FRAME])),
+            ("detect_eager", lambda: sfm.sift._fn(torch.from_numpy(
+                np.asarray(frames[CONFIG4_FRAME], np.float32)).to(dev))),
             ("match_l1", lambda: match_descriptors_dense(mdesc, mvalid, buf.desc, buf.valid,
                                                          metric="L1", ratio_sq=0.7)),
-            ("ransac_pnp", lambda: ransac_pnp(0, sfm.Kt, R0, t0, mX, uv_m, keep, thresh_px=3.0)),
+            ("ransac_pnp", lambda: pnp.ransac_pnp(0, sfm.Kt, R0, t0, pad, uv_p, keep_p,
+                                                  thresh_px=3.0)),
+            ("ransac_pnp_eager", lambda: pnp._ransac_pnp_eager(0, sfm.Kt, R0, t0, pad, uv_p,
+                                                               keep_p, thresh_px=3.0)),
             ("register_no_detect", lambda: sfm._register_frame(*args))):
-        n, d = profile_calls(fn)
-        split[name] = {"ms": host_ms(fn), "cuda_launches": n, "device_ms": d}
+        n_l, d = profile_calls(fn)
+        split[name] = {"ms": host_ms(fn), "cuda_launches": n_l, "device_ms": d}
     print(f"[config4] its split: { {k: {m: round(v, 4) for m, v in r.items()} for k, r in split.items()} }",
           flush=True)
 
     # the segment sum of the scatter-form BA on the final BA's camera and
     # point ids: the same bits on every call, within 1e-4 of float64
-    res = runs[1]["res"]
+    res = last["res"]
     gen = torch.Generator().manual_seed(0)
     ids = torch.randint(0, len(res.points), (res.n_obs,), generator=gen)
     vals = torch.randn((res.n_obs, 6, 6), generator=gen)
@@ -2235,60 +2442,37 @@ def check_sfm(dev, seq) -> dict:
     seg_ms = cuda_ms(lambda: segment_sum(vals.to(dev), seg), 20)
     print(f"[config4] segment_sum over {res.n_obs} observations: 3 calls bit-equal, "
           f"{seg_err:.3g} from float64, {seg_ms:.4f} ms a call", flush=True)
-    host = check_sfm_host_loop(dev, seq, kw, frame_ms, launches, len(syncs))
+    host = check_sfm_host_loop(seq, kw, frame)
     report = {"frames": len(frames), "render_s": render_s,
-              "wall_s": [r["wall"] for r in runs],
-              "s_per_frame": runs[1]["wall"] / len(frames),
-              "phase_times": runs[1]["phases"],
-              "registered": len(res.frames_registered), "ate": runs[1]["ate"],
+              "wall_s": {k: r["wall"] for k, r in runs.items()},
+              "s_per_frame": {k: r["wall"] / len(frames) for k, r in runs.items()},
+              "phase_times": {k: r["phases"] for k, r in runs.items()},
+              "captures": {k: r["captures"] for k, r in runs.items()},
+              "registered": len(res.frames_registered), "ate": last["ate"],
               "points": int(len(res.points)), "observations": int(res.n_obs),
-              "loop_edges": runs[1]["sfm"].n_loop_edges, "bootstrap": res.frames_registered[1],
-              "detected": runs[1]["detected"],
-              "launch_counts": {k: runs[1]["counts"][k] for k in FRONTEND},
-              "frame": {"id": CONFIG4_FRAME, "ms": frame_ms, "cuda_launches": launches,
-                        "device_ms": dev_ms, "host_syncs": len(syncs), "split": split},
+              "loop_edges": sfm.n_loop_edges, "bootstrap": res.frames_registered[1],
+              "detected": last["detected"],
+              "launch_counts": {k: eager["counts"][k] for k in FRONTEND},
+              "frame": {"id": CONFIG4_FRAME, **frame, "split": split},
               "segment_sum": {"max_err_f64": seg_err, "ms": seg_ms},
               "host_loop": host}
     print("config4:", json.dumps(report), flush=True)
     return report
 
 
-def check_sfm_host_loop(dev, seq, kw, fused_frame_ms, fused_launches, fused_syncs) -> dict:
-    """Phase C's host loop: IncrementalSfM(fused=False) once over config 4's
-    frames.  Gates: at least the JAX package's registered count, ATE below
-    CONFIG4_HOST_ATE, K1-K6 once a frame (every frame detected first) and
-    K7 never.  Prints s/frame beside the fused path's, and one registered
-    frame's (detection included) CUDA launches, device ms and host syncs
-    beside the fused path's."""
-    from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from sift_pyocl_tpu_torch.sfm import IncrementalSfM, ate_rmse, camera_centers
-
-    K, frames, gtR, gtT, _ = seq
-    sfm = IncrementalSfM(K, frames[0].shape, fused=False, **kw)
-    kept = captured_registration(sfm, CONFIG4_FRAME, "_register_host")
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    res = sfm.run(frames)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    counts = launch_counts()
-    assert res is not None, "host loop: bootstrap failed"
-    reg = res.frames_registered
-    ate = ate_rmse(camera_centers(res.Rs, res.ts), camera_centers(gtR[reg], gtT[reg]))
-    print(f"[config4] host loop (fused=False): {wall:.3f} s ({wall / len(frames):.4f} s/frame), "
-          f"{len(reg)} registered, ATE {ate:.5f}, {len(res.points)} points, "
-          f"{sfm.n_loop_edges} loop edges, bootstrap (0, {reg[1]}); phases (s) "
-          f"{ {k: round(v, 4) for k, v in sfm.phase_times.items()} }; JAX's host loop "
-          f"{CONFIG4_HOST_JAX}", flush=True)
-    assert len(reg) >= CONFIG4_HOST_JAX["registered"], f"host loop: {len(reg)} registered"
-    assert ate < CONFIG4_HOST_ATE, f"host loop: ATE {ate}"
-    assert sfm.n_detected == len(frames)
-    for name in FRONTEND:
-        assert counts[name] == len(frames), f"host loop: {name} launched {counts[name]} times"
-    assert counts["best2_l2"] == 0, f"host loop: K7 launched {counts['best2_l2']} times"
-
-    # one registered frame, detection (buffer and host keypoints) included
+def check_sfm_host_loop(seq, kw, fused_frame) -> dict:
+    """Phase C's host loop: IncrementalSfM(fused=False) over config 4's
+    frames replayed and eager (sfm_run's gates each), the replayed run
+    bit-equal to the eager run in Rs, ts and points.  Prints s/frame, and
+    one registered frame's (detection included) host ms, CUDA launches,
+    device ms and host syncs replayed beside eager and beside the fused
+    path's."""
+    runs = [sfm_run(f"host loop (fused=False, {turn})", seq, {**kw, "fused": False},
+                    turn == "eager") for turn in ("replayed", "eager")]
+    check_runs_equal("host loop", runs[:1], runs[1])
+    print("[config4] host loop: the replayed run is bit-equal to the eager run in Rs, ts and "
+          "points", flush=True)
+    sfm, kept = runs[0]["sfm"], runs[0]["kept"]
     assert kept, f"host loop: frame {CONFIG4_FRAME} was not registered"
     args = kept[0]
 
@@ -2298,24 +2482,18 @@ def check_sfm_host_loop(dev, seq, kw, fused_frame_ms, fused_launches, fused_sync
         sfm._kp_np(CONFIG4_FRAME)
         return sfm._register_host(*args)
 
-    out = one_frame()
+    frame = frame_report("host loop", one_frame)
+    out = frame.pop("out")
     assert out.n_inl >= 10, out.n_inl
-    launches, dev_ms = profile_calls(one_frame)
-    syncs = host_syncs(one_frame)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(5):
-        one_frame()
-    frame_ms = 1e3 * (time.perf_counter() - t) / 5
-    print(f"[config4] host loop, one registered frame (frame {CONFIG4_FRAME}, detection "
-          f"included): {frame_ms:.3f} ms host clock, {launches:g} CUDA launches, {dev_ms:.4f} "
-          f"device ms, {len(syncs)} host synchronisations (fused: {fused_frame_ms:.3f} ms, "
-          f"{fused_launches:g} launches, {fused_syncs} syncs)", flush=True)
-    return {"wall_s": wall, "s_per_frame": wall / len(frames), "registered": len(reg),
-            "ate": ate, "points": int(len(res.points)), "loop_edges": sfm.n_loop_edges,
-            "bootstrap": reg[1], "phase_times": dict(sfm.phase_times),
-            "frame": {"ms": frame_ms, "cuda_launches": launches, "device_ms": dev_ms,
-                      "host_syncs": len(syncs)}}
+    print(f"[config4] host loop frame {frame['ms']:.3f} ms replayed against fused "
+          f"{fused_frame['ms']:.3f} ms", flush=True)
+    r = runs[0]
+    return {"wall_s": {"replayed": r["wall"], "eager": runs[1]["wall"]},
+            "s_per_frame": r["wall"] / len(seq[1]), "registered": len(r["res"].frames_registered),
+            "ate": r["ate"], "points": int(len(r["res"].points)),
+            "loop_edges": r["sfm"].n_loop_edges, "bootstrap": r["res"].frames_registered[1],
+            "phase_times": {"replayed": r["phases"], "eager": runs[1]["phases"]},
+            "captures": r["captures"], "frame": frame}
 
 
 # Phase D: BASELINE config 3, the batched video frontend.  Frames as
@@ -3157,11 +3335,12 @@ CLI_VO_ATE = 2 * CLI_VO_JAX_ATE
 def check_evaluate_cli(dev, seq) -> dict:
     """Phase H: save_sequence writes config 4's frames and truth into a
     temporary directory; evaluate.main runs over them in sfm and in vo
-    mode on the card (vo: through vo_step's graph), then in vo mode with the
-    eager step.  Gates: rc 0, the JSON line's keys, the frames read by the
+    mode on the card (vo: through vo_step's graph; sfm: through the
+    detector's and the registration's), then in both modes with the eager
+    functions.  Gates: rc 0, the JSON line's keys, the frames read by the
     native loader (FrameSource.backend), 50 of 50 registered in sfm mode,
-    ATE below CLI_SFM_ATE / CLI_VO_ATE, the eager vo line equal to the
-    graph's.  Prints each run's wall time."""
+    ATE below CLI_SFM_ATE / CLI_VO_ATE, each eager line equal to the
+    replayed one.  Prints each run's wall time."""
     import io
     import tempfile
 
@@ -3203,24 +3382,40 @@ def check_evaluate_cli(dev, seq) -> dict:
                     assert line["n_registered"] == len(frames), line
                 assert line["ate_rmse"] < bound, (mode, line)
                 report[mode] = {**line, "wall_s": wall}
-            # vo mode went through vo_step's graph: the eager step on the same
-            # files gives the same trajectory
-            buf = io.StringIO()
-            t = time.perf_counter()
-            with contextlib.redirect_stdout(buf), eager_vo_steps():
-                rc = evaluate.main(["--frames", str(seq_dir), "--gt", str(gt), "--mode", "vo",
-                                    "--fx", str(float(K[0, 0])), "--device", str(dev)])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            line = json.loads(buf.getvalue().strip().splitlines()[-1])
-            print(f"[evaluate] --mode vo with the eager step: rc {rc}, {line}, {wall:.3f} s "
-                  f"({wall / len(frames):.4f} s/frame)  [{nvidia_smi_line()}]", flush=True)
-            assert rc == 0 and line == {k: report["vo"][k] for k in line}, \
-                (line, report["vo"])
-            report["vo"]["eager_wall_s"] = wall
+            # vo mode went through vo_step's graph, sfm mode through the
+            # detector's and the registration's: the eager functions on the
+            # same files give the same trajectory
+            for mode, eager in (("vo", eager_vo_steps), ("sfm", eager_sift_programs)):
+                buf = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(buf), eager():
+                    rc = evaluate.main(["--frames", str(seq_dir), "--gt", str(gt), "--mode",
+                                        mode, "--fx", str(float(K[0, 0])), "--device", str(dev)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                line = json.loads(buf.getvalue().strip().splitlines()[-1])
+                print(f"[evaluate] --mode {mode} eager: rc {rc}, {line}, {wall:.3f} s "
+                      f"({wall / len(frames):.4f} s/frame)  [{nvidia_smi_line()}]", flush=True)
+                assert rc == 0 and line == {k: report[mode][k] for k in line}, \
+                    (line, report[mode])
+                report[mode]["eager_wall_s"] = wall
         finally:
             framesource.FrameSource = orig
     return report
+
+
+def print_memory(after: str) -> None:
+    """The card's memory after a phase: every graph keeps its own pool."""
+    from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
+    from sift_pyocl_tpu_torch.models.vo import STEP_GRAPHS
+    from sift_pyocl_tpu_torch.sfm import pipeline, pnp
+
+    held = {name: len(c) for name, c in (("vo_step", STEP_GRAPHS), ("detector", DETECT_GRAPHS),
+                                         ("registration", pipeline.REGISTER_GRAPHS),
+                                         ("ransac_pnp", pnp.PNP_GRAPHS))}
+    print(f"[memory] after {after}: reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB, "
+          f"allocated {torch.cuda.memory_allocated() / 2**20:.0f} MiB; graphs held {held}",
+          flush=True)
 
 
 def main() -> int:
@@ -3264,24 +3459,32 @@ def main() -> int:
     p7 = check_vo_fused(base, p1)
     check_fused_scales2(img, x, dev)
     p8 = check_matcher_f32(base["bufs"], rec)
+    print_memory("kernels, P1-P8 and the VO paths")
     check_api_align(dev)
     check_invariance(dev)
+    print_memory("phases A and B")
     seq4 = config4_sequence()
     check_sfm(dev, seq4)
+    print_memory("phase C")
     p_d = check_batched(dev)
+    print_memory("phase D")
     print("config5:", json.dumps({**check_config5(dev), **check_spatial(x, dev)}), flush=True)
+    print_memory("phase E")
     print("fence:", json.dumps(check_fence(dev)), flush=True)
     check_config2(dev)
     print("evaluate:", json.dumps(check_evaluate_cli(dev, seq4)), flush=True)
+    print_memory("phases F, G and H")
 
     # each kernel's wrapper calls on its path.  On the VO paths (the main
     # path for K1-K7, P1 for K8, P7 for K1m/K2m) the steps replay a graph,
     # which runs no Python: their launches are the VO_STEPS replayed steps'
     # calls, read from a replayed step's device profile, and
     # capture_launches the wrappers' counters over the graph's warm-up and
-    # capture.  The other paths count their wrappers: P2 (FRAMES frames)
-    # for K10a/K10b, P4 (FRAMES frames) for K9, P5 (one frame) for
-    # K11a/K11b, P8 (two f32 matches) for K7f.
+    # capture.  P2 (FRAMES frames) for K10a/K10b and P4 (FRAMES frames)
+    # for K9 replay SiftPlan's detector graph: their wrapper calls are read
+    # from the replayed frames' device profiles (check_wrapper_launches).
+    # The other paths count their wrappers: P5 (one frame) for K11a/K11b,
+    # P8 (two f32 matches) for K7f.
     graph_paths = {name: run for run, names in ((base, VO_KERNELS), (p1, ("extrema_masks",)),
                                                 (p7, FUSED_LADDERS)) for name in names}
     counts = {name: VO_STEPS * graph_path_calls(name, run["replay_launches"])

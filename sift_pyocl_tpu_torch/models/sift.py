@@ -25,6 +25,12 @@ sends configurations whose window exceeds 128 (e.g. ``init_sigma=1.8,
 scales=2``) from its kernel path to the XLA path, since its window kernels
 hold at most 128 lanes; the port does not, since K6 takes any window.  On
 a CPU device every kernel wrapper runs its plain PyTorch version.
+
+``SiftPlan`` on a CUDA device replays one CUDA graph per (device, image
+shape and dtype, ``SiftConfig``) (``DETECT_GRAPHS``, process-wide, as the
+JAX package's ``_jitted_detector`` is one program per config shared by
+every plan); ``detect_and_describe`` itself, like its JAX counterpart, runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..ops.orient_desc import (_desc_window_for_sigma, _desc_window_size,
                                assign_orientations, compute_descriptors, gradient_planes,
                                orient_and_describe_fused, quantize_descriptors)
 from ..ops.pyramid import build_scale_space_and_masks, resolve_conv_backend
+from ..utils import graphs
 
 logger = logging.getLogger(__name__)
 
@@ -300,8 +307,10 @@ def _describe_octaves_xla(octaves, caps: List[Tuple[int, int]],
 
 
 def to_keypoint_records(buf: KeypointBuffer) -> np.ndarray:
-    """The valid slots of a KeypointBuffer as a host KP_DTYPE array."""
-    x, y, scale, angle, desc, valid = (t.cpu().numpy() for t in buf[:6])
+    """The valid slots of a KeypointBuffer as a host KP_DTYPE array (a
+    replay's buffer comes home in one copy, ``graphs.to_host``; the valid
+    mask is applied on the host)."""
+    x, y, scale, angle, desc, valid = (t.numpy() for t in graphs.to_host(buf[:6]))
     out = np.zeros(int(valid.sum()), dtype=KP_DTYPE)
     out["x"] = x[valid]
     out["y"] = y[valid]
@@ -313,12 +322,23 @@ def to_keypoint_records(buf: KeypointBuffer) -> np.ndarray:
 
 @lru_cache(maxsize=32)
 def _detector(cfg: SiftConfig):
-    """The forward pass of one config, validated once and shared by every
-    plan with that config (the counterpart of the JAX package's per-config
-    jitted detector; PyTorch runs eagerly, so there is nothing to trace)."""
+    """The eager forward pass of one config, validated once and shared by
+    every plan with that config: what a CPU plan runs, and what
+    ``DETECT_GRAPHS`` captures on a card."""
     _check_kp_path(cfg)
     resolve_conv_backend(cfg)
     return partial(detect_and_describe, cfg=cfg)
+
+
+def _detect_flat(cfg: SiftConfig, img: torch.Tensor):
+    """The eager forward pass as a graph body: the buffer's fields."""
+    return tuple(_detector(cfg)(img))
+
+
+# SiftPlan's detector on the card: one CUDA graph per (device, image shape
+# and dtype, config), shared by every plan (IncrementalSfM and LinearAlign
+# build a plan each), as the JAX package's ``_jitted_detector``
+DETECT_GRAPHS = graphs.GraphCache(_detect_flat)
 
 
 def _host_memory_bytes() -> int:
@@ -333,8 +353,11 @@ class SiftPlan:
 
     ``device`` (default: the current CUDA card; raises without one, so
     pass ``device="cpu"`` for the CPU) is where the frontend runs; on a
-    CUDA device it runs on the hand-written kernels.  ``devicetype`` is accepted for signature
-    parity and ignored.
+    CUDA device it runs on the hand-written kernels, as one CUDA graph per
+    (image shape and dtype, config) (``DETECT_GRAPHS``): the first frame
+    of a key (or ``compile``) captures it, every frame replays it.  A
+    capture or replay that fails raises.  ``devicetype`` is accepted for
+    signature parity and ignored.
     """
 
     def __init__(
@@ -408,9 +431,10 @@ class SiftPlan:
 
     def compile(self) -> "SiftPlan":
         """Build ahead of the first frame (the reference does this in
-        __init__): one ``keypoints_raw`` on a zero image of the plan's
-        shape builds the kernels and makes each stream's first-call state
-        (K2's work list, K3's scratch)."""
+        __init__): one ``keypoints_raw`` on a zero float32 image of the
+        plan's shape builds the kernels and, on a card, captures the
+        detector's graph for float32 frames (its warm-up makes each
+        kernel's first-call state: K2's work list, K3's scratch)."""
         self.keypoints_raw(torch.zeros(self.shape, dtype=torch.float32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -427,14 +451,19 @@ class SiftPlan:
         return stage_times(image, self.cfg, self.device, frames=1)
 
     def keypoints_raw(self, image) -> KeypointBuffer:
-        """Device-resident fixed-capacity result (for fused downstream use)."""
+        """Device-resident fixed-capacity result (for fused downstream use);
+        on a card the detector graph's replay (a host image is copied in
+        by the replay's input copy)."""
         img = image if torch.is_tensor(image) else torch.from_numpy(np.asarray(image))
         if tuple(img.shape[:2]) != self.shape:
             raise ValueError(f"image shape {tuple(img.shape[:2])} != plan shape {self.shape}")
-        return self._fn(img.to(self.device))
+        if self.device.type != "cuda":
+            return self._fn(img.to(self.device))
+        return KeypointBuffer(*DETECT_GRAPHS(self.device, self.cfg, (img,)))
 
     def keypoints(self, image) -> np.ndarray:
-        """Host-side structured keypoint array (reference output format)."""
+        """Host-side structured keypoint array (reference output format):
+        the buffer comes home in one copy."""
         return to_keypoint_records(self.keypoints_raw(image))
 
     __call__ = keypoints

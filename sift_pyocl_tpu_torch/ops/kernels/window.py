@@ -33,7 +33,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import _build, on_cuda
+from .. import _build, nonzero_first, on_cuda
 from ..orient_desc import PAD_C, PAD_R, smooth_orientation_hist
 from ...oracle import DESC_GRID, DESC_ORI, MAG_FACTOR, N_ORI_BINS
 
@@ -260,7 +260,7 @@ def _exp_f32(x: torch.Tensor) -> torch.Tensor:
 def _orientation_hists(mw, ow, rr, cc, sig) -> torch.Tensor:
     """(m, 36) orientation histograms of (m, win, win) windows: weight
     exp(-d2 / (2 sw^2)) * mag with sw = 1.5 sigma inside d2 < floor(3 sw)^2
-    + 0.5, as a scatter-add.  sig: (m, 1, 1)."""
+    + 0.5, as a scatter-add (on a card a one-hot sum).  sig: (m, 1, 1)."""
     m_ = mw.shape[0]
     d2 = rr * rr + cc * cc
     sig_w = 1.5 * sig
@@ -268,6 +268,11 @@ def _orientation_hists(mw, ow, rr, cc, sig) -> torch.Tensor:
     inside = d2 < radius * radius + 0.5
     w = _exp_f32(-d2 / (2.0 * sig_w * sig_w)) * mw * inside
     b = torch.floor(N_ORI_BINS * (ow + PI_F) / TWO_PI_F).long().clamp(0, N_ORI_BINS - 1)
+    if mw.is_cuda:
+        # scatter_add_ on a card adds with float atomics in no fixed order;
+        # a one-hot sum has the same value in every run (and in a replay)
+        bins = torch.arange(N_ORI_BINS, device=mw.device)
+        return torch.where(b.reshape(m_, -1, 1) == bins, w.reshape(m_, -1, 1), 0.0).sum(1)
     hist = torch.zeros(m_, N_ORI_BINS, dtype=torch.float32, device=mw.device)
     return hist.scatter_add_(1, b.reshape(m_, -1), w.reshape(m_, -1))
 
@@ -303,10 +308,23 @@ def _descriptor_hists(mw, ow, rr, cc, sig, angle) -> torch.Tensor:
 
 def _valid_chunks(valid: torch.Tensor, chunk: int):
     """The valid slots' indices, `chunk` at a time (bounds the memory of the
-    dense window tensors)."""
-    todo = torch.nonzero(valid.bool()).squeeze(1)
-    for k0 in range(0, todo.numel(), chunk):
-        yield todo[k0 : k0 + chunk]
+    dense window tensors), as (slots read, rows written).  On the CPU only
+    the valid slots' chunks, which read and write the same rows.  On a card,
+    with no host sync and a static loop (a CUDA graph can hold it), the
+    valid slots compacted first in the same order and every slot's chunk
+    taken: padding entries read slot 0 and write the spare row n, so the
+    callers' outputs have n + 1 rows (the last dropped)."""
+    v = valid.bool()
+    n = v.shape[0]
+    if not v.is_cuda:
+        todo = torch.nonzero(v).squeeze(1)
+        for k0 in range(0, todo.numel(), chunk):
+            yield todo[k0 : k0 + chunk], todo[k0 : k0 + chunk]
+        return
+    idx, ok, _ = nonzero_first(v, n)
+    write = torch.where(ok, idx, n)
+    for k0 in range(0, n, chunk):
+        yield idx[k0 : k0 + chunk], write[k0 : k0 + chunk]
 
 
 def orient_desc_fused_ref(mag: torch.Tensor, ori: torch.Tensor, s_int: torch.Tensor,
@@ -321,22 +339,22 @@ def orient_desc_fused_ref(mag: torch.Tensor, ori: torch.Tensor, s_int: torch.Ten
     _check(mag, ori, (s_int, fr, fc, sigma, valid, row_off, oct_h, oct_w), win, max_ori)
     dev = mag.device
     n = fr.shape[0]
-    ang_out = torch.zeros(n, max_ori, dtype=torch.float32, device=dev)
-    ok_out = torch.zeros(n, max_ori, dtype=torch.bool, device=dev)
-    desc_out = torch.zeros(n, max_ori, 128, dtype=torch.float32, device=dev)
+    ang_out = torch.zeros(n + 1, max_ori, dtype=torch.float32, device=dev)
+    ok_out = torch.zeros(n + 1, max_ori, dtype=torch.bool, device=dev)
+    desc_out = torch.zeros(n + 1, max_ori, 128, dtype=torch.float32, device=dev)
     rs, cs, fro, fco = window_origin(fr.float(), fc.float(), win)
-    for ks in _valid_chunks(valid, chunk):
+    for ks, kw in _valid_chunks(valid, chunk):
         mw, ow = _windows(mag, ori, s_int[ks] - 1, row_off[ks, None].long(), rs[ks], cs[ks],
                           oct_h[ks, None], oct_w[ks, None], win)
         rr, cc = _offsets(fro[ks], fco[ks], win)
         sig = sigma[ks].to(torch.float32)[:, None, None]
         ang, ok = _orientation_tail(_orientation_hists(mw, ow, rr, cc, sig), max_ori)
-        ang_out[ks] = ang
-        ok_out[ks] = ok
+        ang_out[kw] = ang
+        ok_out[kw] = ok
         for o in range(max_ori):
             d = _descriptor_hists(mw, ow, rr, cc, sig, ang[:, o, None, None])
-            desc_out[ks, o] = torch.where(ok[:, o, None], d, torch.zeros_like(d))
-    return ang_out, ok_out, desc_out
+            desc_out[kw, o] = torch.where(ok[:, o, None], d, torch.zeros_like(d))
+    return ang_out[:n], ok_out[:n], desc_out[:n]
 
 
 def _octave_view(mag_p: torch.Tensor, ori_p: torch.Tensor):
@@ -358,12 +376,13 @@ def _plane_hists(mags, oris, s_int, fr, fc, valid, win: int, nbins: int, chunk: 
     ``hists(ks, mw, ow, rr, cc)`` making their (m, nbins) rows; zeros for
     invalid slots."""
     H, W = mags.shape[1], mags.shape[2]
-    out = torch.zeros(fr.shape[0], nbins, dtype=torch.float32, device=mags.device)
+    n = fr.shape[0]
+    out = torch.zeros(n + 1, nbins, dtype=torch.float32, device=mags.device)
     rs, cs, fro, fco = window_origin(fr.float(), fc.float(), win)
-    for ks in _valid_chunks(valid, chunk):
+    for ks, kw in _valid_chunks(valid, chunk):
         mw, ow = _windows(mags, oris, s_int[ks] - 1, 0, rs[ks], cs[ks], H, W, win)
-        out[ks] = hists(ks, mw, ow, *_offsets(fro[ks], fco[ks], win))
-    return out
+        out[kw] = hists(ks, mw, ow, *_offsets(fro[ks], fco[ks], win))
+    return out[:n]
 
 
 def orientation_hist_planes(mags: torch.Tensor, oris: torch.Tensor, s_int: torch.Tensor,

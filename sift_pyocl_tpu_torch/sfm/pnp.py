@@ -10,7 +10,13 @@ Port of ``sift_pyocl_tpu/sfm/pnp.py``:
   JAX package draws the jitter and the subsets from a key; here they come
   from a CPU ``torch.Generator`` seeded with `seed` (``pnp_draws``: the
   same rows on the card and the CPU), or from ``draws`` where a caller
-  passes them, as the parity tests pass JAX's.
+  passes them, as the parity tests pass JAX's.  The draws come in two
+  parts: the numbers, made on the host from the seed
+  (``pnp_host_draws``: the jitter and the Gumbel noise), and the subsets,
+  made on the device from the noise and the weights (``pnp_subsets``).
+  On a CUDA device ``ransac_pnp`` replays one CUDA graph per (device,
+  shapes, n_hypo, iters, thresh_px) (``PNP_GRAPHS``), the host numbers
+  copied in as inputs, so a replay draws what the eager call draws.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import graphs
 from .geometry import _first_argmax, pose_retract, project, project_jacobians
 
 JITTER = (0.05, 0.05, 0.05, 0.2, 0.2, 0.2)   # std of the init jitter (omega, upsilon)
@@ -72,19 +79,33 @@ def pnp_refine(K: torch.Tensor, R0: torch.Tensor, t0: torch.Tensor, X: torch.Ten
     return R, t, rms
 
 
-def pnp_draws(seed: int, w: torch.Tensor, n_hypo: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The random draws of ``ransac_pnp`` on `w`'s device: (xi (n_hypo, 6)
-    init jitter, subset (n_hypo, N) 0/1 rows of SUBSET distinct entries
-    with w > 0, by masked Gumbel top-k, as the JAX package draws them).
-    The numbers come from a CPU generator seeded with `seed`."""
-    n = w.shape[0]
+def pnp_host_draws(seed: int, n_hypo: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The numbers of ``ransac_pnp``'s draws for N = `n` rows, from a CPU
+    generator seeded with `seed`: (xi (n_hypo, 6) init jitter, gumbel
+    (n_hypo, n) noise -log(-log u)), CPU tensors."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     xi = torch.randn((n_hypo, 6), generator=gen) * torch.tensor(JITTER)
     u = torch.rand((n_hypo, n), generator=gen).clamp(min=torch.finfo(torch.float32).tiny)
-    g = torch.where(w[None, :] > 0, (-torch.log(-torch.log(u))).to(w.device), -torch.inf)
+    return xi, -torch.log(-torch.log(u))
+
+
+def pnp_subsets(gumbel: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(n_hypo, N) 0/1 rows of SUBSET distinct entries with w > 0, by the
+    masked Gumbel top-k of `gumbel`, as the JAX package draws them; on
+    `w`'s device, with no host sync."""
+    n = w.shape[0]
+    g = torch.where(w[None, :] > 0, gumbel.to(w.device), -torch.inf)
     idx = torch.topk(g, min(SUBSET, n), dim=1).indices
-    sub = torch.zeros((n_hypo, n), dtype=torch.float32, device=w.device)
-    return xi.to(w.device), sub.scatter_(1, idx, 1.0)
+    sub = torch.zeros(g.shape, dtype=torch.float32, device=w.device)
+    return sub.scatter_(1, idx, 1.0)
+
+
+def pnp_draws(seed: int, w: torch.Tensor, n_hypo: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The random draws of ``ransac_pnp`` on `w`'s device: (xi (n_hypo, 6)
+    init jitter, subset (n_hypo, N) 0/1 rows), the host part
+    (``pnp_host_draws``) and the device part (``pnp_subsets``)."""
+    xi, gumbel = pnp_host_draws(seed, n_hypo, w.shape[0])
+    return xi.to(w.device), pnp_subsets(gumbel, w)
 
 
 def _inliers(K, R, t, X, uv, w, thresh_px: float) -> torch.Tensor:
@@ -120,13 +141,56 @@ def ransac_pnp_given_draws(K, R0, t0, X, uv, w, xi, sub, iters: int = 8,
 def ransac_pnp(seed: int, K: torch.Tensor, R0: torch.Tensor, t0: torch.Tensor, X: torch.Tensor,
                uv: torch.Tensor, w: torch.Tensor, n_hypo: int = 16, iters: int = 8,
                thresh_px: float = 4.0, draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Robust PnP from the init (R0, t0): X (N, 3), uv (N, 2), w (N,) 0/1.
-    ``draws``: (xi, subset) to use in place of ``pnp_draws(seed, w,
-    n_hypo)``.  The winner is the first hypothesis of the highest inlier
-    count, unless the refine from the init on all points scores at least as
-    many; it is refined on its inliers.  No host synchronisation.
+    """Robust PnP from the init (R0, t0): X (N, 3), uv (N, 2), w (N,) 0/1,
+    on K's device (the other inputs may lie on the host).  ``draws``: (xi,
+    subset) to use in place of ``pnp_draws(seed, w, n_hypo)``.  The winner
+    is the first hypothesis of the highest inlier count, unless the refine
+    from the init on all points scores at least as many; it is refined on
+    its inliers.  No host synchronisation.  On a CUDA device one CUDA graph
+    per (device, shapes and dtypes, n_hypo, iters, thresh_px, draws given)
+    (``PNP_GRAPHS``); elsewhere the eager call, ``_ransac_pnp_eager``.
 
     Returns (R, t, inliers (N,) bool, n_inliers () int32)."""
-    xi, sub = pnp_draws(seed, w, n_hypo) if draws is None else \
-        (d.to(device=X.device, dtype=torch.float32) for d in draws)
+    args = (seed, K, R0, t0, X, uv, w, n_hypo, iters, thresh_px, draws)
+    if K.device.type != "cuda":
+        return _ransac_pnp_eager(*args)
+    static, inputs = _pnp_inputs(*args)
+    return tuple(PNP_GRAPHS(K.device, static, inputs))
+
+
+def _ransac_pnp_eager(seed: int, K: torch.Tensor, R0: torch.Tensor, t0: torch.Tensor,
+                      X: torch.Tensor, uv: torch.Tensor, w: torch.Tensor, n_hypo: int = 16,
+                      iters: int = 8, thresh_px: float = 4.0, draws=None):
+    """``ransac_pnp`` op by op on K's device (what its graph captures)."""
+    static, inputs = _pnp_inputs(seed, K, R0, t0, X, uv, w, n_hypo, iters, thresh_px, draws)
+    return _ransac_pnp_flat(static, *inputs)
+
+
+def _as_f32(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.float32)
+
+
+def _pnp_inputs(seed, K, R0, t0, X, uv, w, n_hypo, iters, thresh_px, draws):
+    """(static, inputs) of ``_ransac_pnp_flat``: K first (on the device),
+    then the rest where they lie, with the host draws (xi, gumbel) or the
+    caller's (xi, subset)."""
+    w = _as_f32(w)
+    xi, g = pnp_host_draws(seed, n_hypo, w.shape[0]) if draws is None else \
+        (_as_f32(d) for d in draws)
+    static = (int(n_hypo), int(iters), float(thresh_px), draws is not None)
+    return static, (K, *(_as_f32(a) for a in (R0, t0, X, uv)), w, xi, g)
+
+
+def _ransac_pnp_flat(static, K, R0, t0, X, uv, w, xi, g):
+    """The eager RANSAC-PnP on K's device from flat inputs (a graph body):
+    `g` the Gumbel noise (subsets drawn here) or, with draws given, the
+    subsets."""
+    _, iters, thresh_px, given = static
+    dev = K.device
+    R0, t0, X, uv, w, xi, g = (a.to(dev) for a in (R0, t0, X, uv, w, xi, g))
+    sub = g if given else pnp_subsets(g, w)
     return ransac_pnp_given_draws(K, R0, t0, X, uv, w, xi, sub, iters, thresh_px)
+
+
+# ransac_pnp's graphs on the card (the host loop's registration)
+PNP_GRAPHS = graphs.GraphCache(_ransac_pnp_flat)

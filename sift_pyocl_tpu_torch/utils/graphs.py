@@ -14,22 +14,24 @@ replayed at every later one:
   ``torch.cuda.graph`` on that stream, its outputs packed into one static
   output buffer inside the graph;
 * every call: the inputs are copied into the static input buffer (those
-  on the device in one ``torch.cat``, a host frame or K each by its own
-  copy), the graph is replayed on the current stream, and the static output
-  buffer is cloned: the returned tensors are
-  views of that fresh clone, so a later replay never overwrites a result
-  the caller holds (JAX's results are immutable).
+  on the device in one ``torch.cat``, each on the host by its own copy,
+  which does not wait for the device), the graph is replayed on the
+  current stream, and the static output buffer is cloned: the returned
+  tensors are views of that fresh clone, so a later replay never
+  overwrites a result the caller holds (JAX's results are immutable).  ``to_host`` brings such views home in one copy.
 
 Nothing falls back to the eager function: a capture or replay that fails
 raises.  The cache holds at most ``GraphCache.max_graphs`` keys (least recently used out
 first); an evicted graph frees its memory pool.
 
-Replays of every graph of one cache on a device use the capture stream's
-kernel scratch (K3's ticket and epoch words, K7's ticket counters), which
-the kernels leave zeroed after each call.  That holds only while the calls
-on that scratch are serialised: the cache waits for the device before a
-capture's warm-up, and a replay on another stream than the last one waits
-for the last one.  Python-side launch counters (``ops.kernels``'
+Every cache captures on one stream a device (``_STREAMS``), so replays of
+every graph of every cache on a device (``vo_step``'s, ``SiftPlan``'s, the
+SfM registration's) use that stream's kernel scratch (K3's ticket and
+epoch words, K7's ticket counters), which the kernels leave zeroed after
+each call.  That holds only while the calls on that scratch are
+serialised: a capture's warm-up waits for the device, and a replay on
+another stream than the last replay of any cache waits for that one
+(``_LAST``, under one lock).  Python-side launch counters (``ops.kernels``'
 ``launch_counts()``) count what ``fn`` launched at the warm-up and the
 capture, never at a replay; a replay's launches are read on the card
 (``utils/profiling.py::device_profile``).
@@ -48,6 +50,12 @@ from ..ops import _build
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]
 ALIGN = 16      # byte alignment of every tensor packed in a flat buffer
+
+# shared by every GraphCache: the capture stream of each device, the stream
+# of the last replay on it, and the lock that orders captures and replays
+_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+_LAST: Dict[torch.device, torch.cuda.Stream] = {}
+_LOCK = threading.RLock()
 
 
 def graph_key(device, tensors: Sequence[torch.Tensor], static: Hashable) -> tuple:
@@ -89,14 +97,23 @@ class _Layout:
              pad: torch.Tensor) -> None:
         """Copy `tensors` into `flat` at this layout: those up to the first
         that lies elsewhere than `flat` in one ``torch.cat``, each later one
-        by its own copy (a host frame or K after a step's state)."""
+        by its own copy (a host frame, a map, K, random draws), which does
+        not wait for the device where the host memory is pageable
+        (``_staged``)."""
         k = next((i for i, t in enumerate(tensors) if t.device != flat.device), len(tensors))
         if k:
             end = self.offsets[k] if k < len(tensors) else self.nbytes
             torch.cat(self.parts(tensors[:k], pad), out=flat[:end])
         for t, o, size, (shape, dtype) in zip(tensors[k:], self.offsets[k:], self.sizes[k:],
                                               self.specs[k:]):
-            flat[o:o + size].view(dtype).view(shape).copy_(t)
+            flat[o:o + size].view(dtype).view(shape).copy_(t, non_blocking=_staged(t))
+
+
+def _staged(t: torch.Tensor) -> bool:
+    """Whether a copy of `t` to the device may skip waiting for it: pageable
+    host memory, which CUDA stages before the copy returns (a pinned
+    tensor could be overwritten before an asynchronous copy reads it)."""
+    return t.device.type == "cpu" and not t.is_pinned()
 
 
 def _specs(tensors: Sequence[torch.Tensor]) -> List[Spec]:
@@ -151,9 +168,6 @@ class GraphCache:
     def __init__(self, fn: Callable):
         self.fn = fn
         self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
-        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
-        self._last_stream: Dict[torch.device, torch.cuda.Stream] = {}
-        self._lock = threading.Lock()
         self.captures = 0
 
     def __len__(self) -> int:
@@ -167,7 +181,7 @@ class GraphCache:
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
         key = graph_key(device, inputs, static)
-        with self._lock:
+        with _LOCK:
             graph = self._graphs.get(key)
             if graph is None:
                 while len(self._graphs) >= self.max_graphs:
@@ -175,23 +189,37 @@ class GraphCache:
                 # nothing of an earlier replay or call may still run on the
                 # scratch the warm-up takes
                 torch.cuda.synchronize(device)
-                stream = self._streams.get(device)
+                stream = _STREAMS.get(device)
                 if stream is None:
-                    stream = self._streams[device] = torch.cuda.Stream(device)
+                    stream = _STREAMS[device] = torch.cuda.Stream(device)
                 graph = _Graph(self.fn, static, inputs, device, stream)
                 self._graphs[key] = graph
                 self.captures += 1
             else:
                 self._graphs.move_to_end(key)
             cur = torch.cuda.current_stream(device)
-            last = self._last_stream.get(device)
+            last = _LAST.get(device)
             if last is not None and last != cur:
                 cur.wait_stream(last)       # the replays share the capture stream's scratch
-            self._last_stream[device] = cur
+            _LAST[device] = cur
             return graph(inputs)
 
     def clear(self) -> None:
         """Drop every graph (the next call of each key captures again)."""
-        with self._lock:
+        with _LOCK:
             while self._graphs:
                 self._graphs.popitem(last=False)[1].release()
+
+
+def to_host(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """`tensors` on the host: where all are views of one device buffer (a
+    replay's outputs), views of one host copy of it, else each copied on
+    its own (an eager call's)."""
+    if not tensors or tensors[0].device.type == "cpu":
+        return [t.cpu() for t in tensors]
+    st = tensors[0].untyped_storage()
+    if any(t.untyped_storage().data_ptr() != st.data_ptr() for t in tensors):
+        return [t.cpu() for t in tensors]
+    host = st.cpu()
+    return [torch.empty(0, dtype=t.dtype).set_(host, t.storage_offset(), t.shape, t.stride())
+            for t in tensors]

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from collections import defaultdict
 
@@ -170,6 +171,16 @@ def device_profile(run_frame, frames: int, sessions: int = 1) -> dict:
         "top_kernels_ms_per_frame": [[name[:90], ms / frames] for name, ms in top],
         "launches_by_name_per_frame": {name: n / frames for name, n in count.items()},
     }
+
+
+def kernel_launches(run, kernels, calls: int = 1, sessions: int = 3) -> dict:
+    """CUDA launches a call of ``run()`` of each kernel in `kernels`
+    (regular expressions searched in the kernels' names, each summed over
+    the names it matches), read from the device's trace
+    (``device_profile``): a CUDA graph's replay runs no Python, so its
+    launches are counted here, not by the wrappers' counters."""
+    by_name = device_profile(run, calls, sessions)["launches_by_name_per_frame"]
+    return {k: sum(n for name, n in by_name.items() if re.search(k, name)) for k in kernels}
 
 
 VO_STAGES = ("frontend", "match", "pnp", "roll_spawn", "ba")

@@ -18,13 +18,14 @@ import torch
 
 from sift_pyocl_tpu_torch import SiftConfig, SiftPlan
 from sift_pyocl_tpu_torch.evaluate import main, save_sequence
-from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from sift_pyocl_tpu_torch.utils.framesource import FrameSource
+from sift_pyocl_tpu_torch.utils.profiling import kernel_launches
 from sift_pyocl_tpu_torch.utils.render3d import render_sequence
 
 pytestmark = pytest.mark.gpu
-FRONTEND = ("octave0_ladder", "small_octaves_ladder", "compact_masks_multi", "refine_multi",
-            "grad_atlas", "orient_desc_fused")
+# CUDA launches a detection of K1 (six level launches) and K2-K6
+FRONTEND_LAUNCHES = {"blur_level_kernel": 6, "small_octaves_kernel": 1, "compact_kernel": 1,
+                     "refine_kernel": 1, "grad_kernel": 1, "orient_desc_kernel": 1}
 
 
 @pytest.fixture
@@ -44,7 +45,8 @@ def seq7(tmp_path_factory):
 
 def test_native_frame_source_feeds_siftplan_on_the_card(cuda, seq7):
     """PGM frames read by the native loader go through SiftPlan.keypoints
-    on the card (K1-K6 once a frame); the keypoints equal those of the
+    on the card (K1-K6 once a frame, read from the device's trace: the
+    plan replays its detector graph); the keypoints equal those of the
     NumPy decode's frames on the card, bit for bit."""
     K, frames, seq_dir, _ = seq7
     paths = sorted(seq_dir.glob("*.pgm"))
@@ -52,10 +54,10 @@ def test_native_frame_source_feeds_siftplan_on_the_card(cuda, seq7):
     assert fs.backend == "native"
     plan = SiftPlan(frames[0].shape, config=SiftConfig(kp_per_octave_cap=256), device=cuda)
     ref = [f for _, f in FrameSource(paths, frames[0].shape, native=False)]
-    reset_launch_counts()
-    kps = [plan.keypoints(f) for _, f in fs]
-    counts = launch_counts()
-    assert all(counts[k] == len(paths) for k in FRONTEND), counts
+    loaded = [f for _, f in fs]
+    kps = [plan.keypoints(f) for f in loaded]
+    counts = kernel_launches(lambda: [plan.keypoints(f) for f in loaded], FRONTEND_LAUNCHES)
+    assert counts == {k: n * len(paths) for k, n in FRONTEND_LAUNCHES.items()}, counts
     for kp, f in zip(kps, ref):
         assert len(kp) > 30
         np.testing.assert_array_equal(kp, plan.keypoints(f))

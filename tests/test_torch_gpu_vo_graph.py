@@ -15,6 +15,7 @@ import torch
 
 from sift_pyocl_tpu_torch import SiftConfig, VOConfig, vo_init, vo_step
 from sift_pyocl_tpu_torch.models import vo as tvo
+from sift_pyocl_tpu_torch.utils import graphs
 from sift_pyocl_tpu_torch.utils.profiling import vo_frames
 
 pytestmark = pytest.mark.gpu
@@ -158,7 +159,7 @@ def test_replays_survive_dropped_kernel_caches(cuda):
     gc.collect()
     torch.cuda.synchronize()
     # the allocator reuses a freed block only on the stream it was made on
-    garbage = [t for stream in (torch.cuda.current_stream(cuda), tvo.STEP_GRAPHS._streams[cuda])
+    garbage = [t for stream in (torch.cuda.current_stream(cuda), graphs._STREAMS[cuda])
                for t in _fill_free_small_blocks(cuda, stream)]
     torch.cuda.synchronize()
     replay = _run(vo_step, state, frames[2:], K)
