@@ -113,13 +113,16 @@
    median error < 2) and a 2 deg / 1.02x affine made with the port's warp;
    shift_only + double_check; relative over 4 frames drifting 2 px (within
    0.8 px); orsa (every returned match an inlier, < 9 px^2);
-   MatchPlan(metric="L2") one K7 launch a match_index, indices equal to the
-   CPU's; K1-K6 once per align call (by kernel name: the plan's detector
-   replays), the plan's replayed buffer bit-equal to its eager one.
-   Prints ms per warm align call (host image in, host result out) replayed
-   and eager in turns and its split (keypoints, match, fit, warp), the L1
-   matcher's launches and device time, and the host synchronisations of
-   one call.
+   MatchPlan(metric="L2") K7 once a replayed match_index (by kernel name),
+   indices equal to the CPU's; K1-K6 once per align call (by kernel name:
+   the plan's detector replays), the plan's replayed buffer bit-equal to
+   its eager one; MatchPlan's matcher graph (L1 and L2, the align's bucket
+   pair) and the warp's graph bit-equal to their eager functions.  Prints
+   ms per warm align call (host image in, host result out) replayed and
+   eager (detector, matcher and warp) in turns and its split (keypoints,
+   match, fit, warp; each graph's part replayed and eager), the matchers'
+   and the warp's launches, device time and host syncs replayed and
+   eager, and the host synchronisations of one call.
 17. Phase B: the invariance battery (utils/invariance.py) through the port
    at 256x256: both scenes, all 9 cases against FLOORS, the double_im_size
    zoom fence and the angle fence; both plans' replayed buffers bit-equal
@@ -134,7 +137,7 @@
    eager run K1-K6 once per frame detected, K7 never; a replayed run at
    most one detector capture and one registration capture a bucket, the
    second none.  Prints each run's wall time, s/frame, phase split
-   (periodic BA, loop closure and final BA, which stay eager) and graph
+   (periodic BA, loop closure, final BA; the loop closure stays eager) and graph
    captures; one registered frame replayed and eager: host ms, CUDA
    launches, device ms and host synchronisations (the replayed frame K1-K6
    once by kernel name), and its split; the BA's segment sum against
@@ -143,7 +146,15 @@
    the JAX package's host loop's 50 registered, ATE < 0.05, the runs
    bit-equal, K1-K6 once a frame, K7 never; s/frame and one registered
    frame's launches, device ms and host syncs, replayed and eager, beside
-   the fused path's.
+   the fused path's.  The BA's LM iterations replay one graph a BA call
+   (ba.LM_GRAPHS, the observations and points padded to their buckets:
+   at most 7 keys a run) and the host loop's pair matcher one a bucket
+   pair (pipeline.PAIR_GRAPHS); the eager runs patch in their eager
+   functions, and the second replayed run of either architecture (the
+   host loop runs replayed, eager, replayed) captures nothing in any
+   cache.  One LM iteration of each architecture's final BA: replayed
+   bit-equal to eager, host ms, CUDA launches, device ms and host syncs
+   of both.
 19. Phase D: BASELINE config 3, the batched video frontend
    (detect_and_describe_batched) on frames synthetic_scene((1080, 1920),
    n_blobs=200, seed=0) + i on the card, SiftConfig(): at B = 1, 2, 4, 8
@@ -156,9 +167,14 @@
    entries, frames bit-equal; K8 on a frame's octave 0 at entry 7 takes
    octave 0's edge threshold, not its list position's); "fused" at B = 2
    (K1m/K2m once a frame, no stencil, frames bit-equal); VideoSiftFrontend
-   (batch 4) on the one-card mesh and TwoStagePipeline over 6 frames, each
-   frame bit-equal.  Prints ms/frame at each B (host clock, synchronised,
-   warm; B = 1, 8, 8, 1 in turns), device ms and CUDA launches a batch.
+   (batch 4; the detector's graph replayed a frame) on the one-card mesh
+   and TwoStagePipeline over 6 frames (a graph a stage), host frames in,
+   eager (the counters: every frontend kernel once a frame) and replayed
+   (the same launches by kernel name), each frame bit-equal to its eager
+   buffer and to detect_and_describe.  Prints ms/frame at each B (host
+   clock, synchronised, warm; B = 1, 8, 8, 1 in turns), device ms and CUDA
+   launches a batch, and the video and pipeline ms/frame replayed and
+   eager in turns with their launches and device ms a frame.
 20. Phase E: BASELINE config 5, the distributed BA, on bench_distributed.py's
    problem (make_problem(n_cams=64, n_points=8192, noise_px=0.5, seed=0,
    arc_deg=150.0), ~5e5 observations; ts + 0.02 N, X + 0.10 N), 10 LM
@@ -207,7 +223,8 @@
    PGM and TUM files (save_sequence), read by the native loader: sfm mode
    50 of 50 registered, ATE < 0.12; vo mode (vo_step's graph) ATE < 0.17
    (twice the JAX package's 0.0848 on the same files); each mode's JSON
-   line equal to its eager run's on the same files.
+   line equal to its eager run's on the same files (sfm mode: every graph
+   of phase C's patched to its eager function).
 24. Prints the card's nvidia-smi line again, a JSON line of per-kernel
    results (16 rows, launches from the path that runs each kernel: on
    the VO paths the wrapper calls of the replayed steps, from a replayed
@@ -868,25 +885,41 @@ def check_wrapper_launches(tag: str, got: dict, wrappers: dict) -> dict:
 
 
 @contextlib.contextmanager
-def eager_sift_programs():
-    """SiftPlan's detector, the fused registration and the host loop's
-    RANSAC-PnP as their eager functions (the references of the replayed
-    runs), for an eager turn."""
+def eager_programs():
+    """Every program the port replays as a graph outside the VO step, as
+    its eager function (the references of the replayed runs), for an eager
+    turn: SiftPlan's detector, the fused registration, the host loop's
+    RANSAC-PnP and pair matcher, the SfM bundle adjustment's LM iterations,
+    MatchPlan's matcher, LinearAlign's warp, the video frontend's frames
+    and the two pipeline stages."""
+    from sift_pyocl_tpu_torch.models import match_align
     from sift_pyocl_tpu_torch.models.sift import SiftPlan
-    from sift_pyocl_tpu_torch.sfm import pipeline, pnp
+    from sift_pyocl_tpu_torch.ops import match, transform
+    from sift_pyocl_tpu_torch.parallel import pipeline_octaves, video
+    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp
 
     def eager_raw(self, image):
         img = image if torch.is_tensor(image) else torch.from_numpy(np.asarray(image))
         return self._fn(img.to(self.device))
 
-    saved = SiftPlan.keypoints_raw, pipeline.register_from_buffers, pipeline.ransac_pnp
-    SiftPlan.keypoints_raw = eager_raw
-    pipeline.register_from_buffers = pipeline._register_from_buffers_eager
-    pipeline.ransac_pnp = pnp._ransac_pnp_eager
+    patches = [(SiftPlan, "keypoints_raw", eager_raw),
+               (pipeline, "register_from_buffers", pipeline._register_from_buffers_eager),
+               (pipeline, "ransac_pnp", pnp._ransac_pnp_eager),
+               (pipeline, "match_packed", match._match_packed_eager),
+               (pipeline, "run_ba", ba._run_ba_eager),
+               (match_align, "match_packed", match._match_packed_eager),
+               (match_align, "affine_warp", transform._affine_warp_eager),
+               (video, "_device_share", video.batched_sift),
+               (pipeline_octaves, "stage0", pipeline_octaves._stage0_eager),
+               (pipeline_octaves, "stage1", pipeline_octaves._stage1_eager)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
     try:
         yield
     finally:
-        SiftPlan.keypoints_raw, pipeline.register_from_buffers, pipeline.ransac_pnp = saved
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
 
 
 def check_buffers_equal(tag: str, got, want) -> None:
@@ -911,7 +944,7 @@ def plan_frames(tag: str, plan, img, frames: int = FRAMES):
     check_buffers_equal(f"{tag}: replay against eager", plan.keypoints_raw(img), plan._fn(x))
     turns = {"eager": [], "replay": []}
     for turn in ("eager", "replay", "replay", "eager"):
-        ctx = eager_sift_programs() if turn == "eager" else contextlib.nullcontext()
+        ctx = eager_programs() if turn == "eager" else contextlib.nullcontext()
         with ctx:
             plan.keypoints(img)
             torch.cuda.synchronize()
@@ -2006,7 +2039,9 @@ def check_api_align(dev) -> dict:
     frames, orsa, MatchPlan(metric="L2") on K7 against the CPU's indices,
     K1-K6 once per align call; ms per warm align call and its split."""
     from sift_pyocl_tpu_torch import LinearAlign, MatchPlan, affine_warp, fit_affine
-    from sift_pyocl_tpu_torch.ops.kernels import matchk, reset_launch_counts
+    from sift_pyocl_tpu_torch.models import match_align
+    from sift_pyocl_tpu_torch.ops.match import _match_packed_eager, match_packed
+    from sift_pyocl_tpu_torch.ops.transform import _affine_warp_eager
     from sift_pyocl_tpu_torch.utils.testimage import synthetic_scene
 
     base = synthetic_scene(API_SCENE, n_blobs=200, seed=0)
@@ -2071,30 +2106,42 @@ def check_api_align(dev) -> dict:
     assert len(m) >= 4 and np.all(resid < 9.0 + 1e-3)
     np.testing.assert_allclose(orsa["offset"], want_off, atol=0.3)
 
-    # MatchPlan(metric="L2"): one K7 launch a match_index, the CPU's indices
+    # MatchPlan(metric="L2"): K7 once a replayed match_index, the CPU's indices
     l2 = MatchPlan(metric="L2", device=dev)
-    idx_l2 = None
-    for _ in range(2):
-        reset_launch_counts()
-        idx_l2 = l2.match_index(la.ref_kp, kp)
-        assert matchk.best2_l2.launches == 1, f"K7 launched {matchk.best2_l2.launches} times"
+    idx_l2 = l2.match_index(la.ref_kp, kp)
+    check_wrapper_launches("MatchPlan L2 replay", kernel_counts(
+        lambda: l2.match_index(la.ref_kp, kp)), {"best2_l2": 1})
     want_l2 = MatchPlan(metric="L2", device="cpu").match_index(la.ref_kp, kp)
     np.testing.assert_array_equal(idx_l2, want_l2)
     want_l1 = MatchPlan(device="cpu").match_index(la.ref_kp, kp)
     np.testing.assert_array_equal(la.match_plan.match_index(la.ref_kp, kp), want_l1)
-    print(f"MatchPlan L2: {len(idx_l2)} matches, one K7 launch a call, equal to the CPU's; "
-          f"L1 (default): {len(want_l1)} matches, equal to the CPU's", flush=True)
+    print(f"MatchPlan L2: {len(idx_l2)} matches, K7 once a replayed call (by kernel name), "
+          f"equal to the CPU's; L1 (default): {len(want_l1)} matches, equal to the CPU's",
+          flush=True)
+
+    # the matcher's and the warp's graphs against their eager functions on
+    # the same inputs, bit for bit (the align's bucket pair; its fit)
+    pads = [la.match_plan._padded(k, np.ones(len(k), bool))[:2] for k in (la.ref_kp, kp)]
+    m_args = (*pads[0], *pads[1], dev)
+    for metric in ("L1", "L2"):
+        got = match_packed(*m_args, metric=metric, ratio_sq=la.match_plan.ratio_th)
+        want = _match_packed_eager(*m_args, metric=metric, ratio_sq=la.match_plan.ratio_th)
+        assert torch.equal(got, want), f"MatchPlan {metric}: replay differs from eager"
+    w_args = (img, out["matrix"], out["offset"])
+    assert torch.equal(affine_warp(*w_args, device=dev), _affine_warp_eager(*w_args, device=dev))
+    print(f"match_index ({pads[0][0].shape[0]} x {pads[1][0].shape[0]} bucket rows, L1 and "
+          f"L2) and the warp: replays bit-equal to eager", flush=True)
 
     # the plan's replayed buffer against its eager detector's
     check_buffers_equal("align's plan", la.sift.keypoints_raw(img),
                         la.sift._fn(torch.from_numpy(img).to(dev)))
     # ms per warm align call (host image in, host result out) and its
-    # split; replayed and eager (the plan's detector) in turns
+    # split; replayed and eager (the detector, the matcher, the warp) in turns
     counted_align(la, img)
     torch.cuda.synchronize()
     turns = {"eager": [], "replay": []}
     for turn in ("eager", "replay", "replay", "eager"):
-        with eager_sift_programs() if turn == "eager" else contextlib.nullcontext():
+        with eager_programs() if turn == "eager" else contextlib.nullcontext():
             la.align(img, return_all=True)
             torch.cuda.synchronize()
             for _ in range(API_CALLS):
@@ -2106,44 +2153,56 @@ def check_api_align(dev) -> dict:
 
     p_r = np.stack([la.ref_kp["y"][out["matches"][:, 0]], la.ref_kp["x"][out["matches"][:, 0]]], 1)
     p_i = np.stack([kp["y"][out["matches"][:, 1]], kp["x"][out["matches"][:, 1]]], 1)
-    split = {
-        "keypoints": host_ms(lambda: la.sift.keypoints(img)),
-        "match": host_ms(lambda: la.match_plan.match_index(la.ref_kp, kp)),
-        "fit": host_ms(lambda: fit_affine(p_i, p_r)),
-        "warp": host_ms(lambda: affine_warp(img, out["matrix"], out["offset"],
-                                            device=dev).cpu().numpy()),
+    parts = {
+        "keypoints": lambda: la.sift.keypoints(img),
+        "match": lambda: la.match_plan.match_index(la.ref_kp, kp),
+        "fit": lambda: fit_affine(p_i, p_r),
+        "warp": lambda: match_align.affine_warp(img, out["matrix"], out["offset"],
+                                                device=dev).cpu().numpy(),
     }
+    split = {k: host_ms(fn) for k, fn in parts.items()}
+    with eager_programs():
+        split.update({f"{k}_eager": host_ms(parts[k]) for k in ("keypoints", "match", "warp")})
     l2_ms = host_ms(lambda: l2.match_index(la.ref_kp, kp))
     orsa_ms = host_ms(lambda: la.align(img, orsa=True))
-    l1_launches, l1_dev = profile_calls(lambda: la.match_plan.match_index(la.ref_kp, kp))
-    l2_launches, l2_dev = profile_calls(lambda: l2.match_index(la.ref_kp, kp))
-    warp_launches, warp_dev = profile_calls(
-        lambda: affine_warp(img, out["matrix"], out["offset"], device=dev))
+    rows = {}
+    for turn in ("replay", "eager"):
+        with eager_programs() if turn == "eager" else contextlib.nullcontext():
+            for name in ("match", "warp"):
+                n_l, d = profile_calls(parts[name])
+                rows[f"{name}_{turn}"] = {"cuda_launches": n_l, "device_ms": d,
+                                          "host_syncs": len(host_syncs(parts[name]))}
+            n_l, d = profile_calls(lambda: l2.match_index(la.ref_kp, kp))
+            rows[f"l2_{turn}"] = {"cuda_launches": n_l, "device_ms": d}
     syncs = host_syncs(lambda: la.align(img))
     syncs_orsa = host_syncs(lambda: la.align(img, orsa=True))
     n1, n2 = len(la.ref_kp), len(kp)
-    with eager_sift_programs():
-        split["keypoints_eager"] = host_ms(lambda: la.sift.keypoints(img))
     report = {"align_ms": align_ms, "align_ms_mean": float(np.mean(align_ms)),
               "align_ms_turns": turns, "split_ms": split, "orsa_align_ms": orsa_ms,
               "keypoints": [n1, n2], "matches": len(out["matches"]),
-              "l1_match": {"ms": split["match"], "cuda_launches": l1_launches,
-                           "device_ms": l1_dev, "int_ops": 3 * 128 * n1 * n2},
-              "l2_match": {"ms": l2_ms, "cuda_launches": l2_launches, "device_ms": l2_dev},
-              "warp": {"cuda_launches": warp_launches, "device_ms": warp_dev,
+              "buckets": [pads[0][0].shape[0], pads[1][0].shape[0]],
+              "l1_match": {"ms": split["match"], "ms_eager": split["match_eager"],
+                           **rows["match_replay"], "eager": rows["match_eager"],
+                           "int_ops": 3 * 128 * n1 * n2},
+              "l2_match": {"ms": l2_ms, **rows["l2_replay"], "eager": rows["l2_eager"]},
+              "warp": {"ms": split["warp"], "ms_eager": split["warp_eager"],
+                       **rows["warp_replay"], "eager": rows["warp_eager"],
                        "bytes": 3 * 4 * SHAPE[0] * SHAPE[1]},
               "host_syncs": len(syncs), "host_syncs_orsa": len(syncs_orsa)}
     print(f"align {SHAPE} ms (host clock, host image in, host result out, synchronised; "
-          f"the plan's detector replayed): {[round(v, 3) for v in align_ms]} (mean "
+          f"the detector, matcher and warp replayed): {[round(v, 3) for v in align_ms]} (mean "
           f"{report['align_ms_mean']:.3f}); in turns replayed "
           f"{[round(v, 3) for v in turns['replay']]}, eager "
           f"{[round(v, 3) for v in turns['eager']]}  [{nvidia_smi_line()}]; split "
           f"{ {k: round(v, 3) for k, v in split.items()} }; orsa align {orsa_ms:.3f} ms; "
           f"keypoints {n1} / {n2}, matches {len(out['matches'])}", flush=True)
-    print(f"L1 matcher (default): {split['match']:.3f} ms a call, {l1_launches:g} CUDA launches "
-          f"and {l1_dev:.4f} device ms a call, {3 * 128 * n1 * n2:.4g} int operations; "
-          f"L2 (K7): {l2_ms:.3f} ms, {l2_launches:g} launches, {l2_dev:.4f} device ms; warp "
-          f"{warp_launches:g} launches, {warp_dev:.4f} device ms", flush=True)
+    for name in ("match", "l2", "warp"):
+        r, e = rows[f"{name}_replay"], rows[f"{name}_eager"]
+        print(f"{name} (L1, the default)" if name == "match" else name,
+              f"replayed: {r['cuda_launches']:g} CUDA launches, {r['device_ms']:.4f} device ms "
+              f"a call{', %d host syncs' % r['host_syncs'] if 'host_syncs' in r else ''}; "
+              f"eager: {e['cuda_launches']:g} launches, {e['device_ms']:.4f} device ms"
+              f"{', %d host syncs' % e['host_syncs'] if 'host_syncs' in e else ''}", flush=True)
     print(f"host synchronisations in one align call: {len(syncs)} (orsa: {len(syncs_orsa)})",
           flush=True)
     for line in sorted(set(syncs + syncs_orsa)):
@@ -2254,45 +2313,71 @@ def graph_buckets(cache, spec_at: int) -> list:
     return sorted({key[1][spec_at][0][0] for key in cache._graphs})
 
 
+@contextlib.contextmanager
+def last_ba_call(kept: list):
+    """Keep the arguments of the last run_ba call IncrementalSfM makes (the
+    final BA's) in `kept`."""
+    from sift_pyocl_tpu_torch.sfm import pipeline
+
+    orig = pipeline.run_ba
+
+    def recorded(*args, **kw):
+        kept[:] = [(args, kw)]
+        return orig(*args, **kw)
+
+    pipeline.run_ba = recorded
+    try:
+        yield
+    finally:
+        pipeline.run_ba = orig
+
+
 def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
-    """One IncrementalSfM run over config 4's frames, its per-frame
-    programs replayed (or with `eager` their eager functions patched in),
-    with the run's gates: 50 of 50 registered (the host loop: at least the
-    JAX package's count), ATE below its bound, map points within 20 % of
-    672 (fused), a loop edge (fused); an eager run launches K1-K6 once a
-    frame detected and K7 never (the wrappers' counters), a replayed run
-    captures at most one detector key and one registration (or RANSAC-PnP)
-    key a bucket (its counters count the captures' bodies, two each)."""
+    """One IncrementalSfM run over config 4's frames, its programs replayed
+    (or with `eager` their eager functions patched in), with the run's
+    gates: 50 of 50 registered (the host loop: at least the JAX package's
+    count), ATE below its bound, map points within 20 % of 672 (fused), a
+    loop edge (fused); an eager run launches K1-K6 once a frame detected
+    and K7 never (the wrappers' counters), a replayed run captures at most
+    one detector key and one registration (or RANSAC-PnP) key a bucket
+    (its counters count the captures' bodies, two each), and at most one
+    LM key a BA call (periodic and final)."""
     from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from sift_pyocl_tpu_torch.sfm import IncrementalSfM, ate_rmse, camera_centers, pipeline, pnp
+    from sift_pyocl_tpu_torch.sfm import (IncrementalSfM, ate_rmse, ba, camera_centers,
+                                          pipeline, pnp)
 
     K, frames, gtR, gtT, _ = seq
     fused = kw.get("fused", True)
     reg_cache, at = (pipeline.REGISTER_GRAPHS, 8) if fused else (pnp.PNP_GRAPHS, 3)
-    before = DETECT_GRAPHS.captures, reg_cache.captures
+    caches = {"detector": DETECT_GRAPHS, "registration" if fused else "ransac_pnp": reg_cache,
+              "lm": ba.LM_GRAPHS, "pair": pipeline.PAIR_GRAPHS}
+    before = {k: c.captures for k, c in caches.items()}
     sfm = IncrementalSfM(K, frames[0].shape, **kw)
     kept = captured_registration(sfm, CONFIG4_FRAME,
                                  "_register_frame" if fused else "_register_host")
+    kept_ba = []
     reset_launch_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with eager_sift_programs() if eager else contextlib.nullcontext():
+    with eager_programs() if eager else contextlib.nullcontext(), last_ba_call(kept_ba):
         res = sfm.run(frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = launch_counts()
-    det, regs = DETECT_GRAPHS.captures - before[0], reg_cache.captures - before[1]
+    captures = {k: c.captures - before[k] for k, c in caches.items()}
+    det, regs = captures["detector"], captures["registration" if fused else "ransac_pnp"]
     assert res is not None, f"{tag}: bootstrap failed"
     reg = res.frames_registered
     ate = ate_rmse(camera_centers(res.Rs, res.ts), camera_centers(gtR[reg], gtT[reg]))
     buckets = graph_buckets(reg_cache, at)
+    n_ba = len(res.Rs) // sfm.ba_every + 1        # periodic BAs and the final one
     print(f"[config4] {tag}: {wall:.3f} s ({wall / len(frames):.4f} s/frame), {len(reg)} "
           f"registered, ATE {ate:.5f}, {len(res.points)} points, {res.n_obs} observations, "
           f"{sfm.n_loop_edges} loop edges, bootstrap (0, {reg[1]}), {sfm.n_detected} frames "
-          f"detected; graph captures: detector {det}, "
-          f"{'registration' if fused else 'RANSAC-PnP'} {regs} (buckets held {buckets}); "
-          f"phases (s) { {k: round(v, 4) for k, v in sfm.phase_times.items()} }; memory "
+          f"detected; graph captures {captures} ({'registration' if fused else 'RANSAC-PnP'} "
+          f"buckets held {buckets}, {n_ba} BA calls); phases (s) "
+          f"{ {k: round(v, 4) for k, v in sfm.phase_times.items()} }; memory "
           f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB  [{nvidia_smi_line()}]",
           flush=True)
     if fused:
@@ -2309,13 +2394,45 @@ def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
         assert counts[name] == bodies, \
             f"{tag}: {name} launched {counts[name]} times, want {bodies} ({sfm.n_detected} frames)"
     assert counts["best2_l2"] == 0, f"{tag}: K7 launched {counts['best2_l2']} times"
-    if not eager:
+    if eager:
+        assert not any(captures.values()), f"{tag}: the eager run captured {captures}"
+    else:
         assert det <= 1 and regs <= len(buckets), (det, regs, buckets)
         assert len(reg_cache) == len(buckets) or reg_cache.max_graphs < len(buckets)
         assert all(b >= 256 and b & (b - 1) == 0 for b in buckets), buckets
+        assert captures["lm"] <= n_ba, (captures, n_ba)
     return dict(sfm=sfm, res=res, wall=wall, ate=ate, counts=counts, kept=kept,
-                detected=sfm.n_detected, phases=dict(sfm.phase_times),
-                captures={"detector": det, "registration": regs, "buckets": buckets})
+                kept_ba=kept_ba, detected=sfm.n_detected, phases=dict(sfm.phase_times),
+                captures={**captures, "buckets": buckets})
+
+
+def lm_report(tag: str, kept_ba, dev) -> dict:
+    """One LM iteration of the run's final BA (its padded problem, from lam
+    1e-3): the replay bit-equal to the eager lm_iteration, and each one's
+    host ms, CUDA launches and device ms (torch.profiler), and host syncs
+    (its inputs on the card)."""
+    from sift_pyocl_tpu_torch.sfm import ba
+
+    (params, obs, K), kw = kept_ba[0][0][:3], kept_ba[0][1]
+    _, params, obs, K, free = ba._ba_inputs(params, obs, K, (0,), dev)
+    lam = torch.full((), 1e-3, device=dev)
+    args = (params, obs, K, lam, free)
+    kw = dict(huber_px=kw["huber_px"], cg_iters=kw["cg_iters"], n_points=params.X.shape[0])
+    got = ba.lm_iteration_replayed(*args, **kw)
+    want = ba.lm_iteration(*args, **kw)
+    check_buffers_equal(f"{tag}: LM iteration params", got[0], want[0])
+    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])), f"{tag}: LM lam/cost"
+    rows = {}
+    for turn, fn in (("replay", lambda: ba.lm_iteration_replayed(*args, **kw)),
+                     ("eager", lambda: ba.lm_iteration(*args, **kw))):
+        n_l, d = profile_calls(fn)
+        rows[turn] = {"ms": host_ms(fn, calls=10), "cuda_launches": n_l, "device_ms": d,
+                      "host_syncs": len(host_syncs(fn))}
+    shape = {"C": int(params.Rs.shape[0]), "Mp": int(obs.w.shape[0]),
+             "Pp": int(params.X.shape[0]), "M": int(obs.w.sum())}
+    print(f"[config4] {tag}: one LM iteration of the final BA {shape}, replayed "
+          f"{rows['replay']} against eager {rows['eager']} (bit-equal)", flush=True)
+    return {**shape, **rows}
 
 
 def check_runs_equal(tag: str, runs, want) -> None:
@@ -2335,7 +2452,7 @@ def frame_report(tag: str, one_frame) -> dict:
     the replayed frame launches K1-K6 once (by kernel name) and K7 never."""
     rows = {}
     for turn in ("replay", "eager"):
-        with eager_sift_programs() if turn == "eager" else contextlib.nullcontext():
+        with eager_programs() if turn == "eager" else contextlib.nullcontext():
             out = one_frame()
             calls = []
             for _ in range(FRAME_CALLS):
@@ -2384,9 +2501,10 @@ def check_sfm(dev, seq) -> dict:
             for i, turn in enumerate(("replayed", "eager", "replayed"))}
     first, eager, last = runs.values()
     check_runs_equal("config 4", (first, last), eager)
-    assert last["captures"]["detector"] == last["captures"]["registration"] == 0
+    assert not any(v for k, v in last["captures"].items() if k != "buckets"), last["captures"]
     print("[config4] the replayed runs are bit-equal to the eager run in Rs, ts and points; "
           "the second replayed run captured nothing", flush=True)
+    lm = lm_report("fused", last["kept_ba"], dev)
 
     # one registered frame, detection included: replayed beside eager
     sfm = last["sfm"]
@@ -2454,6 +2572,7 @@ def check_sfm(dev, seq) -> dict:
               "detected": last["detected"],
               "launch_counts": {k: eager["counts"][k] for k in FRONTEND},
               "frame": {"id": CONFIG4_FRAME, **frame, "split": split},
+              "lm_iteration": lm,
               "segment_sum": {"max_err_f64": seg_err, "ms": seg_ms},
               "host_loop": host}
     print("config4:", json.dumps(report), flush=True)
@@ -2462,16 +2581,20 @@ def check_sfm(dev, seq) -> dict:
 
 def check_sfm_host_loop(seq, kw, fused_frame) -> dict:
     """Phase C's host loop: IncrementalSfM(fused=False) over config 4's
-    frames replayed and eager (sfm_run's gates each), the replayed run
-    bit-equal to the eager run in Rs, ts and points.  Prints s/frame, and
-    one registered frame's (detection included) host ms, CUDA launches,
-    device ms and host syncs replayed beside eager and beside the fused
-    path's."""
+    frames replayed, eager and replayed (sfm_run's gates each), the
+    replayed runs bit-equal to the eager run in Rs, ts and points, the
+    second capturing nothing.  Prints s/frame, one LM iteration of the
+    final BA, and one registered frame's (detection included) host ms,
+    CUDA launches, device ms and host syncs replayed beside eager and
+    beside the fused path's."""
     runs = [sfm_run(f"host loop (fused=False, {turn})", seq, {**kw, "fused": False},
-                    turn == "eager") for turn in ("replayed", "eager")]
-    check_runs_equal("host loop", runs[:1], runs[1])
-    print("[config4] host loop: the replayed run is bit-equal to the eager run in Rs, ts and "
-          "points", flush=True)
+                    turn == "eager") for turn in ("replayed", "eager", "replayed")]
+    check_runs_equal("host loop", runs[::2], runs[1])
+    assert not any(v for k, v in runs[2]["captures"].items() if k != "buckets"), \
+        runs[2]["captures"]
+    print("[config4] host loop: the replayed runs are bit-equal to the eager run in Rs, ts and "
+          "points; the second replayed run captured nothing", flush=True)
+    lm = lm_report("host loop", runs[2]["kept_ba"], kw["device"])
     sfm, kept = runs[0]["sfm"], runs[0]["kept"]
     assert kept, f"host loop: frame {CONFIG4_FRAME} was not registered"
     args = kept[0]
@@ -2487,13 +2610,15 @@ def check_sfm_host_loop(seq, kw, fused_frame) -> dict:
     assert out.n_inl >= 10, out.n_inl
     print(f"[config4] host loop frame {frame['ms']:.3f} ms replayed against fused "
           f"{fused_frame['ms']:.3f} ms", flush=True)
-    r = runs[0]
-    return {"wall_s": {"replayed": r["wall"], "eager": runs[1]["wall"]},
+    r = runs[2]
+    return {"wall_s": {"replayed": [runs[0]["wall"], r["wall"]], "eager": runs[1]["wall"]},
             "s_per_frame": r["wall"] / len(seq[1]), "registered": len(r["res"].frames_registered),
             "ate": r["ate"], "points": int(len(r["res"].points)),
             "loop_edges": r["sfm"].n_loop_edges, "bootstrap": r["res"].frames_registered[1],
-            "phase_times": {"replayed": r["phases"], "eager": runs[1]["phases"]},
-            "captures": r["captures"], "frame": frame}
+            "phase_times": {"replayed": [runs[0]["phases"], r["phases"]],
+                            "eager": runs[1]["phases"]},
+            "captures": [runs[0]["captures"], r["captures"]], "lm_iteration": lm,
+            "frame": frame}
 
 
 # Phase D: BASELINE config 3, the batched video frontend.  Frames as
@@ -2701,33 +2826,70 @@ def check_batched(dev) -> dict:
           flush=True)
 
     # the video frontend on the one-card mesh and the two-stage pipeline,
-    # host frames in
+    # host frames in: eager (the counters: every kernel of the frontend once
+    # a frame) and replayed (the detector's graph a frame; the two stage
+    # graphs), every frame bit-equal, launches by kernel name, ms/frame in
+    # turns
+    from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
+    from sift_pyocl_tpu_torch.parallel import pipeline_octaves
+
     host = imgs[:PIPELINE_FRAMES].cpu().numpy()
     mesh = make_frames_mesh()
     assert mesh.size == 1 and mesh.devices[0] == dev, mesh
     fe = VideoSiftFrontend(SHAPE, batch=4, mesh=mesh)
-    out, counts = counted(lambda: fe(host[:4]))
-    assert out.x.device == dev
-    # frame after frame (batched_sift): every kernel of the frontend once a frame
-    check_batch_counts("VideoSiftFrontend", counts,
-                       {k: 4 for k in frontend + VO_KERNELS[2:6]})
-    check_frames_equal("VideoSiftFrontend", out, imgs[:4], cfg)
     pipe = TwoStagePipeline(SHAPE, cfg)
     assert pipe.d0 == pipe.d1 == dev
-    bufs, counts = counted(lambda: list(pipe.process(host)))
-    assert len(bufs) == PIPELINE_FRAMES
-    check_batch_counts("TwoStagePipeline", counts,
-                       {k: PIPELINE_FRAMES for k in frontend + VO_KERNELS[2:6]})
+    per_frame = {k: 1 for k in frontend + VO_KERNELS[2:6]}
+    with eager_programs():
+        out, counts = counted(lambda: fe(host[:4]))
+        check_batch_counts("VideoSiftFrontend eager", counts, {k: 4 for k in per_frame})
+        bufs, counts = counted(lambda: list(pipe.process(host)))
+        check_batch_counts("TwoStagePipeline eager", counts,
+                           {k: PIPELINE_FRAMES for k in per_frame})
+    want_video, want_pipe = out, bufs
+    captures = DETECT_GRAPHS.captures, pipeline_octaves.STAGE0_GRAPHS.captures, \
+        pipeline_octaves.STAGE1_GRAPHS.captures
+    out = fe(host[:4])
+    bufs = list(pipe.process(host))
+    assert out.x.device == dev and len(bufs) == PIPELINE_FRAMES
+    check_buffers_equal("VideoSiftFrontend replayed", out, want_video)
+    for f, (b, w) in enumerate(zip(bufs, want_pipe)):
+        check_buffers_equal(f"TwoStagePipeline replayed, frame {f}", b, w)
+    check_frames_equal("VideoSiftFrontend", out, imgs[:4], cfg)
     for f, b in enumerate(bufs):
         check_frames_equal("TwoStagePipeline", batch_of(b), imgs[f:f + 1], cfg)
-    report["video_ms_per_frame"] = host_ms(lambda: fe(host[:4]), calls=3) / 4
-    report["pipeline_ms_per_frame"] = host_ms(lambda: list(pipe.process(host)), calls=2) / len(host)
-    report["pipeline_host_syncs"] = len(host_syncs(lambda: [None for _ in pipe.process(host)]))
-    print(f"[config3] VideoSiftFrontend(batch=4) and TwoStagePipeline ({PIPELINE_FRAMES} frames): "
-          f"every frame bit-equal; {report['video_ms_per_frame']:.3f} / "
-          f"{report['pipeline_ms_per_frame']:.3f} ms/frame (host frames in), "
-          f"{report['pipeline_host_syncs']} host synchronisations in the pipeline's loop",
-          flush=True)
+    video_launches = check_wrapper_launches("VideoSiftFrontend replayed", kernel_counts(
+        lambda: fe(host[:4])), {k: 4 for k in per_frame})
+    pipe_launches = check_wrapper_launches("TwoStagePipeline replayed", kernel_counts(
+        lambda: list(pipe.process(host))), {k: PIPELINE_FRAMES for k in per_frame})
+    new = [c - n for c, n in zip((DETECT_GRAPHS.captures, pipeline_octaves.STAGE0_GRAPHS.captures,
+                                  pipeline_octaves.STAGE1_GRAPHS.captures), captures)]
+    assert new[1] <= 1 and new[2] <= 1, new
+    turns = {"replay": {"video": [], "pipeline": []}, "eager": {"video": [], "pipeline": []}}
+    for turn in ("eager", "replay", "replay", "eager"):
+        with eager_programs() if turn == "eager" else contextlib.nullcontext():
+            turns[turn]["video"].append(host_ms(lambda: fe(host[:4]), calls=3) / 4)
+            turns[turn]["pipeline"].append(
+                host_ms(lambda: list(pipe.process(host)), calls=2) / len(host))
+    rows = {}
+    for turn in ("replay", "eager"):
+        with eager_programs() if turn == "eager" else contextlib.nullcontext():
+            for name, fn, n in (("video", lambda: fe(host[:4]), 4),
+                                ("pipeline", lambda: list(pipe.process(host)), len(host))):
+                n_l, d = profile_calls(fn, wrapper_calls=n, calls=2)
+                rows[f"{name}_{turn}"] = {"cuda_launches_per_frame": n_l,
+                                          "device_ms_per_frame": d}
+            rows[f"pipeline_{turn}"]["host_syncs"] = len(
+                host_syncs(lambda: [None for _ in pipe.process(host)]))
+    report["video_ms_per_frame"] = turns["replay"]["video"]
+    report["pipeline_ms_per_frame"] = turns["replay"]["pipeline"]
+    report["video_pipeline_turns"] = turns
+    report["video_pipeline"] = {**rows, "captures": new, "video_launches": video_launches,
+                                "pipeline_launches": pipe_launches}
+    print(f"[config3] VideoSiftFrontend(batch=4) and TwoStagePipeline ({PIPELINE_FRAMES} frames), "
+          f"host frames in: every frame bit-equal, replayed and eager; captures (detector, "
+          f"stage 0, stage 1) {new}; ms/frame in turns {json.dumps(turns)}; {json.dumps(rows)}  "
+          f"[{nvidia_smi_line()}]", flush=True)
     print("config3:", json.dumps(report), flush=True)
     return report
 
@@ -3385,7 +3547,7 @@ def check_evaluate_cli(dev, seq) -> dict:
             # vo mode went through vo_step's graph, sfm mode through the
             # detector's and the registration's: the eager functions on the
             # same files give the same trajectory
-            for mode, eager in (("vo", eager_vo_steps), ("sfm", eager_sift_programs)):
+            for mode, eager in (("vo", eager_vo_steps), ("sfm", eager_programs)):
                 buf = io.StringIO()
                 t = time.perf_counter()
                 with contextlib.redirect_stdout(buf), eager():
@@ -3405,17 +3567,30 @@ def check_evaluate_cli(dev, seq) -> dict:
 
 
 def print_memory(after: str) -> None:
-    """The card's memory after a phase: every graph keeps its own pool."""
+    """The card's memory after a phase: every graph keeps its own pool;
+    each cache's keys and the memory its graphs' pools reserve."""
     from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
     from sift_pyocl_tpu_torch.models.vo import STEP_GRAPHS
-    from sift_pyocl_tpu_torch.sfm import pipeline, pnp
+    from sift_pyocl_tpu_torch.ops.match import MATCH_GRAPHS
+    from sift_pyocl_tpu_torch.ops.transform import WARP_GRAPHS
+    from sift_pyocl_tpu_torch.parallel.pipeline_octaves import STAGE0_GRAPHS, STAGE1_GRAPHS
+    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp
 
-    held = {name: len(c) for name, c in (("vo_step", STEP_GRAPHS), ("detector", DETECT_GRAPHS),
-                                         ("registration", pipeline.REGISTER_GRAPHS),
-                                         ("ransac_pnp", pnp.PNP_GRAPHS))}
+    caches = {"vo_step": STEP_GRAPHS, "detector": DETECT_GRAPHS,
+              "registration": pipeline.REGISTER_GRAPHS, "ransac_pnp": pnp.PNP_GRAPHS,
+              "pair": pipeline.PAIR_GRAPHS, "lm": ba.LM_GRAPHS, "match": MATCH_GRAPHS,
+              "warp": WARP_GRAPHS, "stage0": STAGE0_GRAPHS, "stage1": STAGE1_GRAPHS}
+    by_pool = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id") or ())
+        by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
+    held = {}
+    for name, c in caches.items():
+        pool = sum(by_pool.get(tuple(g.graph.pool()), 0) for g in c._graphs.values())
+        held[name] = f"{len(c)} keys, {pool / 2**20:.0f} MiB"
     print(f"[memory] after {after}: reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB, "
-          f"allocated {torch.cuda.memory_allocated() / 2**20:.0f} MiB; graphs held {held}",
-          flush=True)
+          f"allocated {torch.cuda.memory_allocated() / 2**20:.0f} MiB; graphs held (their "
+          f"pools) {held}", flush=True)
 
 
 def main() -> int:
@@ -3461,8 +3636,9 @@ def main() -> int:
     p8 = check_matcher_f32(base["bufs"], rec)
     print_memory("kernels, P1-P8 and the VO paths")
     check_api_align(dev)
+    print_memory("phase A")
     check_invariance(dev)
-    print_memory("phases A and B")
+    print_memory("phase B")
     seq4 = config4_sequence()
     check_sfm(dev, seq4)
     print_memory("phase C")
@@ -3471,9 +3647,11 @@ def main() -> int:
     print("config5:", json.dumps({**check_config5(dev), **check_spatial(x, dev)}), flush=True)
     print_memory("phase E")
     print("fence:", json.dumps(check_fence(dev)), flush=True)
+    print_memory("phase F")
     check_config2(dev)
+    print_memory("phase G")
     print("evaluate:", json.dumps(check_evaluate_cli(dev, seq4)), flush=True)
-    print_memory("phases F, G and H")
+    print_memory("phase H")
 
     # each kernel's wrapper calls on its path.  On the VO paths (the main
     # path for K1-K7, P1 for K8, P7 for K1m/K2m) the steps replay a graph,

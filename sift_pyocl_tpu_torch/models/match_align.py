@@ -6,7 +6,10 @@ sift-src/match.py::MatchPlan, sift-src/alignment.py::LinearAlign).
 affine least squares, optionally behind RANSAC) -> bilinear warp.  On a CUDA
 device its ``SiftPlan`` runs the hand-written kernels K1-K6, and
 ``MatchPlan(metric="L2")`` runs K7; the default L1 matcher, the warp and
-RANSAC are plain PyTorch, as they are plain XLA in the JAX package.
+RANSAC are plain PyTorch, as they are plain XLA in the JAX package.  On a
+card the detector, the matcher and the warp each replay a CUDA graph
+(``DETECT_GRAPHS``, ``ops.match.MATCH_GRAPHS``,
+``ops.transform.WARP_GRAPHS``), as the JAX package jits each.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from ..config import SiftConfig
 from ..oracle import KP_DTYPE
 from ..ops import resolve_device
-from ..ops.match import match_descriptors_jax
+from ..ops.match import match_packed
 from ..ops.transform import affine_warp
 from ..sfm.ransac import ransac_affine
 from .sift import SiftPlan
@@ -35,11 +38,15 @@ class MatchPlan:
     ``device`` (default: the current CUDA card; raises without one, so pass
     ``device="cpu"`` for the CPU) is where the distances are computed.
 
-    The JAX package pads each call to a power-of-two bucket to bound its XLA
-    compiles; PyTorch compiles nothing and K7 takes any row and column
-    count, so the records go in as they are.  Padding rows and columns are
-    invalid, so the indices are the same either way.  ``size`` is kept for
-    signature parity.
+    As in the JAX package, each set goes in zero-padded (its padding rows
+    invalid) to a power-of-two bucket of at least 128 rows, capped at the
+    ctor's ``size`` when ``size`` holds the set (``_padded``), so every call
+    at or below ``size`` takes one of at most log2(size) shapes.  On a CUDA
+    device each bucket pair is one CUDA graph (``ops.match.match_packed``:
+    ``MATCH_GRAPHS``, per (bucket pair, metric, ratio, xy radius)), the
+    padded records copied in and [idx1, idx2, valid] brought home in one
+    copy; on the CPU the same padded call runs eagerly.  Padding rows and
+    columns are invalid, so the indices are those of the unpadded sets.
     """
 
     def __init__(self, size: int = 16384, devicetype: str = "GPU",
@@ -70,28 +77,33 @@ class MatchPlan:
         c = np.clip(kp["x"].astype(int), 0, self.roi.shape[1] - 1)
         return self.roi[r, c]
 
-    def _xy(self, kp: np.ndarray) -> torch.Tensor:
-        xy = np.stack([kp["x"], kp["y"]], axis=1).astype(np.float32)
-        return torch.from_numpy(xy).to(self.device)
+    def _padded(self, kp: np.ndarray, mask: np.ndarray):
+        """The records zero-padded to their bucket (the JAX package's
+        ``MatchPlan._padded``): descriptors, mask and (x, y)."""
+        n = len(kp)
+        bucket = 1 << max(7, (n - 1).bit_length())
+        cap = min(bucket, self.size) if self.size >= n else bucket
+        desc = np.zeros((cap, 128), np.uint8)
+        desc[:n] = kp["desc"]
+        m = np.zeros(cap, bool)
+        m[:n] = mask
+        xy = np.zeros((cap, 2), np.float32)
+        xy[:n, 0] = kp["x"]
+        xy[:n, 1] = kp["y"]
+        return desc, m, xy
 
     def match_index(self, kp1: np.ndarray, kp2: np.ndarray) -> np.ndarray:
         """(M, 2) int32 indices of matches between two KP_DTYPE arrays."""
         if len(kp1) == 0 or len(kp2) == 0:
             return np.zeros((0, 2), dtype=np.int32)
-        dev = self.device
-        kwargs = {}
+        d1, m1, xy1 = self._padded(kp1, self._roi_mask(kp1))
+        d2, m2, xy2 = self._padded(kp2, np.ones(len(kp2), dtype=bool))
+        radius = None
         if self.match_xradius is not None or self.match_yradius is not None:
-            kwargs = dict(xy1=self._xy(kp1), xy2=self._xy(kp2),
-                          xy_radius=(float(self.match_xradius or np.inf),
-                                     float(self.match_yradius or np.inf)))
-        res = match_descriptors_jax(
-            torch.from_numpy(np.ascontiguousarray(kp1["desc"])).to(dev),
-            torch.from_numpy(self._roi_mask(kp1)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(kp2["desc"])).to(dev),
-            torch.ones(len(kp2), dtype=torch.bool, device=dev),
-            metric=self.metric, ratio_sq=self.ratio_th, **kwargs)
-        # one copy to the host: idx1, idx2 and valid side by side
-        both = torch.stack([res.idx1, res.idx2, res.valid.to(torch.int32)], 1).cpu().numpy()
+            radius = (float(self.match_xradius or np.inf), float(self.match_yradius or np.inf))
+        both = match_packed(d1, m1, d2, m2, self.device, metric=self.metric,
+                            ratio_sq=self.ratio_th, xy1=xy1, xy2=xy2,
+                            xy_radius=radius).cpu().numpy()
         return both[both[:, 2] != 0, :2].astype(np.int32)
 
     def match(self, kp1: np.ndarray, kp2: np.ndarray) -> np.ndarray:

@@ -7,6 +7,15 @@ Port of ``sift_pyocl_tpu/ops/match.py``.  Two distance modes:
   CPU tensor), for any number of columns;
 * ``"L1"``: sum |a - b| on uint8 descriptors in int32 (plain PyTorch; an
   XLA path in the JAX package, not a Pallas kernel).
+
+``match_descriptors_dense`` and ``match_descriptors_jax`` are plain
+functions: they run inside the VO, registration and probe programs, as the
+JAX package inlines its jitted matcher there.  ``match_packed`` is the
+matcher that the JAX package calls at top level (``MatchPlan``, the SfM
+host loop's ``_match_pairs_packed``): on a card one CUDA graph per (device,
+the two sets' shapes, metric, ratio, xy radius) (``MATCH_GRAPHS``, or the
+caller's cache) whose one output, [idx1, idx2, valid], comes home in one
+copy.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import graphs
 from .kernels.matchk import best2_l2, best2_l2_ref
 
 INT_MAX = 2**31 - 1
@@ -97,3 +107,50 @@ def match_descriptors_jax(desc1: torch.Tensor, valid1: torch.Tensor, desc2: torc
     sel = torch.where(valid, order, 0)
     return MatchResult(idx1=sel.to(torch.int32), idx2=i1[sel], dist=d1[sel],
                        valid=valid, count=count)
+
+
+def _match_packed(static, desc1, valid1, desc2, valid2, xy1=None, xy2=None):
+    """``match_descriptors_jax`` from flat inputs (a graph body), its
+    result packed into one (cap, 3) int32 tensor [idx1, idx2, valid]."""
+    metric, ratio_sq, xy_radius = static
+    res = match_descriptors_jax(desc1, valid1, desc2, valid2, metric=metric, ratio_sq=ratio_sq,
+                                xy1=xy1, xy2=xy2, xy_radius=xy_radius)
+    return (torch.stack([res.idx1, res.idx2, res.valid.to(torch.int32)], 1),)
+
+
+# MatchPlan's matcher on the card (the JAX package's top-level
+# ``match_descriptors_jax`` jit)
+MATCH_GRAPHS = graphs.GraphCache(_match_packed)
+
+
+def _packed_args(desc1, valid1, desc2, valid2, metric, ratio_sq, xy1, xy2, xy_radius):
+    static = (metric, float(ratio_sq),
+              None if xy_radius is None else tuple(float(r) for r in xy_radius))
+    inputs = (desc1, valid1, desc2, valid2) + (() if xy_radius is None else (xy1, xy2))
+    return static, tuple(torch.as_tensor(t) for t in inputs)
+
+
+def match_packed(desc1, valid1, desc2, valid2, device, metric: str = "L1",
+                 ratio_sq: float = 0.5329, xy1=None, xy2=None, xy_radius=None,
+                 cache: graphs.GraphCache = MATCH_GRAPHS) -> torch.Tensor:
+    """``match_descriptors_jax`` on `device` as one (cap, 3) int32 tensor
+    [idx1, idx2, valid] (cap = len(desc1)).  Tensors or arrays, on the host
+    or the device.  On a CUDA device the replay of `cache`'s graph for these
+    shapes (host inputs copied in by the replay; the result a view of one
+    fresh buffer); elsewhere the eager call, ``_match_packed_eager``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _match_packed_eager(desc1, valid1, desc2, valid2, device, metric, ratio_sq,
+                                   xy1, xy2, xy_radius)
+    static, inputs = _packed_args(desc1, valid1, desc2, valid2, metric, ratio_sq, xy1, xy2,
+                                  xy_radius)
+    return cache(device, static, inputs)[0]
+
+
+def _match_packed_eager(desc1, valid1, desc2, valid2, device, metric: str = "L1",
+                        ratio_sq: float = 0.5329, xy1=None, xy2=None, xy_radius=None,
+                        cache=None) -> torch.Tensor:
+    """``match_packed`` op by op (what its graph captures)."""
+    static, inputs = _packed_args(desc1, valid1, desc2, valid2, metric, ratio_sq, xy1, xy2,
+                                  xy_radius)
+    return _match_packed(static, *(t.to(device) for t in inputs))[0]

@@ -7,6 +7,14 @@ source image.  The arithmetic is the reference's, in f32 and in its order:
 ``sr = m00*r + m01*c + off0``, ``floor``, four clamped gathers and the
 ``valid`` test.  ``grid_sample`` is not used: its edge and ``align_corners``
 semantics give other values at the border.
+
+The JAX package jits the warp, one program per image shape.  On a CUDA
+device ``affine_warp`` likewise replays one CUDA graph per (device, H, W,
+`fill`) (``WARP_GRAPHS``): the image, the matrix and the offset are its
+inputs, copied in by the replay (host arrays by their own copies, which do
+not wait for the device), and the warped image is a view of one fresh
+buffer.  ``_affine_warp_eager`` is the body the graph captures, and what
+the CPU runs.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Optional, Union
 
 import torch
 
+from ..utils import graphs
 from . import as_tensor, device_of
 
 
@@ -25,9 +34,26 @@ def affine_warp(img, matrix, offset, fill: float = 0.0,
     Tensors or arrays.  It runs on `device` where given, else on `img`'s
     device if `img` is a tensor, else on the CUDA card (``device=None``
     raises without one; pass ``device="cpu"`` for the CPU).  Returns a
-    tensor on that device."""
+    tensor on that device: on a card the replay of ``WARP_GRAPHS``'s graph
+    for the image's shape and `fill`."""
+    dev = device_of(img, device)
+    if dev.type != "cuda":
+        return _affine_warp_eager(img, matrix, offset, fill, dev)
+    inputs = [torch.as_tensor(a).to(torch.float32) for a in (img, matrix, offset)]
+    return WARP_GRAPHS(dev, float(fill), inputs)[0]
+
+
+def _affine_warp_eager(img, matrix, offset, fill: float = 0.0,
+                       device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
+    """``affine_warp`` op by op on its device (what its graph captures)."""
     dev = device_of(img, device)
     x, m, off = (as_tensor(a, dev, torch.float32) for a in (img, matrix, offset))
+    return _warp_flat(float(fill), x, m, off)[0]
+
+
+def _warp_flat(fill: float, x: torch.Tensor, m: torch.Tensor, off: torch.Tensor):
+    """The warp of f32 `x` on its device (a graph body)."""
+    dev = x.device
     H, W = x.shape
     rr = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
     cc = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
@@ -50,8 +76,11 @@ def affine_warp(img, matrix, offset, fill: float = 0.0,
            + x[r1i, c0i] * fr * (1 - fc)
            + x[r0i, c1i] * (1 - fr) * fc
            + x[r1i, c1i] * fr * fc)
-    return torch.where(valid, out, float(fill))
+    return (torch.where(valid, out, fill),)
 
+
+# the warp on the card: one CUDA graph per (device, H, W, fill)
+WARP_GRAPHS = graphs.GraphCache(_warp_flat)
 
 # The JAX package's name (the port keeps its names, as match_descriptors_jax).
 affine_warp_jax = affine_warp

@@ -5,8 +5,16 @@ video frontend).  The JAX package splits a frame batch over a ``frames``
 mesh axis with ``shard_map``, one program a device on its local frames.
 Here the mesh is a tuple of ``torch.device``s: the batch is cut into equal
 shards, each shard is copied to its device without blocking and runs there
-frame after frame (``batched_sift``), and the buffers are gathered on the
-first device.  PyTorch launches asynchronously and the frontend makes no
+frame after frame, and the buffers are gathered on the first device.  The
+JAX package jits the sharded ``lax.map``; here a CUDA device's share
+replays, frame after frame, the single-frame detector graph that
+``SiftPlan`` replays (``models.sift.DETECT_GRAPHS``, one graph per (device,
+frame shape and dtype, ``SiftConfig``), ``_device_share``), and a CPU
+device's runs ``batched_sift`` eagerly.  A graph of the whole share would
+be captured once for each local batch and hold that many frames' memory in
+its pool; the per-frame graph is shared by every batch size and by
+``SiftPlan``, and ``lax.map`` too runs the one-frame program frame after
+frame.  PyTorch launches asynchronously and the frontend makes no
 host synchronisation, so the devices work at once while the host enqueues;
 the caller's first read of the result is the first wait.  No collective is
 needed: SIFT is frame-parallel.
@@ -20,7 +28,7 @@ import numpy as np
 import torch
 
 from ..config import SiftConfig
-from ..models.sift import KeypointBuffer, detect_and_describe
+from ..models.sift import DETECT_GRAPHS, KeypointBuffer, detect_and_describe
 from ..ops import resolve_device
 
 
@@ -65,15 +73,24 @@ def batched_sift(frames: torch.Tensor, cfg: SiftConfig) -> KeypointBuffer:
     return _stack([detect_and_describe(frames[i], cfg) for i in range(frames.shape[0])])
 
 
+def _device_share(frames: torch.Tensor, cfg: SiftConfig) -> KeypointBuffer:
+    """One device's frames: on a card each frame the replay of the
+    detector's graph (``DETECT_GRAPHS``), elsewhere ``batched_sift``."""
+    if frames.device.type != "cuda":
+        return batched_sift(frames, cfg)
+    return _stack([KeypointBuffer(*DETECT_GRAPHS(frames.device, cfg, (frames[i],)))
+                   for i in range(frames.shape[0])])
+
+
 def sharded_sift_fn(mesh: FramesMesh, cfg: SiftConfig,
                     axis: str = "frames") -> Callable[[torch.Tensor], KeypointBuffer]:
     """(B, H, W) frames -> KeypointBuffer batch on ``mesh.devices[0]``.
 
     B must be divisible by the mesh size; device i takes frames
-    [i B/n, (i+1) B/n), copied there without blocking, and runs
-    ``batched_sift`` on them.  The shards' buffers are copied back without
-    blocking, so no host synchronisation is made until the caller reads the
-    result."""
+    [i B/n, (i+1) B/n), copied there without blocking, and runs them
+    (``_device_share``: on a card the detector graph's replay a frame).
+    The shards' buffers are copied back without blocking, so no host
+    synchronisation is made until the caller reads the result."""
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh has no axis {axis!r} (axes {mesh.axis_names})")
     devs = mesh.devices
@@ -82,7 +99,7 @@ def sharded_sift_fn(mesh: FramesMesh, cfg: SiftConfig,
         if frames.shape[0] % len(devs):
             raise ValueError(f"batch {frames.shape[0]} not divisible by mesh size {len(devs)}")
         k = frames.shape[0] // len(devs)
-        outs = [batched_sift(frames[i * k:(i + 1) * k].to(d, non_blocking=True), cfg)
+        outs = [_device_share(frames[i * k:(i + 1) * k].to(d, non_blocking=True), cfg)
                 for i, d in enumerate(devs)]
         return KeypointBuffer(*[
             torch.cat([getattr(o, f).to(devs[0], non_blocking=True) for o in outs])

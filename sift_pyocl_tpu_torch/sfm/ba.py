@@ -30,6 +30,16 @@ group, where the JAX package ``psum``s them over a mesh axis.  An LM
 iteration all-reduces 4 + ``cg_iters`` times: the cost, ``U`` with
 ``g_c`` (one flattened tensor), the Schur right-hand side, each CG
 matvec's camera sums and the candidate's cost.
+
+The JAX package jits ``lm_iteration``, one program per shape and static
+arguments.  On a CUDA card ``run_ba`` likewise replays one CUDA graph of
+one iteration (``LM_GRAPHS``, ``lm_iteration_replayed``) per (device,
+shapes of the parameters and observations, huber_px, cg_iters, n_points,
+layout), once an iteration: the segment layouts (a stable sort,
+``searchsorted``) and the segment sums are made inside it and sync no
+host.  The eager loop (``_run_ba_eager``) is what the CPU runs.  A group
+(``axis_name``) stays eager: a gloo all-reduce cannot be captured.  The
+VO step calls ``lm_iteration`` itself, inside its own graph.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import as_tensor, device_of
+from ..utils import graphs
 from .geometry import pose_retract, project, project_jacobians
 from .segment import Segments, segment_sum, segments
 
@@ -319,6 +330,49 @@ def lm_iteration(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tenso
     return params, lam, cost, accept
 
 
+def _lm_flat(static, Rs, ts, X, lam, uv, cam, pt, w, K, free):
+    """One ``lm_iteration`` from flat inputs (a graph body): (Rs, ts, X,
+    lam, cost, accepted)."""
+    huber_px, cg_iters, n_points, cam_blocked, pt_onehot, dense_schur = static
+    params, lam, cost, acc = lm_iteration(BAParams(Rs, ts, X), BAObs(uv, cam, pt, w), K, lam,
+                                          free, huber_px=huber_px, cg_iters=cg_iters,
+                                          n_points=n_points, cam_blocked=cam_blocked,
+                                          pt_onehot=pt_onehot, dense_schur=dense_schur)
+    return (*params, lam, cost, acc)
+
+
+# one LM iteration on the card: one CUDA graph per (device, shapes of the
+# parameters and observations, static arguments), as the JAX package jits
+# ``lm_iteration`` (its ``_ba_rounds_packed`` loops that one program)
+LM_GRAPHS = graphs.GraphCache(_lm_flat)
+
+
+def lm_iteration_replayed(params: BAParams, obs: BAObs, K: torch.Tensor, lam: torch.Tensor,
+                          free: torch.Tensor, huber_px: float = 2.0, cg_iters: int = 30,
+                          n_points: int = 0, cam_blocked: bool = False,
+                          pt_onehot: bool = False, dense_schur: bool = False):
+    """``lm_iteration`` on one device (no group), its tensors on one CUDA
+    card: the replay of its graph (``LM_GRAPHS``).  The inputs are copied
+    into the graph's buffer; the results are views of one fresh buffer."""
+    static = (float(huber_px), int(cg_iters), int(n_points or params.X.shape[0]),
+              bool(cam_blocked), bool(pt_onehot), bool(dense_schur))
+    Rs, ts, X, lam, cost, acc = LM_GRAPHS(params.Rs.device, static,
+                                          (*params, lam, *obs, K, free.to(torch.float32)))
+    return BAParams(Rs, ts, X), lam, cost, acc
+
+
+def _ba_inputs(params, obs, K, fixed_cams, device):
+    """run_ba's tensors on its device: params and observations as f32 /
+    int32, K, and the (C,) free-camera mask."""
+    dev = device_of(params.Rs, device)
+    params = BAParams(*(as_tensor(x, dev, torch.float32) for x in params))
+    obs = BAObs(as_tensor(obs.uv, dev, torch.float32), as_tensor(obs.cam, dev, torch.int32),
+                as_tensor(obs.pt, dev, torch.int32), as_tensor(obs.w, dev, torch.float32))
+    free = torch.ones(params.Rs.shape[0], dtype=torch.float32)
+    free[list(fixed_cams)] = 0.0
+    return dev, params, obs, as_tensor(K, dev, torch.float32), free.to(dev)
+
+
 def run_ba(params: BAParams, obs: BAObs, K, fixed_cams=(0,), iters: int = 20,
            huber_px: float = 2.0, cg_iters: int = 30, lam0: float = 1e-3,
            verbose: bool = False, fetch_costs: bool = True, device=None
@@ -328,21 +382,33 @@ def run_ba(params: BAParams, obs: BAObs, K, fixed_cams=(0,), iters: int = 20,
     ``fetch_costs=False`` only the last (one host read instead of one an
     iteration).  Tensors or arrays; on `device` where given, else on
     params.Rs's device if it is a tensor, else on the CUDA card (raises
-    without one)."""
-    dev = device_of(params.Rs, device)
-    params = BAParams(*(as_tensor(x, dev, torch.float32) for x in params))
-    obs = BAObs(as_tensor(obs.uv, dev, torch.float32), as_tensor(obs.cam, dev, torch.int32),
-                as_tensor(obs.pt, dev, torch.int32), as_tensor(obs.w, dev, torch.float32))
-    K = as_tensor(K, dev, torch.float32)
-    C = params.Rs.shape[0]
-    free = torch.ones(C, dtype=torch.float32)
-    free[list(fixed_cams)] = 0.0
-    free = free.to(dev)
-    lam = torch.full((), lam0, dtype=torch.float32, device=dev)
+    without one).  On a card each iteration replays one graph
+    (``lm_iteration_replayed``: the segment layouts are made inside it,
+    with no host sync); elsewhere the eager loop, ``_run_ba_eager``."""
+    dev, params, obs, K, free = _ba_inputs(params, obs, K, fixed_cams, device)
+    step = lm_iteration_replayed if dev.type == "cuda" else lm_iteration
+    return _lm_loop(step, params, obs, K, free, iters, huber_px, cg_iters, lam0, verbose,
+                    fetch_costs)
+
+
+def _run_ba_eager(params: BAParams, obs: BAObs, K, fixed_cams=(0,), iters: int = 20,
+                  huber_px: float = 2.0, cg_iters: int = 30, lam0: float = 1e-3,
+                  verbose: bool = False, fetch_costs: bool = True, device=None
+                  ) -> Tuple[BAParams, List[float]]:
+    """``run_ba`` with every iteration the eager ``lm_iteration`` (what
+    its graph captures)."""
+    dev, params, obs, K, free = _ba_inputs(params, obs, K, fixed_cams, device)
+    return _lm_loop(lm_iteration, params, obs, K, free, iters, huber_px, cg_iters, lam0,
+                    verbose, fetch_costs)
+
+
+def _lm_loop(step, params, obs, K, free, iters, huber_px, cg_iters, lam0, verbose,
+             fetch_costs):
+    lam = torch.full((), lam0, dtype=torch.float32, device=free.device)
     costs, cost = [], None
     for it in range(iters):
-        params, lam, cost, acc = lm_iteration(params, obs, K, lam, free, huber_px=huber_px,
-                                              cg_iters=cg_iters, n_points=params.X.shape[0])
+        params, lam, cost, acc = step(params, obs, K, lam, free, huber_px=huber_px,
+                                      cg_iters=cg_iters, n_points=params.X.shape[0])
         if fetch_costs:
             costs.append(float(cost))
         if verbose:

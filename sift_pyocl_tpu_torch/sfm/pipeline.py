@@ -27,11 +27,15 @@ The host keeps the growing map (points, descriptors, observation table) in
 NumPy.  On a CUDA device the per-frame programs are CUDA graphs, one per
 static signature, as the JAX package jits them: ``SiftPlan``'s detector
 (``models.sift.DETECT_GRAPHS``), ``register_from_buffers``
-(``REGISTER_GRAPHS``) and the host loop's ``ransac_pnp``
-(``sfm.pnp.PNP_GRAPHS``).  So the map goes in padded to the JAX package's
-power-of-two buckets (``_pow2_pad``: 256, 512, ... rows; zero descriptors
-and points, rows not valid), as do the host loop's matched rows (weight 0),
-and a frame's results come home in one copy (``graphs.to_host``).
+(``REGISTER_GRAPHS``), the host loop's ``ransac_pnp``
+(``sfm.pnp.PNP_GRAPHS``) and pair matcher (``PAIR_GRAPHS``), and the
+bundle adjustment's LM iteration (``sfm.ba.LM_GRAPHS``, replayed once an
+iteration).  So the map goes in padded to the JAX package's power-of-two
+buckets (``_pow2_pad``: 256, 512, ... rows; zero descriptors and points,
+rows not valid), as do the host loop's matched rows (weight 0), both
+descriptor sets of a host-loop match (rows not valid) and the BA's
+observations (weight 0) and points, and a call's results come home in
+one copy (``graphs.to_host``).
 
 Random draws: the JAX package splits one key a call; here one CPU
 ``torch.Generator`` seeded with `seed` gives each call its seed.  So runs
@@ -53,7 +57,7 @@ import torch
 from ..config import SiftConfig
 from ..models.sift import KeypointBuffer, SiftPlan
 from ..ops import resolve_device
-from ..ops.match import match_descriptors_dense, match_descriptors_jax
+from ..ops.match import _match_packed, match_descriptors_dense, match_packed
 from ..utils import graphs
 from .ba import BAObs, BAParams, run_ba
 from .geometry import project, triangulate_two_view
@@ -221,6 +225,10 @@ def _register_flat(static, x, y, scale, desc, valid, prev_desc, prev_uv, prev_va
 # register_from_buffers's graphs on the card (config 4's fused registration)
 REGISTER_GRAPHS = graphs.GraphCache(_register_flat)
 
+# the host loop's pair matcher on the card, one graph per bucket pair (the
+# JAX package's ``_match_pairs_packed``)
+PAIR_GRAPHS = graphs.GraphCache(_match_packed)
+
 
 class Registration(NamedTuple):
     """One frame's registration on the host, from either architecture: the
@@ -320,15 +328,18 @@ class IncrementalSfM:
         return self._kps_cache[f]
 
     def _match(self, d1: np.ndarray, d2: np.ndarray) -> np.ndarray:
-        """Ratio-test L1 matching of host descriptors; (M, 2) int indices."""
-        if len(d1) == 0 or len(d2) == 0:
+        """Ratio-test L1 matching of host descriptors, both sets padded to
+        their ``_pow2_pad`` bucket (the JAX package's ``_match``): on a card
+        one graph per bucket pair (``PAIR_GRAPHS``), its packed [idx1, idx2,
+        valid] fetched in one copy; (M, 2) int indices."""
+        n1, n2 = len(d1), len(d2)
+        if n1 == 0 or n2 == 0:
             return np.zeros((0, 2), np.int32)
-        t1, t2 = self._dev(d1), self._dev(d2)
-        v1 = torch.ones(len(d1), dtype=torch.bool, device=self.device)
-        v2 = torch.ones(len(d2), dtype=torch.bool, device=self.device)
-        res = match_descriptors_jax(t1, v1, t2, v2, ratio_sq=self.ratio_sq)
-        out = torch.stack([res.idx1, res.idx2], 1).cpu().numpy()
-        return out[res.valid.cpu().numpy()].astype(np.int32)
+        p1, p2 = _pow2_pad(n1), _pow2_pad(n2)
+        out = match_packed(_pad_rows(d1, p1, np.uint8), np.arange(p1) < n1,
+                           _pad_rows(d2, p2, np.uint8), np.arange(p2) < n2, self.device,
+                           ratio_sq=self.ratio_sq, cache=PAIR_GRAPHS).cpu().numpy()
+        return out[out[:, 2] > 0][:, :2].astype(np.int32)
 
     def _boot_probe(self, chunk) -> np.ndarray:
         """Per candidate frame: the ratio-match count against frame 0 and
@@ -722,14 +733,21 @@ class IncrementalSfM:
 
     def _run_ba(self, Rs, ts, map_X, obs_cam, obs_pt, obs_uv, iters: int = 12):
         """`iters` LM iterations (``run_ba``: the scatter form, CG, camera 0
-        fixed, lam0 1e-3) over the whole map."""
-        M = len(obs_cam)
-        params = BAParams(self._dev(np.stack(Rs)), self._dev(np.stack(ts)), self._dev(map_X))
-        obs = BAObs(self._dev(np.asarray(obs_uv, np.float32)),
-                    self._dev(np.asarray(obs_cam, np.int32)),
-                    self._dev(np.asarray(obs_pt, np.int32)),
-                    torch.ones(M, dtype=torch.float32, device=self.device))
+        fixed, lam0 1e-3) over the whole map, padded as the JAX package's
+        ``_run_ba`` pads it: the observations to ``_pow2_pad(M)`` rows (uv
+        0, cam 0, pt 0, w 0) and the points to ``_pow2_pad(P)`` (X 0), so
+        that on a card every iteration of a call replays one graph
+        (``ba.LM_GRAPHS``); Rs, ts and X come home in one copy."""
+        C, P, M = len(Rs), len(map_X), len(obs_cam)
+        Mp, Pp = _pow2_pad(M), _pow2_pad(P)
+        params = BAParams(self._dev(np.stack(Rs).astype(np.float32)),
+                          self._dev(np.stack(ts).astype(np.float32)),
+                          self._dev(_pad_rows(map_X, Pp, np.float32)))
+        obs = BAObs(self._dev(_pad_rows(obs_uv, Mp, np.float32)),
+                    self._dev(_pad_rows(obs_cam, Mp, np.int32)),
+                    self._dev(_pad_rows(obs_pt, Mp, np.int32)),
+                    self._dev(_pad_rows(np.ones(M), Mp, np.float32)))
         params, _ = run_ba(params, obs, self.Kt, fixed_cams=(0,), iters=iters,
                            huber_px=self.reproj_px, cg_iters=30, fetch_costs=False)
-        Rs_np, ts_np = params.Rs.cpu().numpy(), params.ts.cpu().numpy()
-        return list(Rs_np), list(ts_np), params.X.cpu().numpy()
+        Rs_np, ts_np, X_np = (x.numpy() for x in graphs.to_host(params))
+        return list(Rs_np), list(ts_np), X_np[:P]
