@@ -137,8 +137,11 @@
    eager run K1-K6 once per frame detected, K7 never; a replayed run at
    most one detector capture and one registration capture a bucket, the
    second none.  Prints each run's wall time, s/frame, phase split
-   (periodic BA, loop closure, final BA; the loop closure stays eager) and graph
-   captures; one registered frame replayed and eager: host ms, CUDA
+   (periodic BA, loop closure, final BA) and graph captures, and the parts
+   of its bootstrap and loop closure (sfm_split: detection, the probe, the
+   host matcher, the two-view inits and their count; the loop probe or
+   the host loop's matcher and RANSAC-PnP, and the pose graph); one
+   registered frame replayed and eager: host ms, CUDA
    launches, device ms and host synchronisations (the replayed frame K1-K6
    once by kernel name), and its split; the BA's segment sum against
    float64.  Then the host loop (IncrementalSfM(fused=False)) replayed
@@ -154,7 +157,15 @@
    host loop runs replayed, eager, replayed) captures nothing in any
    cache.  One LM iteration of each architecture's final BA: replayed
    bit-equal to eager, host ms, CUDA launches, device ms and host syncs
-   of both.
+   of both.  The pose graph replays one Gauss-Newton step's graph an
+   iteration (posegraph.POSEGRAPH_GRAPHS, one key a run), the fused
+   path's bootstrap probe one graph a chunk size and its loop probe one
+   on the old map padded to its 64, 128, ... row bucket
+   (pipeline.BOOT_PROBE_GRAPHS, LOOP_PROBE_GRAPHS), as the JAX package
+   jits them; the host loop probes the loop-closure candidates frame by
+   frame (its pair matcher and RANSAC-PnP graphs).  The fused run's
+   pose-graph call and loop probe: replayed bit-equal to eager, host ms,
+   CUDA launches, device ms and host syncs of both.
 19. Phase D: BASELINE config 3, the batched video frontend
    (detect_and_describe_batched) on frames synthetic_scene((1080, 1920),
    n_blobs=200, seed=0) + i on the card, SiftConfig(): at B = 1, 2, 4, 8
@@ -260,6 +271,7 @@ ROOT = "sift_pyocl_tpu"
 # Published peaks of one H100 SXM (dense): HBM bytes/s, f32 outside the
 # tensor cores, int8 tensor-core operations/s.
 HBM_BPS = 3.35e12
+STARTED = time.perf_counter()
 F32_OPS = 67e12
 INT8_OPS = 1979e12
 
@@ -890,13 +902,14 @@ def eager_programs():
     its eager function (the references of the replayed runs), for an eager
     turn: SiftPlan's detector, the fused registration, the host loop's
     RANSAC-PnP and pair matcher, the SfM bundle adjustment's LM iterations,
-    MatchPlan's matcher, LinearAlign's warp, the video frontend's frames
-    and the two pipeline stages."""
+    the pose graph's Gauss-Newton steps, the fused path's bootstrap and
+    loop-closure probes, MatchPlan's matcher, LinearAlign's warp, the
+    video frontend's frames and the two pipeline stages."""
     from sift_pyocl_tpu_torch.models import match_align
     from sift_pyocl_tpu_torch.models.sift import SiftPlan
     from sift_pyocl_tpu_torch.ops import match, transform
     from sift_pyocl_tpu_torch.parallel import pipeline_octaves, video
-    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp
+    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp, posegraph
 
     def eager_raw(self, image):
         img = image if torch.is_tensor(image) else torch.from_numpy(np.asarray(image))
@@ -907,6 +920,9 @@ def eager_programs():
                (pipeline, "ransac_pnp", pnp._ransac_pnp_eager),
                (pipeline, "match_packed", match._match_packed_eager),
                (pipeline, "run_ba", ba._run_ba_eager),
+               (pipeline, "optimize_pose_graph", posegraph._optimize_pose_graph_eager),
+               (pipeline, "boot_probe", pipeline._boot_probe_eager),
+               (pipeline, "loop_probe", pipeline._loop_probe_eager),
                (match_align, "match_packed", match._match_packed_eager),
                (match_align, "affine_warp", transform._affine_warp_eager),
                (video, "_device_share", video.batched_sift),
@@ -2332,6 +2348,94 @@ def last_ba_call(kept: list):
         pipeline.run_ba = orig
 
 
+SPLIT_PHASES = ("bootstrap", "loop_closure")
+
+
+@contextlib.contextmanager
+def sfm_split(sfm, split: dict, kept: dict):
+    """Time the parts of one IncrementalSfM run's bootstrap and loop closure
+    by wrapping the methods and pipeline functions they call (frame
+    detection, the probes, the host matcher, the two-view inits,
+    RANSAC-PnP and the pose graph): a wrapper synchronises the card before
+    and after its call and adds the call's host seconds, less those of the
+    wrapped calls inside it, and one call to split[phase][part] = [s,
+    calls], the phase (bootstrap, register, loop_closure, final) being the
+    one the run is in.  `kept` gets the arguments of the run's last
+    optimize_pose_graph and loop_probe calls.  Wrap inside eager_programs,
+    so that an eager turn times the eager functions."""
+    from sift_pyocl_tpu_torch.sfm import pipeline
+
+    phase, inner = ["bootstrap"], []
+
+    def timed(fn, part, keep=None):
+        def wrapper(*args, **kw):
+            if keep:
+                kept[keep] = (args, kw)
+            if part is None:
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            inner.append(0.0)
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                dt_inner = inner.pop()
+                if inner:
+                    inner[-1] += dt
+                rec = split.setdefault(phase[0], {}).setdefault(part, [0.0, 0])
+                rec[0] += dt - dt_inner
+                rec[1] += 1
+        return wrapper
+
+    def marks(fn, during, after):
+        def wrapper(*args, **kw):
+            phase[0] = during
+            try:
+                return fn(*args, **kw)
+            finally:
+                phase[0] = after
+        return wrapper
+
+    on_sfm = {"_bootstrap_fast": marks(sfm._bootstrap_fast, "bootstrap", "register"),
+              "_bootstrap": marks(sfm._bootstrap, "bootstrap", "register"),
+              "_pose_graph_close": marks(sfm._pose_graph_close, "loop_closure", "final"),
+              "_boot_probe": timed(sfm._boot_probe, "probe"),
+              "_loop_probe": timed(sfm._loop_probe, "probe"),
+              "_match": timed(sfm._match, "match"),
+              "_run_two_view_init": timed(sfm._run_two_view_init, "two_view")}
+    on_pipeline = {"ransac_pnp": timed(pipeline.ransac_pnp, "ransac_pnp"),
+                   "optimize_pose_graph": timed(pipeline.optimize_pose_graph, "pose_graph",
+                                                "pose_graph"),
+                   "loop_probe": timed(pipeline.loop_probe, None, "loop_probe")}
+    saved = {name: getattr(pipeline, name) for name in on_pipeline}
+    detect = timed(sfm.sift.keypoints_raw, "detect")
+    vars(sfm).update(on_sfm)
+    vars(sfm.sift)["keypoints_raw"] = detect
+    for name, fn in on_pipeline.items():
+        setattr(pipeline, name, fn)
+    try:
+        yield
+    finally:
+        for name in on_sfm:
+            vars(sfm).pop(name)
+        vars(sfm.sift).pop("keypoints_raw")
+        for name, fn in saved.items():
+            setattr(pipeline, name, fn)
+
+
+def split_line(split: dict, phases: dict) -> dict:
+    """Each of SPLIT_PHASES's parts as {part: [s, calls]}, with the rest of
+    the phase's phase_times seconds under "rest"."""
+    out = {}
+    for ph in SPLIT_PHASES:
+        parts = {k: [round(v[0], 4), v[1]] for k, v in split.get(ph, {}).items()}
+        parts["rest"] = round(phases[ph] - sum(v[0] for v in split.get(ph, {}).values()), 4)
+        out[ph] = parts
+    return out
+
+
 def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
     """One IncrementalSfM run over config 4's frames, its programs replayed
     (or with `eager` their eager functions patched in), with the run's
@@ -2340,27 +2444,33 @@ def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
     loop edge (fused); an eager run launches K1-K6 once a frame detected
     and K7 never (the wrappers' counters), a replayed run captures at most
     one detector key and one registration (or RANSAC-PnP) key a bucket
-    (its counters count the captures' bodies, two each), and at most one
-    LM key a BA call (periodic and final)."""
+    (its counters count the captures' bodies, two each), at most one LM
+    key a BA call (periodic and final), at most one pose-graph key, and on
+    the fused path at most one loop-probe key and two boot-probe keys (a
+    chunk of 8 and a short last chunk; the host loop none).  The run's
+    bootstrap and loop closure are split (sfm_split) and printed."""
     from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from sift_pyocl_tpu_torch.sfm import (IncrementalSfM, ate_rmse, ba, camera_centers,
-                                          pipeline, pnp)
+                                          pipeline, pnp, posegraph)
 
     K, frames, gtR, gtT, _ = seq
     fused = kw.get("fused", True)
     reg_cache, at = (pipeline.REGISTER_GRAPHS, 8) if fused else (pnp.PNP_GRAPHS, 3)
     caches = {"detector": DETECT_GRAPHS, "registration" if fused else "ransac_pnp": reg_cache,
-              "lm": ba.LM_GRAPHS, "pair": pipeline.PAIR_GRAPHS}
+              "lm": ba.LM_GRAPHS, "pair": pipeline.PAIR_GRAPHS,
+              "posegraph": posegraph.POSEGRAPH_GRAPHS, "boot_probe": pipeline.BOOT_PROBE_GRAPHS,
+              "loop_probe": pipeline.LOOP_PROBE_GRAPHS}
     before = {k: c.captures for k, c in caches.items()}
     sfm = IncrementalSfM(K, frames[0].shape, **kw)
     kept = captured_registration(sfm, CONFIG4_FRAME,
                                  "_register_frame" if fused else "_register_host")
-    kept_ba = []
+    kept_ba, split, kept_loop = [], {}, {}
     reset_launch_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with eager_programs() if eager else contextlib.nullcontext(), last_ba_call(kept_ba):
+    with eager_programs() if eager else contextlib.nullcontext(), last_ba_call(kept_ba), \
+            sfm_split(sfm, split, kept_loop):
         res = sfm.run(frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -2380,6 +2490,8 @@ def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
           f"{ {k: round(v, 4) for k, v in sfm.phase_times.items()} }; memory "
           f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB  [{nvidia_smi_line()}]",
           flush=True)
+    parts = split_line(split, sfm.phase_times)
+    print(f"[config4] {tag}: split (s, calls; synchronised at each part) {parts}", flush=True)
     if fused:
         assert len(reg) == len(frames), f"{tag}: {len(reg)} of {len(frames)} registered"
         assert ate < 0.05, f"{tag}: ATE {ate}"
@@ -2401,8 +2513,12 @@ def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
         assert len(reg_cache) == len(buckets) or reg_cache.max_graphs < len(buckets)
         assert all(b >= 256 and b & (b - 1) == 0 for b in buckets), buckets
         assert captures["lm"] <= n_ba, (captures, n_ba)
+        assert captures["posegraph"] <= 1, captures
+        assert (captures["loop_probe"] <= 1 and captures["boot_probe"] <= 2) if fused else \
+            (captures["loop_probe"] == captures["boot_probe"] == 0), captures
     return dict(sfm=sfm, res=res, wall=wall, ate=ate, counts=counts, kept=kept,
-                kept_ba=kept_ba, detected=sfm.n_detected, phases=dict(sfm.phase_times),
+                kept_ba=kept_ba, kept_loop=kept_loop, detected=sfm.n_detected,
+                phases=dict(sfm.phase_times), split=parts,
                 captures={**captures, "buckets": buckets})
 
 
@@ -2433,6 +2549,41 @@ def lm_report(tag: str, kept_ba, dev) -> dict:
     print(f"[config4] {tag}: one LM iteration of the final BA {shape}, replayed "
           f"{rows['replay']} against eager {rows['eager']} (bit-equal)", flush=True)
     return {**shape, **rows}
+
+
+def loop_report(tag: str, kept_loop, dev) -> dict:
+    """The run's pose-graph call (20 Gauss-Newton steps) and, on the fused
+    path, its loop probe, on their arguments as the run made them: the
+    replay bit-equal to the eager function, and each one's host ms, CUDA
+    launches and device ms (torch.profiler), and host syncs."""
+    from sift_pyocl_tpu_torch.sfm import pipeline, posegraph
+
+    started = time.perf_counter()
+    calls = [("pose_graph", posegraph.optimize_pose_graph, posegraph._optimize_pose_graph_eager),
+             ("loop_probe", pipeline.loop_probe, pipeline._loop_probe_eager)]
+    rows = {}
+    for name, replay, eager in calls:
+        if name not in kept_loop:
+            continue
+        args, kw = kept_loop[name]
+        got, want = replay(*args, **kw), eager(*args, **kw)
+        got, want = (tuple(x) if isinstance(x, tuple) else (x,) for x in (got, want))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), f"{tag}: {name} replay differs"
+        rows[name] = {"shapes": [list(np.shape(a)) for a in args if hasattr(a, "shape")]}
+        # a pose-graph call makes ~20000 launches (an eager one takes ~1 s of
+        # host): one call a profiler session, the fullest of three
+        for turn, fn in (("replay", lambda: replay(*args, **kw)),
+                         ("eager", lambda: eager(*args, **kw))):
+            events = cuda_events(fn, calls=1, sessions=3)
+            rows[name][turn] = {"ms": host_ms(fn, calls=3), "cuda_launches": len(events),
+                                "device_ms": sum(e.device_time_total for e in events) / 1e3,
+                                "host_syncs": len(host_syncs(fn))}
+        print(f"[config4] {tag}: one {name} call {rows[name]['shapes']}, replayed "
+              f"{rows[name]['replay']} against eager {rows[name]['eager']} (bit-equal)",
+              flush=True)
+    print(f"[config4] {tag}: the pose-graph and loop-probe report took "
+          f"{time.perf_counter() - started:.1f} s", flush=True)
+    return rows
 
 
 def check_runs_equal(tag: str, runs, want) -> None:
@@ -2505,6 +2656,8 @@ def check_sfm(dev, seq) -> dict:
     print("[config4] the replayed runs are bit-equal to the eager run in Rs, ts and points; "
           "the second replayed run captured nothing", flush=True)
     lm = lm_report("fused", last["kept_ba"], dev)
+    loop = loop_report("fused", last["kept_loop"], dev)
+    assert set(loop) == {"pose_graph", "loop_probe"}, list(loop)
 
     # one registered frame, detection included: replayed beside eager
     sfm = last["sfm"]
@@ -2565,6 +2718,7 @@ def check_sfm(dev, seq) -> dict:
               "wall_s": {k: r["wall"] for k, r in runs.items()},
               "s_per_frame": {k: r["wall"] / len(frames) for k, r in runs.items()},
               "phase_times": {k: r["phases"] for k, r in runs.items()},
+              "split": {k: r["split"] for k, r in runs.items()},
               "captures": {k: r["captures"] for k, r in runs.items()},
               "registered": len(res.frames_registered), "ate": last["ate"],
               "points": int(len(res.points)), "observations": int(res.n_obs),
@@ -2572,7 +2726,7 @@ def check_sfm(dev, seq) -> dict:
               "detected": last["detected"],
               "launch_counts": {k: eager["counts"][k] for k in FRONTEND},
               "frame": {"id": CONFIG4_FRAME, **frame, "split": split},
-              "lm_iteration": lm,
+              "lm_iteration": lm, "loop_closure": loop,
               "segment_sum": {"max_err_f64": seg_err, "ms": seg_ms},
               "host_loop": host}
     print("config4:", json.dumps(report), flush=True)
@@ -2617,6 +2771,7 @@ def check_sfm_host_loop(seq, kw, fused_frame) -> dict:
             "loop_edges": r["sfm"].n_loop_edges, "bootstrap": r["res"].frames_registered[1],
             "phase_times": {"replayed": [runs[0]["phases"], r["phases"]],
                             "eager": runs[1]["phases"]},
+            "split": {"replayed": [runs[0]["split"], r["split"]], "eager": runs[1]["split"]},
             "captures": [runs[0]["captures"], r["captures"]], "lm_iteration": lm,
             "frame": frame}
 
@@ -3568,17 +3723,21 @@ def check_evaluate_cli(dev, seq) -> dict:
 
 def print_memory(after: str) -> None:
     """The card's memory after a phase: every graph keeps its own pool;
-    each cache's keys and the memory its graphs' pools reserve."""
+    each cache's keys and the memory its graphs' pools reserve; and the
+    seconds since the script started (its time limit holds the whole
+    run)."""
     from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
     from sift_pyocl_tpu_torch.models.vo import STEP_GRAPHS
     from sift_pyocl_tpu_torch.ops.match import MATCH_GRAPHS
     from sift_pyocl_tpu_torch.ops.transform import WARP_GRAPHS
     from sift_pyocl_tpu_torch.parallel.pipeline_octaves import STAGE0_GRAPHS, STAGE1_GRAPHS
-    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp
+    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp, posegraph
 
     caches = {"vo_step": STEP_GRAPHS, "detector": DETECT_GRAPHS,
               "registration": pipeline.REGISTER_GRAPHS, "ransac_pnp": pnp.PNP_GRAPHS,
-              "pair": pipeline.PAIR_GRAPHS, "lm": ba.LM_GRAPHS, "match": MATCH_GRAPHS,
+              "pair": pipeline.PAIR_GRAPHS, "lm": ba.LM_GRAPHS,
+              "posegraph": posegraph.POSEGRAPH_GRAPHS, "boot_probe": pipeline.BOOT_PROBE_GRAPHS,
+              "loop_probe": pipeline.LOOP_PROBE_GRAPHS, "match": MATCH_GRAPHS,
               "warp": WARP_GRAPHS, "stage0": STAGE0_GRAPHS, "stage1": STAGE1_GRAPHS}
     by_pool = {}
     for seg in torch.cuda.memory_snapshot():
@@ -3588,7 +3747,8 @@ def print_memory(after: str) -> None:
     for name, c in caches.items():
         pool = sum(by_pool.get(tuple(g.graph.pool()), 0) for g in c._graphs.values())
         held[name] = f"{len(c)} keys, {pool / 2**20:.0f} MiB"
-    print(f"[memory] after {after}: reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB, "
+    print(f"[memory] after {after} ({time.perf_counter() - STARTED:.1f} s into the run): "
+          f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB, "
           f"allocated {torch.cuda.memory_allocated() / 2**20:.0f} MiB; graphs held (their "
           f"pools) {held}", flush=True)
 

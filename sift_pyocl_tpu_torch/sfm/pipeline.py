@@ -18,24 +18,32 @@ bookkeeping, the loop closure and the BA:
   ``SiftPlan.keypoints`` gives them; each step (map match on the compacted
   keypoints, RANSAC-PnP on the matched rows, two-view triangulation of the
   fresh matches to the previous registered frame) is its own call, with
-  the host choosing what goes in.  The JAX package's host loop probes
-  loop-closure candidates frame by frame because it keeps no device
-  buffers; here both architectures keep each frame's buffer, so both run
-  the one batched probe (``_loop_probe``: the same L1 match sets).
+  the host choosing what goes in.  Its loop closure probes the candidate
+  frames one at a time (``_loop_edges_host``: a host match against the old
+  map points, then RANSAC-PnP on the matched rows), as the JAX package's
+  host loop does, where the fused path probes them all in one batch
+  (``_loop_probe``).
 
 The host keeps the growing map (points, descriptors, observation table) in
 NumPy.  On a CUDA device the per-frame programs are CUDA graphs, one per
 static signature, as the JAX package jits them: ``SiftPlan``'s detector
 (``models.sift.DETECT_GRAPHS``), ``register_from_buffers``
 (``REGISTER_GRAPHS``), the host loop's ``ransac_pnp``
-(``sfm.pnp.PNP_GRAPHS``) and pair matcher (``PAIR_GRAPHS``), and the
+(``sfm.pnp.PNP_GRAPHS``) and pair matcher (``PAIR_GRAPHS``), the
 bundle adjustment's LM iteration (``sfm.ba.LM_GRAPHS``, replayed once an
-iteration).  So the map goes in padded to the JAX package's power-of-two
-buckets (``_pow2_pad``: 256, 512, ... rows; zero descriptors and points,
-rows not valid), as do the host loop's matched rows (weight 0), both
-descriptor sets of a host-loop match (rows not valid) and the BA's
-observations (weight 0) and points, and a call's results come home in
-one copy (``graphs.to_host``).
+iteration), the pose graph's Gauss-Newton step
+(``sfm.posegraph.POSEGRAPH_GRAPHS``, likewise), and the fused path's
+probes: the bootstrap's (``boot_probe``, ``BOOT_PROBE_GRAPHS``, one graph
+a chunk size) and the loop closure's (``loop_probe``,
+``LOOP_PROBE_GRAPHS``).  So the map goes in padded to the JAX package's
+power-of-two buckets (``_pow2_pad``: 256, 512, ... rows; zero descriptors
+and points, rows not valid), as do the host loop's matched rows (weight
+0), both descriptor sets of a host-loop match (rows not valid), the BA's
+observations (weight 0) and points and the loop probe's old map points
+(64, 128, ... rows), and a call's results come home in one copy
+(``graphs.to_host``).  The two-view init (``initialize_two_view``: its
+``eigh`` and ``svd`` read error flags back to the host) and the odometry
+edges (``relative_pose``, one batched call) run eagerly.
 
 Random draws: the JAX package splits one key a call; here one CPU
 ``torch.Generator`` seeded with `seed` gives each call its seed.  So runs
@@ -61,7 +69,7 @@ from ..ops.match import _match_packed, match_descriptors_dense, match_packed
 from ..utils import graphs
 from .ba import BAObs, BAParams, run_ba
 from .geometry import project, triangulate_two_view
-from .pnp import pnp_draws, pnp_host_draws, pnp_subsets, ransac_pnp, ransac_pnp_given_draws
+from .pnp import pnp_host_draws, pnp_subsets, ransac_pnp, ransac_pnp_given_draws
 from .posegraph import PoseGraph, optimize_pose_graph, relative_pose
 from .twoview import initialize_two_view
 
@@ -230,6 +238,123 @@ REGISTER_GRAPHS = graphs.GraphCache(_register_flat)
 PAIR_GRAPHS = graphs.GraphCache(_match_packed)
 
 
+def boot_probe(desc0, valid0, uv0, descs, valids, uvs, ratio_sq: float = 0.7) -> torch.Tensor:
+    """The bootstrap's probe of a chunk of candidate frames (the JAX
+    package's ``_boot_probe_batched``): frame 0's slots (desc0 (N, 128),
+    valid0 (N,), uv0 (N, 2)) L1 ratio-matched to each candidate's (descs
+    (n, cap, 128), valids (n, cap), uvs (n, cap, 2)); (n, 2) rows [match
+    count, median matched displacement (NaN where none)].  On a CUDA device
+    one CUDA graph per (device, shapes: a short last chunk is a key of its
+    own, ratio_sq) (``BOOT_PROBE_GRAPHS``); elsewhere the eager call,
+    ``_boot_probe_eager``."""
+    static, inputs = (float(ratio_sq),), (desc0, valid0, uv0, descs, valids, uvs)
+    if descs.device.type != "cuda":
+        return _boot_probe_flat(static, *inputs)[0]
+    return BOOT_PROBE_GRAPHS(descs.device, static, inputs)[0]
+
+
+def _boot_probe_eager(desc0, valid0, uv0, descs, valids, uvs, ratio_sq: float = 0.7
+                      ) -> torch.Tensor:
+    """``boot_probe`` op by op (what its graph captures)."""
+    return _boot_probe_flat((float(ratio_sq),), desc0, valid0, uv0, descs, valids, uvs)[0]
+
+
+def _boot_probe_flat(static, desc0, valid0, uv0, descs, valids, uvs):
+    """The bootstrap probe from flat inputs on the candidates' device (a
+    graph body)."""
+    (ratio_sq,) = static
+    rows = []
+    for k in range(descs.shape[0]):
+        keep, mid, _, _ = match_descriptors_dense(desc0, valid0, descs[k], valids[k],
+                                                  metric="L1", ratio_sq=ratio_sq)
+        disp = torch.sqrt(((uvs[k][mid.long()] - uv0) ** 2).sum(-1))
+        flow = _nanmedian(torch.where(keep, disp, torch.nan))
+        rows.append(torch.stack([keep.sum().to(torch.float32), flow]))
+    return (torch.stack(rows),)
+
+
+def loop_probe(descs, valids, uvs, R0s, t0s, old_desc, old_valid, old_X, K, seeds=None,
+               ratio_sq: float = 0.7, metric: str = "L1", thresh_px: float = 3.0,
+               draws=None) -> torch.Tensor:
+    """The loop-closure probe of n candidate frames in one call (the JAX
+    package's ``_loop_probe_batched``): the old map points (old_desc (Q,
+    128), old_valid (Q,), old_X (Q, 3)) ratio-matched to each candidate's
+    slots (descs (n, cap, 128), valids (n, cap), uvs (n, cap, 2)), then
+    RANSAC-PnP from its pose (R0s (n, 3, 3), t0s (n, 3)) on the matched
+    rows, the candidates under one ``vmap``; (n, 14) rows [match count,
+    inlier count, R (9), t (3)].  Each candidate's PnP draws are those of
+    ``ransac_pnp(seeds[k], ...)`` over the Q rows, or ``draws`` = (xi (n,
+    16, 6), subsets (n, 16, Q)) where given.  The slots and K lie on the
+    device; the rest may lie on the host.  On a CUDA device one CUDA graph
+    per (device, shapes, ratio_sq, metric, thresh_px, draws given)
+    (``LOOP_PROBE_GRAPHS``); elsewhere the eager call, ``_loop_probe_eager``."""
+    static, inputs = _loop_probe_inputs(descs, valids, uvs, R0s, t0s, old_desc, old_valid,
+                                        old_X, K, seeds, ratio_sq, metric, thresh_px, draws)
+    if descs.device.type != "cuda":
+        return _loop_probe_flat(static, *inputs)[0]
+    return LOOP_PROBE_GRAPHS(descs.device, static, inputs)[0]
+
+
+def _loop_probe_eager(descs, valids, uvs, R0s, t0s, old_desc, old_valid, old_X, K, seeds=None,
+                      ratio_sq: float = 0.7, metric: str = "L1", thresh_px: float = 3.0,
+                      draws=None) -> torch.Tensor:
+    """``loop_probe`` op by op (what its graph captures)."""
+    static, inputs = _loop_probe_inputs(descs, valids, uvs, R0s, t0s, old_desc, old_valid,
+                                        old_X, K, seeds, ratio_sq, metric, thresh_px, draws)
+    return _loop_probe_flat(static, *inputs)[0]
+
+
+def _loop_probe_inputs(descs, valids, uvs, R0s, t0s, old_desc, old_valid, old_X, K, seeds,
+                       ratio_sq, metric, thresh_px, draws):
+    """(static, inputs) of ``_loop_probe_flat``: the slots and K (on the
+    device) first, then the old map, the poses and the draws where they lie
+    (host arrays as CPU tensors): each candidate's host numbers
+    (``pnp_host_draws``: jitter, Gumbel noise) from its seed, or the
+    caller's (xi, subsets)."""
+    def f32(a):
+        return torch.as_tensor(a).to(torch.float32)
+
+    old_desc = torch.as_tensor(old_desc)
+    if draws is None:
+        xi, g = (torch.stack(d) for d in zip(*(
+            pnp_host_draws(s, PNP_HYPOTHESES, old_desc.shape[0]) for s in seeds)))
+    else:
+        xi, g = (f32(d) for d in draws)
+    static = (float(ratio_sq), metric, float(thresh_px), draws is not None)
+    return static, (descs, valids, uvs, K, old_desc, torch.as_tensor(old_valid).bool(),
+                    *(f32(a) for a in (old_X, R0s, t0s)), xi, g)
+
+
+def _loop_probe_flat(static, descs, valids, uvs, K, old_desc, old_valid, old_X, R0s, t0s, xi, g):
+    """The loop-closure probe from flat inputs on the slots' device (a graph
+    body); `g` the Gumbel noise of the PnP draws (or, given, their
+    subsets)."""
+    ratio_sq, metric, thresh_px, given = static
+    dev = descs.device
+    old_desc, old_valid, old_X, R0s, t0s, xi, g = (
+        a.to(dev) for a in (old_desc, old_valid, old_X, R0s, t0s, xi, g))
+    keeps, uv_m = [], []
+    for k in range(descs.shape[0]):
+        keep, mid, _, _ = match_descriptors_dense(old_desc, old_valid, descs[k], valids[k],
+                                                  metric=metric, ratio_sq=ratio_sq)
+        keeps.append(keep)
+        uv_m.append(uvs[k][mid.long()])
+    W = torch.stack(keeps).to(torch.float32)
+    sub = g if given else pnp_subsets(g, W)
+    probe = torch.func.vmap(lambda R0, t0, uv, w, xi_, sub_: ransac_pnp_given_draws(
+        K, R0, t0, old_X, uv, w, xi_, sub_, thresh_px=thresh_px))
+    R, t, _, n_inl = probe(R0s, t0s, torch.stack(uv_m), W, xi, sub)
+    return (torch.cat([W.sum(1, keepdim=True), n_inl[:, None].to(torch.float32),
+                       R.reshape(-1, 9), t], 1),)
+
+
+# the fused path's probes on the card, one graph per (shapes, static
+# arguments), as the JAX package jits ``_boot_probe_batched`` and
+# ``_loop_probe_batched``
+BOOT_PROBE_GRAPHS = graphs.GraphCache(_boot_probe_flat)
+LOOP_PROBE_GRAPHS = graphs.GraphCache(_loop_probe_flat)
+
+
 class Registration(NamedTuple):
     """One frame's registration on the host, from either architecture: the
     match and inlier counts, and past the gates the pose, the map rows that
@@ -343,19 +468,13 @@ class IncrementalSfM:
 
     def _boot_probe(self, chunk) -> np.ndarray:
         """Per candidate frame: the ratio-match count against frame 0 and
-        the median matched displacement (the flow gate), (len(chunk), 2)."""
-        b0 = self._buf(0)
-        uv0 = torch.stack([b0.x, b0.y], -1)
-        rows = []
-        for b in chunk:
-            bb = self._buf(b)
-            keep, mid, _, _ = match_descriptors_dense(b0.desc, b0.valid, bb.desc, bb.valid,
-                                                      metric="L1", ratio_sq=self.ratio_sq)
-            uv_b = torch.stack([bb.x, bb.y], -1)[mid.long()]
-            disp = torch.sqrt(((uv_b - uv0) ** 2).sum(-1))
-            flow = _nanmedian(torch.where(keep, disp, torch.nan))
-            rows.append(torch.stack([keep.sum().to(torch.float32), flow]))
-        return torch.stack(rows).cpu().numpy()
+        the median matched displacement (the flow gate), (len(chunk), 2):
+        the candidates' buffers stacked (``boot_probe``)."""
+        b0, bufs = self._buf(0), [self._buf(b) for b in chunk]
+        return boot_probe(b0.desc, b0.valid, torch.stack([b0.x, b0.y], -1),
+                          torch.stack([b.desc for b in bufs]), torch.stack([b.valid for b in bufs]),
+                          torch.stack([torch.stack([b.x, b.y], -1) for b in bufs]),
+                          ratio_sq=self.ratio_sq).cpu().numpy()
 
     def _boot_pair(self, b: int):
         """Frame 0's ratio matches with frame b on the host's keypoints:
@@ -646,33 +765,49 @@ class IncrementalSfM:
         return out._replace(keep=out.keep[:n], inl=out.inl[:n], uv=out.uv[:n],
                             desc=out.desc[:n])
 
-    def _loop_probe(self, cand, cams, old_desc, old_X, Rs, ts) -> np.ndarray:
-        """Per candidate frame: its keypoints matched against the old map
-        points, then RANSAC-PnP from its current pose, all frames in one
-        batch (``vmap`` over frames, as the JAX package's probe); rows
-        [n_match, n_inl, R (9), t (3)]."""
-        od, oX = self._dev(old_desc), self._dev(old_X)
-        ov = torch.ones(len(old_desc), dtype=torch.bool, device=self.device)
+    def _loop_probe(self, cand, cams, old_desc, old_X, Rs, ts, draws=None) -> np.ndarray:
+        """The fused path's loop-closure probe: every candidate frame's slots
+        matched against the old map points, padded to ``_pow2_pad(n,
+        floor=64)`` rows (zero descriptors and points, rows not valid) as
+        the JAX package pads them, then RANSAC-PnP from the frame's camera
+        (`cams`) pose, all in one call (``loop_probe``); rows [n_match,
+        n_inl, R (9), t (3)].  ``draws``: the PnP draws over the padded
+        rows, in place of those from a seed a candidate."""
+        n = len(old_desc)
+        Q = _pow2_pad(n, floor=64)
         seeds = torch.randint(0, 2 ** 62, (len(cand),), generator=self.gen).tolist()
-        keeps, uvs, xis, subs = [], [], [], []
-        for seed, f in zip(seeds, cand):
-            bf = self._bufs[f]
-            keep, mid, _, _ = match_descriptors_dense(od, ov, bf.desc, bf.valid,
-                                                      metric=self.match_metric,
-                                                      ratio_sq=self.ratio_sq)
-            keeps.append(keep.to(torch.float32))
-            uvs.append(torch.stack([bf.x, bf.y], -1)[mid.long()])
-            xi, sub = pnp_draws(seed, keeps[-1])
-            xis.append(xi)
-            subs.append(sub)
-        c = torch.as_tensor(cams, device=self.device)
-        probe = torch.func.vmap(lambda R0, t0, uv, w, xi, sub: ransac_pnp_given_draws(
-            self.Kt, R0, t0, oX, uv, w, xi, sub, thresh_px=self.reproj_px))
-        W = torch.stack(keeps)
-        R, t, _, n_inl = probe(self._dev(np.stack(Rs))[c], self._dev(np.stack(ts))[c],
-                               torch.stack(uvs), W, torch.stack(xis), torch.stack(subs))
-        return torch.cat([W.sum(1, keepdim=True), n_inl[:, None].to(torch.float32),
-                          R.reshape(-1, 9), t], 1).cpu().numpy()
+        bufs = [self._buf(f) for f in cand]
+        return loop_probe(
+            torch.stack([b.desc for b in bufs]), torch.stack([b.valid for b in bufs]),
+            torch.stack([torch.stack([b.x, b.y], -1) for b in bufs]),
+            np.stack([Rs[c] for c in cams]), np.stack([ts[c] for c in cams]),
+            _pad_rows(old_desc, Q, np.uint8), np.arange(Q) < n, _pad_rows(old_X, Q, np.float32),
+            self.Kt, seeds, ratio_sq=self.ratio_sq, metric=self.match_metric,
+            thresh_px=self.reproj_px, draws=draws).cpu().numpy()
+
+    def _loop_edges_host(self, cand, cams, old_idx, map_desc, map_X, Rs, ts):
+        """The host loop's loop-closure probe, frame by frame as the JAX
+        package's host loop takes it: the frame's compacted keypoints
+        ratio-matched to the old map points (``_match``), and where at least
+        ``loop_min_inliers`` match, RANSAC-PnP from its pose on the matched
+        rows padded to their bucket (``_pow2_pad``, w = 0).  Returns the
+        accepted (camera, R, t)."""
+        edges = []
+        for f, c in zip(cand, cams):
+            kp = self._kp_np(f)
+            mm = self._match(map_desc[old_idx], kp["desc"])
+            n = len(mm)
+            if n < self.loop_min_inliers:
+                continue
+            P = _pow2_pad(n)
+            uv = np.stack([kp["x"][mm[:, 1]], kp["y"][mm[:, 1]]], 1)
+            R, t, _, n_inl = (x.numpy() for x in graphs.to_host(ransac_pnp(
+                self._next_seed(), self.Kt, Rs[c], ts[c],
+                _pad_rows(map_X[old_idx[mm[:, 0]]], P, np.float32), _pad_rows(uv, P, np.float32),
+                _pad_rows(np.ones(n), P, np.float32), thresh_px=self.reproj_px)))
+            if int(n_inl) >= self.loop_min_inliers:
+                edges.append((c, R, t))
+        return edges
 
     def _pose_graph_close(self, frames_reg, cam_of_frame, Rs, ts, map_X, map_desc,
                           pt_first_cam, verbose=False):
@@ -681,7 +816,9 @@ class IncrementalSfM:
         Each frame after the bootstrap pair is matched against the oldest
         map points (first observed by the bootstrap cameras, so in the
         gauge-fixed world frame: a PnP pose against them is a drift-free
-        absolute measurement).  Accepted PnP results become strong 0 -> c
+        absolute measurement): on the fused path all candidates in one
+        call (``_loop_probe``), in the host loop one at a time
+        (``_loop_edges_host``).  Accepted PnP results become strong 0 -> c
         edges beside unit-weight odometry edges; after
         ``optimize_pose_graph`` every map point is re-anchored through its
         first-observing camera's correction."""
@@ -698,19 +835,21 @@ class IncrementalSfM:
         ew = [1.0] * (C - 1)
         cand = [f for f in frames_reg if cam_of_frame[f] > 1]
         cams = [cam_of_frame[f] for f in cand]
-        rows = self._loop_probe(cand, cams, map_desc[old_idx], map_X[old_idx], Rs, ts)
-        n_lc = 0
-        for row, c in zip(rows, cams):
-            if int(row[0]) < self.loop_min_inliers or int(row[1]) < self.loop_min_inliers:
-                continue
+        if self.fused:
+            rows = self._loop_probe(cand, cams, map_desc[old_idx], map_X[old_idx], Rs, ts)
+            edges = [(c, row[2:11].reshape(3, 3), row[11:14]) for row, c in zip(rows, cams)
+                     if int(row[0]) >= self.loop_min_inliers
+                     and int(row[1]) >= self.loop_min_inliers]
+        else:
+            edges = self._loop_edges_host(cand, cams, old_idx, map_desc, map_X, Rs, ts)
+        for c, R, t in edges:
             # T_0 = I, so the absolute PnP pose is the 0 -> c edge transform
             ei.append(0)
             ej.append(c)
-            eZR.append(row[2:11].reshape(3, 3).astype(np.float32))
-            eZt.append(row[11:14].astype(np.float32))
+            eZR.append(R.astype(np.float32))
+            eZt.append(t.astype(np.float32))
             ew.append(3.0)
-            n_lc += 1
-        self.n_loop_edges = n_lc
+        n_lc = self.n_loop_edges = len(edges)
         if n_lc == 0:
             return Rs, ts, map_X
         graph = PoseGraph(i=self._dev(np.asarray(ei, np.int32)),
@@ -718,9 +857,8 @@ class IncrementalSfM:
                           Z_R=self._dev(np.stack(eZR)), Z_t=self._dev(np.stack(eZt)),
                           w=self._dev(np.asarray(ew, np.float32)))
         free = self._dev((np.arange(C) > 0).astype(np.float32))
-        Rn, tn, cost = optimize_pose_graph(Rd, td, graph, free, iters=20, huber=10.0)
-        Rn = Rn.cpu().numpy().astype(np.float32)
-        tn = tn.cpu().numpy().astype(np.float32)
+        Rn, tn, cost = (x.numpy() for x in graphs.to_host(
+            optimize_pose_graph(Rd, td, graph, free, iters=20, huber=10.0)))
         self._pgo_debug = (R_old, t_old, Rn, tn,
                            [np.stack(eZR[C - 1:]), np.stack(eZt[C - 1:]), ej[C - 1:]])
         _say(verbose, "pose graph: %d loop edges, cost %.4f", n_lc, float(cost))

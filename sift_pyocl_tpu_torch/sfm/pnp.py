@@ -90,14 +90,14 @@ def pnp_host_draws(seed: int, n_hypo: int, n: int) -> Tuple[torch.Tensor, torch.
 
 
 def pnp_subsets(gumbel: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(n_hypo, N) 0/1 rows of SUBSET distinct entries with w > 0, by the
-    masked Gumbel top-k of `gumbel`, as the JAX package draws them; on
-    `w`'s device, with no host sync."""
-    n = w.shape[0]
-    g = torch.where(w[None, :] > 0, gumbel.to(w.device), -torch.inf)
-    idx = torch.topk(g, min(SUBSET, n), dim=1).indices
+    """(..., n_hypo, N) 0/1 rows of SUBSET distinct entries with w (..., N)
+    > 0, by the masked Gumbel top-k of `gumbel`, as the JAX package draws
+    them; on `w`'s device, with no host sync."""
+    n = w.shape[-1]
+    g = torch.where(w[..., None, :] > 0, gumbel.to(w.device), -torch.inf)
+    idx = torch.topk(g, min(SUBSET, n), dim=-1).indices
     sub = torch.zeros(g.shape, dtype=torch.float32, device=w.device)
-    return sub.scatter_(1, idx, 1.0)
+    return sub.scatter_(-1, idx, 1.0)
 
 
 def pnp_draws(seed: int, w: torch.Tensor, n_hypo: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:

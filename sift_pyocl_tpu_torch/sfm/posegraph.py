@@ -13,6 +13,14 @@ arithmetic on 0-d tensors, whose forward-mode tangents PyTorch promotes to
 float64 where a Python float is added.)  The normal matrix and gradient are sums of edge
 blocks over repeated camera ids, taken by ``segment.segment_sum``, so they
 do not depend on the order of float atomics on the card.
+
+The JAX package jits the solve with ``iters`` static and a ``lax.scan``
+over the Gauss-Newton steps.  Every step of a call has one shape, so on a
+CUDA card ``optimize_pose_graph`` replays one CUDA graph of one step
+(``POSEGRAPH_GRAPHS``, ``_pose_graph_flat``) per (device, C, E, huber),
+``iters`` times, the carry (Rs, ts, lam) fed back; the segment layouts
+(a stable sort, ``searchsorted``) are made inside it and sync no host.
+The eager loop (``_optimize_pose_graph_eager``) is what the CPU runs.
 """
 
 from __future__ import annotations
@@ -21,8 +29,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import graphs
 from .geometry import pose_compose, pose_inverse, pose_retract, so3_log
-from .segment import segment_sum, segments
+from .segment import Segments, segment_sum, segments
 
 
 class PoseGraph(NamedTuple):
@@ -66,50 +75,99 @@ def _edge_jacobians(Ri, ti, Rj, tj, ZR, Zt) -> Tuple[torch.Tensor, torch.Tensor]
             jac(lambda xi: _retracted_residual(zero, xi, Ri, ti, Rj, tj, ZR, Zt)))
 
 
+def _layouts(i: torch.Tensor, j: torch.Tensor, C: int) -> Tuple[Segments, Segments]:
+    """The segment layouts of the gradient (camera ids) and of the normal
+    matrix's (c, d) blocks; no host synchronisation."""
+    # H[c, :, d, :] gathers the blocks of the (c, d) pairs (i, i), (j, j), (i, j), (j, i)
+    return (segments(torch.cat([i, j]), C),
+            segments(torch.cat([i * C + i, j * C + j, i * C + j, j * C + i]), C * C))
+
+
+def _gn_step(Rs, ts, lam, i, j, Z_R, Z_t, w, free, seg_g, seg_H, huber: float):
+    """One Gauss-Newton step with the Levenberg damping `lam`: (Rs, ts, lam,
+    the candidate step's cost); the step is taken where it lowers the
+    cost."""
+    C = Rs.shape[0]
+    fm = free[:, None].expand(C, 6).reshape(-1)
+    eye = torch.eye(6 * C, dtype=torch.float32, device=Rs.device)
+
+    def residual_all(Rs, ts):
+        return _edge_residual(Rs[i], ts[i], Rs[j], ts[j], Z_R, Z_t)    # (E, 6)
+
+    def weights(r):
+        nrm = torch.sqrt((r * r).sum(-1) + 1e-12)
+        return w * torch.clamp(huber / nrm, max=1.0)
+
+    r = residual_all(Rs, ts)
+    wr = weights(r)
+    Ji, Jj = _edge_jacobians(Rs[i], ts[i], Rs[j], ts[j], Z_R, Z_t)
+    JiT = Ji.transpose(1, 2) * wr[:, None, None]
+    JjT = Jj.transpose(1, 2) * wr[:, None, None]
+    blocks = torch.cat([JiT @ Ji, JjT @ Jj, JiT @ Jj, JjT @ Ji])
+    H = segment_sum(blocks, seg_H).reshape(C, C, 6, 6).permute(0, 2, 1, 3)
+    g = segment_sum(torch.cat([-torch.einsum("eij,ej->ei", JiT, r),
+                               -torch.einsum("eij,ej->ei", JjT, r)]), seg_g)
+    # gauge: project out fixed cameras
+    Hm = H.reshape(6 * C, 6 * C) * fm[:, None] * fm[None, :] + torch.diag(1.0 - fm)
+    Hm = Hm + lam * torch.diag(torch.diagonal(Hm)) + 1e-8 * eye
+    dx = torch.linalg.solve_ex(Hm, g.reshape(-1) * fm).result.reshape(C, 6) * free[:, None]
+    Rs2, ts2 = pose_retract(Rs, ts, dx)
+    c_old = (wr * (r * r).sum(-1)).sum()
+    r2 = residual_all(Rs2, ts2)
+    c_new = (weights(r2) * (r2 * r2).sum(-1)).sum()
+    acc = c_new < c_old
+    return (torch.where(acc, Rs2, Rs), torch.where(acc, ts2, ts),
+            torch.where(acc, lam * 0.5, lam * 4.0), c_new)
+
+
+def _pose_graph_flat(static, Rs, ts, lam, i, j, Z_R, Z_t, w, free):
+    """One Gauss-Newton step from flat inputs (a graph body), its segment
+    layouts made here: (Rs, ts, lam, the candidate step's cost)."""
+    (huber,) = static
+    i, j = i.long(), j.long()
+    return _gn_step(Rs, ts, lam, i, j, Z_R, Z_t, w, free, *_layouts(i, j, Rs.shape[0]), huber)
+
+
+# one Gauss-Newton step on the card: one CUDA graph per (device, C, E,
+# huber), as the JAX package jits ``optimize_pose_graph`` (its ``lax.scan``
+# loops that one step)
+POSEGRAPH_GRAPHS = graphs.GraphCache(_pose_graph_flat)
+
+
+def _pose_graph_inputs(Rs, ts, graph: PoseGraph, free):
+    dev = Rs.device
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+    return (Rs, ts, lam, graph.i.to(dev), graph.j.to(dev), *(x.to(dev, torch.float32) for x in (
+        graph.Z_R, graph.Z_t, graph.w, free)))
+
+
 def optimize_pose_graph(Rs: torch.Tensor, ts: torch.Tensor, graph: PoseGraph, free: torch.Tensor,
                         iters: int = 15, huber: float = 0.1
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gauss-Newton pose-graph solve from (Rs (C, 3, 3), ts (C, 3));
     `free` (C,) 1 = optimize, 0 = fixed (gauge).  Returns (Rs, ts, the
-    cost after the last iteration's candidate step)."""
-    C = Rs.shape[0]
-    i, j = graph.i.long(), graph.j.long()
-    free = free.to(torch.float32)
-    fm = free.repeat_interleave(6)
-    eye = torch.eye(6 * C, dtype=torch.float32, device=Rs.device)
-    seg_g = segments(torch.cat([i, j]), C)
-    # H[c, :, d, :] gathers the blocks of the (c, d) pairs (i, i), (j, j), (i, j), (j, i)
-    seg_H = segments(torch.cat([i * C + i, j * C + j, i * C + j, j * C + i]), C * C)
-
-    def residual_all(Rs, ts):
-        return _edge_residual(Rs[i], ts[i], Rs[j], ts[j], graph.Z_R, graph.Z_t)    # (E, 6)
-
-    def weights(r):
-        nrm = torch.sqrt((r * r).sum(-1) + 1e-12)
-        return graph.w * torch.clamp(huber / nrm, max=1.0)
-
-    lam = torch.full((), 1e-4, dtype=torch.float32, device=Rs.device)
-    c_new = torch.zeros((), dtype=torch.float32, device=Rs.device)
+    cost after the last iteration's candidate step).  On a CUDA device each
+    iteration replays one graph (``POSEGRAPH_GRAPHS``: one key per (C, E,
+    huber)); elsewhere the eager loop, ``_optimize_pose_graph_eager``.  No
+    host synchronisation."""
+    if Rs.device.type != "cuda":
+        return _optimize_pose_graph_eager(Rs, ts, graph, free, iters, huber)
+    Rs, ts, lam, *edges = _pose_graph_inputs(Rs, ts, graph, free)
+    cost = torch.zeros((), dtype=torch.float32, device=Rs.device)
     for _ in range(iters):
-        r = residual_all(Rs, ts)
-        wr = weights(r)
-        Ji, Jj = _edge_jacobians(Rs[i], ts[i], Rs[j], ts[j], graph.Z_R, graph.Z_t)
-        JiT = Ji.transpose(1, 2) * wr[:, None, None]
-        JjT = Jj.transpose(1, 2) * wr[:, None, None]
-        blocks = torch.cat([JiT @ Ji, JjT @ Jj, JiT @ Jj, JjT @ Ji])
-        H = segment_sum(blocks, seg_H).reshape(C, C, 6, 6).permute(0, 2, 1, 3)
-        g = segment_sum(torch.cat([-torch.einsum("eij,ej->ei", JiT, r),
-                                   -torch.einsum("eij,ej->ei", JjT, r)]), seg_g)
-        # gauge: project out fixed cameras
-        Hm = H.reshape(6 * C, 6 * C) * fm[:, None] * fm[None, :] + torch.diag(1.0 - fm)
-        Hm = Hm + lam * torch.diag(torch.diagonal(Hm)) + 1e-8 * eye
-        dx = torch.linalg.solve_ex(Hm, g.reshape(-1) * fm).result.reshape(C, 6) * free[:, None]
-        Rs2, ts2 = pose_retract(Rs, ts, dx)
-        c_old = (wr * (r * r).sum(-1)).sum()
-        r2 = residual_all(Rs2, ts2)
-        c_new = (weights(r2) * (r2 * r2).sum(-1)).sum()
-        acc = c_new < c_old
-        Rs = torch.where(acc, Rs2, Rs)
-        ts = torch.where(acc, ts2, ts)
-        lam = torch.where(acc, lam * 0.5, lam * 4.0)
-    return Rs, ts, c_new
+        Rs, ts, lam, cost = POSEGRAPH_GRAPHS(Rs.device, (float(huber),), (Rs, ts, lam, *edges))
+    return Rs, ts, cost
+
+
+def _optimize_pose_graph_eager(Rs: torch.Tensor, ts: torch.Tensor, graph: PoseGraph,
+                               free: torch.Tensor, iters: int = 15, huber: float = 0.1
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``optimize_pose_graph`` op by op, the segment layouts made once (what
+    its graph captures an iteration)."""
+    Rs, ts, lam, i, j, *edges = _pose_graph_inputs(Rs, ts, graph, free)
+    i, j = i.long(), j.long()
+    layouts = _layouts(i, j, Rs.shape[0])
+    cost = torch.zeros((), dtype=torch.float32, device=Rs.device)
+    for _ in range(iters):
+        Rs, ts, lam, cost = _gn_step(Rs, ts, lam, i, j, *edges, *layouts, float(huber))
+    return Rs, ts, cost

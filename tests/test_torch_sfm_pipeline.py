@@ -122,20 +122,25 @@ def test_register_from_buffers_matches_jax(seq3, monkeypatch):
 
 def test_boot_probe_matches_jax(seq3):
     """The bootstrap probe (match count and median flow against frame 0) on
-    the JAX package's buffers: counts equal, flows within rtol 1e-6."""
+    the JAX package's buffers, over a stacked chunk of 2 candidates, one of
+    3 (a frame twice) and a short last chunk of 1 (each its own shape, as
+    each is its own compile in JAX): counts equal, flows within rtol 1e-6."""
     K, frames, _, _, jbufs = seq3
     b0 = jbufs[0]
-    want = np.asarray(jpipe._boot_probe_batched(
-        b0.desc, b0.valid, jnp.asarray(_uv(b0)), jnp.stack([b.desc for b in jbufs[1:]]),
-        jnp.stack([b.valid for b in jbufs[1:]]),
-        jnp.stack([jnp.asarray(_uv(b)) for b in jbufs[1:]]),
-        ratio_sq=0.7))
     sfm = IncrementalSfM(K, frames[0].shape, cfg=CFG, device="cpu")
     sfm._bufs = {i: keypoint_buffer_from_jax(b) for i, b in enumerate(jbufs)}
-    got = sfm._boot_probe([1, 2])
-    np.testing.assert_array_equal(got[:, 0], want[:, 0])
-    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-6)
-    assert (want[:, 0] > 10).all()
+    for chunk in ([1, 2], [1, 2, 1], [2]):
+        want = np.asarray(jpipe._boot_probe_batched(
+            b0.desc, b0.valid, jnp.asarray(_uv(b0)), jnp.stack([jbufs[f].desc for f in chunk]),
+            jnp.stack([jbufs[f].valid for f in chunk]),
+            jnp.stack([jnp.asarray(_uv(jbufs[f])) for f in chunk]),
+            ratio_sq=0.7))
+        got = sfm._boot_probe(chunk)
+        assert got.shape == (len(chunk), 2)
+        np.testing.assert_array_equal(got[:, 0], want[:, 0])
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-6)
+        assert (want[:, 0] > 10).all()
+    assert len(tpipe.BOOT_PROBE_GRAPHS) == 0
 
 
 def test_incremental_sfm_runs_on_three_frames(seq3):
