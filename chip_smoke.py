@@ -14,7 +14,11 @@
    calls of a VO step, each timed and profiled; one launch a call, the same
    bits on two calls) exactly, K4/K10b (refinement, straight from K3's /
    K10a's output; one launch a call) bit for bit, K5, K6, K11a and K11b as
-   in their tests.  Times each with CUDA
+   in their tests; K12 and K13 (csrc/linalg.cu, no Pallas counterpart: the
+   two-view init's eigh and svd) at the init's shapes (257 9 x 9 and 3 x 3
+   matrices of a 256-row bucket) against torch.linalg.eigh and svd, their
+   bounds from the rotations this run's data needs (check_linalg_kernels).
+   Times each with CUDA
    events, beside the plain version, a PyTorch library call where one
    computes the same function, and the least time the card could take, and
    counts its CUDA launches and device time a call with torch.profiler
@@ -165,7 +169,14 @@
    jits them; the host loop probes the loop-closure candidates frame by
    frame (its pair matcher and RANSAC-PnP graphs).  The fused run's
    pose-graph call and loop probe: replayed bit-equal to eager, host ms,
-   CUDA launches, device ms and host syncs of both.
+   CUDA launches, device ms and host syncs of both.  The bootstrap's
+   two-view inits replay one graph a bucket of matches
+   (twoview.TWOVIEW_GRAPHS, the matches padded to 256, 512, ... rows, K12
+   and K13 inside); each run's split prints their seconds and calls
+   (replayed, or eager in the eager run), and twoview_report one init's
+   host ms, CUDA launches, device ms and host syncs replayed and eager
+   (the bare replay bit-equal to eager, 0 syncs) and K12's and K13's
+   launches a replayed init by kernel name.
 19. Phase D: BASELINE config 3, the batched video frontend
    (detect_and_describe_batched) on frames synthetic_scene((1080, 1920),
    n_blobs=200, seed=0) + i on the card, SiftConfig(): at B = 1, 2, 4, 8
@@ -237,12 +248,13 @@
    line equal to its eager run's on the same files (sfm mode: every graph
    of phase C's patched to its eager function).
 24. Prints the card's nvidia-smi line again, a JSON line of per-kernel
-   results (16 rows, launches from the path that runs each kernel: on
+   results (18 rows, launches from the path that runs each kernel: on
    the VO paths the wrapper calls of the replayed steps, from a replayed
    step's device profile, with capture_launches the wrappers' counters
    over the graph's warm-up and capture; K10a/K10b on P2 and K9 on P4
-   from their replayed frames' device profiles; config3_launches for K3-K6 and
-   K8 from phase D, cuda_launches and
+   from their replayed frames' device profiles; K12/K13 on phase C's
+   first replayed run, its inits times a replayed init's launches by
+   name; config3_launches for K3-K6 and K8 from phase D, cuda_launches and
    device_ms a wrapper call from the profiler), then, as its last line,
    {"ok": true, "device": {...}}.
 
@@ -858,7 +870,8 @@ def check_matcher(buf, rec: Kernels) -> None:
 KERNEL_PATTERNS = {k: rf"\b{k}\b" for k in (
     "small_octaves_kernel", "small_octaves_kernel_masks", "compact_kernel", "refine_kernel",
     "grad_kernel", "orient_desc_kernel", "orientation_hist_kernel", "descriptor_hist_kernel",
-    "mask_kernel", "best2_l2_kernel", "best2_l2_f32_kernel")}
+    "mask_kernel", "best2_l2_kernel", "best2_l2_f32_kernel", "sym_eig_small_kernel",
+    "svd3_kernel")}
 KERNEL_PATTERNS["blur_level_kernel"] = r"\bblur_level(_any)?_kernel\b"
 WRAPPER_KERNELS = {
     "octave0_ladder": {"blur_level_kernel": 6},
@@ -871,7 +884,8 @@ WRAPPER_KERNELS = {
     "orient_desc_fused": {"orient_desc_kernel": 1},
     "orientation_hist": {"orientation_hist_kernel": 1},
     "descriptor_hist": {"descriptor_hist_kernel": 1}, "extrema_masks": {"mask_kernel": 1},
-    "best2_l2": {"best2_l2_kernel": 1}, "best2_l2_f32": {"best2_l2_f32_kernel": 1}}
+    "best2_l2": {"best2_l2_kernel": 1}, "best2_l2_f32": {"best2_l2_f32_kernel": 1},
+    "sym_eig_small": {"sym_eig_small_kernel": 1}, "svd3": {"svd3_kernel": 1}}
 
 
 def kernel_counts(fn, calls: int = 1) -> dict:
@@ -903,13 +917,14 @@ def eager_programs():
     turn: SiftPlan's detector, the fused registration, the host loop's
     RANSAC-PnP and pair matcher, the SfM bundle adjustment's LM iterations,
     the pose graph's Gauss-Newton steps, the fused path's bootstrap and
-    loop-closure probes, MatchPlan's matcher, LinearAlign's warp, the
-    video frontend's frames and the two pipeline stages."""
+    loop-closure probes and two-view inits, MatchPlan's matcher,
+    LinearAlign's warp, the video frontend's frames and the two pipeline
+    stages."""
     from sift_pyocl_tpu_torch.models import match_align
     from sift_pyocl_tpu_torch.models.sift import SiftPlan
     from sift_pyocl_tpu_torch.ops import match, transform
     from sift_pyocl_tpu_torch.parallel import pipeline_octaves, video
-    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp, posegraph
+    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp, posegraph, twoview
 
     def eager_raw(self, image):
         img = image if torch.is_tensor(image) else torch.from_numpy(np.asarray(image))
@@ -923,6 +938,7 @@ def eager_programs():
                (pipeline, "optimize_pose_graph", posegraph._optimize_pose_graph_eager),
                (pipeline, "boot_probe", pipeline._boot_probe_eager),
                (pipeline, "loop_probe", pipeline._loop_probe_eager),
+               (pipeline, "initialize_two_view", twoview._initialize_two_view_eager),
                (match_align, "match_packed", match._match_packed_eager),
                (match_align, "affine_warp", transform._affine_warp_eager),
                (video, "_device_share", video.batched_sift),
@@ -2022,6 +2038,193 @@ def check_matcher_f32(bufs, rec: Kernels) -> dict:
     return counts
 
 
+# K12 and K13 (csrc/linalg.cu): no Pallas kernel stands behind them; they
+# are what jnp.linalg.eigh and jnp.linalg.svd are inside the JAX package's
+# jitted two-view init.  Their operations depend on the data (the rotations
+# a matrix needs), so the bound counts this run's rotations with a float32
+# replica of each kernel's loop (jacobi_ops, svd3_ops): per eigen rotation
+# the angle (14 operations), the two rows (6 a column of n - 2), the
+# diagonal (4) and V (6 n); 7 a pair tested; per one-sided rotation of the
+# SVD the angle (14) and two columns of A and V (36), 20 a pair tested
+# (three dot products), and 60 for the norms and U at the end.
+LINALG_EPS = np.float32(1.1920929e-7)
+
+
+def _rotation(app, aqq, apq):
+    """(c, s, t) of csrc/linalg.cu's jacobi_rotation, in float32, where
+    the rotation is made (apq != 0 there)."""
+    with np.errstate(all="ignore"):
+        theta = (aqq - app) / (np.float32(2) * apq)
+        t = np.float32(1) / (np.abs(theta) + np.sqrt(theta * theta + np.float32(1)))
+        t = np.where(theta < 0, -t, t).astype(np.float32)
+        c = (np.float32(1) / np.sqrt(t * t + np.float32(1))).astype(np.float32)
+    return c, (t * c).astype(np.float32), t
+
+
+def jacobi_ops(A: np.ndarray) -> int:
+    """K12's operations on A (B, n, n) float32: its loop (cyclic sweeps, a
+    rotation where |a_pq| > eps sqrt|a_pp| sqrt|a_qq|, a matrix done after a
+    sweep with none) run on every matrix at once in float32."""
+    a = A.astype(np.float32).copy()
+    B, n = a.shape[0], a.shape[-1]
+    active = np.ones(B, bool)
+    rotations = tests = 0
+    for _ in range(16):
+        rotated = np.zeros(B, bool)
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                apq, app, aqq = a[:, p, q], a[:, p, p], a[:, q, q]
+                go = active & (np.abs(apq) > LINALG_EPS * np.sqrt(np.abs(app))
+                               * np.sqrt(np.abs(aqq)))
+                tests += int(active.sum())
+                if not go.any():
+                    continue
+                rotations += int(go.sum())
+                rotated |= go
+                c, s_, t = _rotation(app[go], aqq[go], apq[go])
+                sub = a[go]
+                cp, cq = sub[:, :, p].copy(), sub[:, :, q].copy()
+                sub[:, :, p] = c[:, None] * cp - s_[:, None] * cq
+                sub[:, :, q] = s_[:, None] * cp + c[:, None] * cq
+                sub[:, p, :], sub[:, q, :] = sub[:, :, p], sub[:, :, q]
+                sub[:, p, p] = app[go] - t * apq[go]
+                sub[:, q, q] = aqq[go] + t * apq[go]
+                sub[:, p, q] = sub[:, q, p] = 0
+                a[go] = sub
+        active &= rotated
+        if not active.any():
+            break
+    return rotations * (14 + 6 * (n - 2) + 4 + 6 * n) + 7 * tests
+
+
+def svd3_ops(A: np.ndarray) -> int:
+    """K13's operations on A (B, 3, 3) float32: its one-sided sweeps over
+    the column pairs (0, 1), (0, 2), (1, 2) run on every matrix at once in
+    float32, and the norms and U at the end."""
+    a = A.astype(np.float32).copy()
+    B = a.shape[0]
+    active = np.ones(B, bool)
+    rotations = tests = 0
+    for _ in range(12):
+        rotated = np.zeros(B, bool)
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            x, y = a[:, :, p], a[:, :, q]
+            al, be, ga = ((u * v).sum(1, dtype=np.float32) for u, v in ((x, x), (y, y), (x, y)))
+            go = active & (np.abs(ga) > LINALG_EPS * np.sqrt(al) * np.sqrt(be))
+            tests += int(active.sum())
+            if not go.any():
+                continue
+            rotations += int(go.sum())
+            rotated |= go
+            c, s_, _ = _rotation(al[go], be[go], ga[go])
+            xp, yq = x[go].copy(), y[go].copy()
+            a[go, :, p] = c[:, None] * xp - s_[:, None] * yq
+            a[go, :, q] = s_[:, None] * xp + c[:, None] * yq
+        active &= rotated
+        if not active.any():
+            break
+    return rotations * 50 + 20 * tests + 60 * B
+
+
+def linalg_scene(dev):
+    """A two-view scene as the bootstrap meets it: 150 matches (45 of them
+    outliers) of 150 points seen from two poses at K = (400, 160, 120),
+    K-normalized, padded to their 256-row bucket; 256 eight-point rows
+    drawn as the init draws them and the true inliers' row.  Returns the
+    (257, 9, 9) A^T A and the true inlier mask."""
+    import importlib
+
+    from sift_pyocl_tpu_torch.sfm import geometry as tg
+
+    tr = importlib.import_module("sift_pyocl_tpu_torch.sfm.ransac")
+    rng = np.random.default_rng(1)
+    X = torch.from_numpy(rng.uniform([-2, -2, 4], [2, 2, 9], (150, 3)))
+    K = torch.tensor([[400.0, 0, 160], [0, 400.0, 120], [0, 0, 1.0]], dtype=torch.float64)
+    R = tg.so3_exp(torch.tensor([0.03, -0.25, 0.02], dtype=torch.float64))
+    t = torch.tensor([-0.8, 0.1, 0.05], dtype=torch.float64)
+    uv1 = tg.project(K, torch.eye(3, dtype=torch.float64), torch.zeros(3, dtype=torch.float64),
+                     X)[0].numpy()
+    uv2 = tg.project(K, R, t, X)[0].numpy() + rng.normal(0, 0.3, (150, 2))
+    out = rng.choice(150, 45, replace=False)
+    uv2[out] = rng.uniform(0, 300, (45, 2))
+    gt_in = np.ones(256, bool)
+    gt_in[out] = False
+    gt_in[150:] = False
+    xy = [tg.backproject(K.float(), torch.from_numpy(
+        np.concatenate([u, np.zeros((106, 2))]).astype(np.float32)))[:, :2] for u in (uv1, uv2)]
+    valid = torch.arange(256) < 150
+    W = torch.cat([torch.from_numpy(gt_in)[None].float(), tr._sample_weights(0, valid, 256, 8)])
+    return tg._eight_point_normal(xy[0], xy[1], W)[0].to(dev), gt_in
+
+
+def check_linalg_kernels(dev, rec: Kernels) -> None:
+    """K12 and K13 against their plain versions (torch.linalg.eigh and
+    torch.linalg.svd on the card) at the two-view init's shapes: K12 on the
+    (257, 9, 9) A^T A of 256 eight-point rows and a refit at the 256-row
+    bucket, K13 on the 257 fits' (3, 3) null vectors.  K12: eigenvalues
+    within 1e-5 of each matrix's largest entry, V orthonormal, and the least
+    eigenvalue's vector, where float64 pins it down, no farther from
+    float64's than eigh's plus 1e-4; K13: S within 2e-6 of S[0], U and Vh
+    orthonormal, A rebuilt within 4e-6.  One launch a call, the same bits on
+    two calls.  The plain version is the library call."""
+    from sift_pyocl_tpu_torch.ops.kernels import linalg
+
+    A, _ = linalg_scene(dev)
+    w, V = linalg.sym_eig_small(A)
+    wp, Vp = linalg.sym_eig_small(A, plain=True)
+    w64, V64 = torch.linalg.eigh(A.double())
+    scale = A.abs().amax((-1, -2))
+    err_w = float(((w - wp).abs().amax(-1) / scale).max())
+    ortho = float((V.transpose(-1, -2) @ V - torch.eye(9, device=dev)).abs().max())
+    apart = (w64[:, 1] - w64[:, 0]) > 1e-3 * scale
+
+    def null_err(X):
+        d = torch.minimum((X[:, :, 0] - V64[:, :, 0]).abs().amax(-1),
+                          (X[:, :, 0] + V64[:, :, 0]).abs().amax(-1))
+        return float(d[apart].max())
+
+    e_k, e_p = null_err(V.double()), null_err(Vp.double())
+    again = linalg.sym_eig_small(A)
+    assert torch.equal(again[0], w) and torch.equal(again[1], V), "K12: other bits on a call"
+    assert err_w < 1e-5 and ortho < 1e-5, (err_w, ortho)
+    assert e_k <= e_p + 1e-4, f"K12's null vector {e_k} from float64, eigh's {e_p}"
+    print(f"sym_eig_small (K12, {tuple(A.shape)}): eigenvalues within {err_w:.3g} of |A| of "
+          f"eigh's, V orthonormal within {ortho:.3g}; least eigenvalue's vector {e_k:.3g} from "
+          f"float64 (eigh {e_p:.3g}) on the {int(apart.sum())} matrices float64 pins down",
+          flush=True)
+    n = A.shape[0]
+    ops = jacobi_ops(A.cpu().numpy())
+    row = rec.record("sym_eig_small", "sift_pyocl_tpu_torch/csrc/linalg.cu",
+                     f"{ROOT}/sfm/geometry.py:269", float((w - wp).abs().max()),
+                     lambda: linalg.sym_eig_small(A), lambda: linalg.sym_eig_small(A, plain=True),
+                     50, n_bytes=4 * n * (81 + 9 + 81), ops=ops,
+                     library=lambda: torch.linalg.eigh(A))
+    assert row["cuda_launches"] == 1, f"K12 made {row['cuda_launches']} CUDA launches a call"
+    row["jacobi_ops"] = ops
+
+    F = Vp[:, :, 0].reshape(n, 3, 3).contiguous()
+    U, S, Vh = linalg.svd3(F)
+    Up, Sp, Vhp = linalg.svd3(F, plain=True)
+    err_s = float(((S - Sp).abs() / Sp[:, :1]).max())
+    eye = torch.eye(3, device=dev)
+    ortho = max(float((M - eye).abs().max())
+                for M in (U.transpose(-1, -2) @ U, Vh @ Vh.transpose(-1, -2)))
+    rebuilt = float((((U * S[:, None, :]) @ Vh - F).abs().amax((-1, -2)) / Sp[:, 0]).max())
+    again = linalg.svd3(F)
+    assert all(torch.equal(a, b) for a, b in zip(again, (U, S, Vh))), "K13: other bits on a call"
+    assert err_s < 2e-6 and ortho < 2e-6 and rebuilt < 4e-6, (err_s, ortho, rebuilt)
+    print(f"svd3 (K13, {tuple(F.shape)}): S within {err_s:.3g} of S[0] of svd's, U and Vh "
+          f"orthonormal within {ortho:.3g}, A rebuilt within {rebuilt:.3g}", flush=True)
+    ops = svd3_ops(F.cpu().numpy())
+    row = rec.record("svd3", "sift_pyocl_tpu_torch/csrc/linalg.cu",
+                     f"{ROOT}/sfm/geometry.py:272", float((S - Sp).abs().max()),
+                     lambda: linalg.svd3(F), lambda: linalg.svd3(F, plain=True), 50,
+                     n_bytes=4 * n * (9 + 9 + 3 + 9), ops=ops,
+                     library=lambda: torch.linalg.svd(F))
+    assert row["cuda_launches"] == 1, f"K13 made {row['cuda_launches']} CUDA launches a call"
+    row["jacobi_ops"] = ops
+
+
 # The API path (phase A): frames are crops of the VO phases' scene, the
 # reference frame the crop at (32, 32); users stabilise 1080p video against
 # a reference frame.
@@ -2361,7 +2564,7 @@ def sfm_split(sfm, split: dict, kept: dict):
     wrapped calls inside it, and one call to split[phase][part] = [s,
     calls], the phase (bootstrap, register, loop_closure, final) being the
     one the run is in.  `kept` gets the arguments of the run's last
-    optimize_pose_graph and loop_probe calls.  Wrap inside eager_programs,
+    optimize_pose_graph, loop_probe and two-view init calls.  Wrap inside eager_programs,
     so that an eager turn times the eager functions."""
     from sift_pyocl_tpu_torch.sfm import pipeline
 
@@ -2404,7 +2607,7 @@ def sfm_split(sfm, split: dict, kept: dict):
               "_boot_probe": timed(sfm._boot_probe, "probe"),
               "_loop_probe": timed(sfm._loop_probe, "probe"),
               "_match": timed(sfm._match, "match"),
-              "_run_two_view_init": timed(sfm._run_two_view_init, "two_view")}
+              "_run_two_view_init": timed(sfm._run_two_view_init, "two_view", "two_view")}
     on_pipeline = {"ransac_pnp": timed(pipeline.ransac_pnp, "ransac_pnp"),
                    "optimize_pose_graph": timed(pipeline.optimize_pose_graph, "pose_graph",
                                                 "pose_graph"),
@@ -2448,11 +2651,13 @@ def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
     key a BA call (periodic and final), at most one pose-graph key, and on
     the fused path at most one loop-probe key and two boot-probe keys (a
     chunk of 8 and a short last chunk; the host loop none).  The run's
-    bootstrap and loop closure are split (sfm_split) and printed."""
+    bootstrap and loop closure are split (sfm_split) and printed; a
+    replayed run captures at most one two-view key a bucket of matches
+    (256, 512, ... rows)."""
     from sift_pyocl_tpu_torch.models.sift import DETECT_GRAPHS
     from sift_pyocl_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from sift_pyocl_tpu_torch.sfm import (IncrementalSfM, ate_rmse, ba, camera_centers,
-                                          pipeline, pnp, posegraph)
+                                          pipeline, pnp, posegraph, twoview)
 
     K, frames, gtR, gtT, _ = seq
     fused = kw.get("fused", True)
@@ -2460,7 +2665,7 @@ def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
     caches = {"detector": DETECT_GRAPHS, "registration" if fused else "ransac_pnp": reg_cache,
               "lm": ba.LM_GRAPHS, "pair": pipeline.PAIR_GRAPHS,
               "posegraph": posegraph.POSEGRAPH_GRAPHS, "boot_probe": pipeline.BOOT_PROBE_GRAPHS,
-              "loop_probe": pipeline.LOOP_PROBE_GRAPHS}
+              "loop_probe": pipeline.LOOP_PROBE_GRAPHS, "two_view": twoview.TWOVIEW_GRAPHS}
     before = {k: c.captures for k, c in caches.items()}
     sfm = IncrementalSfM(K, frames[0].shape, **kw)
     kept = captured_registration(sfm, CONFIG4_FRAME,
@@ -2516,6 +2721,9 @@ def sfm_run(tag: str, seq, kw, eager: bool) -> dict:
         assert captures["posegraph"] <= 1, captures
         assert (captures["loop_probe"] <= 1 and captures["boot_probe"] <= 2) if fused else \
             (captures["loop_probe"] == captures["boot_probe"] == 0), captures
+        tv_buckets = graph_buckets(twoview.TWOVIEW_GRAPHS, 1)
+        assert captures["two_view"] <= len(tv_buckets), (captures, tv_buckets)
+        assert all(b >= 256 and b & (b - 1) == 0 for b in tv_buckets), tv_buckets
     return dict(sfm=sfm, res=res, wall=wall, ate=ate, counts=counts, kept=kept,
                 kept_ba=kept_ba, kept_loop=kept_loop, detected=sfm.n_detected,
                 phases=dict(sfm.phase_times), split=parts,
@@ -2583,6 +2791,63 @@ def loop_report(tag: str, kept_loop, dev) -> dict:
               flush=True)
     print(f"[config4] {tag}: the pose-graph and loop-probe report took "
           f"{time.perf_counter() - started:.1f} s", flush=True)
+    return rows
+
+
+TWOVIEW_KERNELS = ("sym_eig_small", "svd3")
+
+
+def twoview_report(tag: str, sfm, kept_loop) -> dict:
+    """The run's last two-view init (its matches padded to their bucket as
+    IncrementalSfM pads them): initialize_two_view's replay bit-equal to
+    _initialize_two_view_eager, its host ms (mean of 10 synchronised
+    calls) beside eager's and 0 host syncs; then
+    IncrementalSfM._run_two_view_init (padding, the init, its copy home)
+    replayed and eager: host ms, CUDA launches and device ms
+    (torch.profiler), host syncs; and the replay's K12 and K13 launches by
+    kernel name (each wrapper's launches a replayed init).  Host clocks are
+    read before any profiler session."""
+    from sift_pyocl_tpu_torch.sfm import pipeline, twoview
+
+    (m, uv0, uvb), _ = kept_loop["two_view"]
+    n = len(m)
+    P = pipeline._pow2_pad(n)
+    args = (sfm.Kt, pipeline._pad_rows(uv0, P, np.float32), pipeline._pad_rows(uvb, P, np.float32),
+            np.arange(P) < n)
+    kw = dict(thresh_px=sfm.reproj_px)
+
+    def replay():
+        return twoview.initialize_two_view(3, *args, **kw)
+
+    def eager():
+        return twoview._initialize_two_view_eager(3, *args, **kw)
+
+    got, want = replay(), eager()
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), f"{tag}: two-view replay differs"
+    rows = {"matches": n, "bucket": P, "inliers": int(got.n_inliers),
+            "bare": {"replay_ms": host_ms(replay, calls=10), "eager_ms": host_ms(eager, calls=10),
+                     "replay_host_syncs": len(host_syncs(replay)),
+                     "eager_host_syncs": len(host_syncs(eager))}}
+    assert rows["bare"]["replay_host_syncs"] == 0, f"{tag}: a two-view replay synchronised"
+
+    def one():
+        return sfm._run_two_view_init(m, uv0, uvb)
+
+    for turn in ("replay", "eager"):
+        with eager_programs() if turn == "eager" else contextlib.nullcontext():
+            rows[turn] = {"ms": host_ms(one, calls=10)}
+    for turn in ("replay", "eager"):
+        with eager_programs() if turn == "eager" else contextlib.nullcontext():
+            n_l, d = profile_calls(one)
+            rows[turn].update(cuda_launches=n_l, device_ms=d, host_syncs=len(host_syncs(one)))
+    per_call = kernel_counts(replay)
+    launches = {name: per_call[k] for name in TWOVIEW_KERNELS for k in WRAPPER_KERNELS[name]}
+    assert all(v > 0 for v in launches.values()), f"{tag}: a replayed init launched {launches}"
+    rows["kernel_launches"] = launches
+    print(f"[config4] {tag}: one two-view init ({n} matches, bucket {P}), with its padding and "
+          f"copy home: replayed {rows['replay']} against eager {rows['eager']}; the bare call "
+          f"{rows['bare']} (bit-equal); K12 / K13 launches a replayed init {launches}",
+          flush=True)
     return rows
 
 
@@ -2658,6 +2923,26 @@ def check_sfm(dev, seq) -> dict:
     lm = lm_report("fused", last["kept_ba"], dev)
     loop = loop_report("fused", last["kept_loop"], dev)
     assert set(loop) == {"pose_graph", "loop_probe"}, list(loop)
+    two_view = twoview_report("fused", last["sfm"], last["kept_loop"])
+    # the two-view inits of each run's bootstrap, replayed and eager (s,
+    # calls); K12's and K13's launches on the main path: the first replayed
+    # run's inits times a replayed init's launches by kernel name (its
+    # counters count the captures' warm-up and capture), and the eager
+    # run's counters, each init's launches
+    two_view["split"] = {k: r["split"]["bootstrap"].get("two_view") for k, r in runs.items()}
+    inits = {k: r["split"]["bootstrap"]["two_view"][1] for k, r in runs.items()}
+    per_init = two_view["kernel_launches"]
+    two_view["launches"] = {name: inits[next(iter(runs))] * per_init[name]
+                            for name in TWOVIEW_KERNELS}
+    two_view["capture_launches"] = {name: first["counts"][name] for name in TWOVIEW_KERNELS}
+    for name in TWOVIEW_KERNELS:
+        assert two_view["capture_launches"][name] > 0, f"{name}: no launch in the first run"
+        want_eager = inits[list(runs)[1]] * per_init[name]
+        assert eager["counts"][name] == want_eager, (name, eager["counts"][name], want_eager)
+    print(f"[config4] two-view inits in each run's bootstrap (s, calls) {two_view['split']}; "
+          f"K12 / K13 launches on the first replayed run {two_view['launches']} (counters at "
+          f"its captures {two_view['capture_launches']}), eager run "
+          f"{ {n: eager['counts'][n] for n in TWOVIEW_KERNELS} }", flush=True)
 
     # one registered frame, detection included: replayed beside eager
     sfm = last["sfm"]
@@ -2726,7 +3011,7 @@ def check_sfm(dev, seq) -> dict:
               "detected": last["detected"],
               "launch_counts": {k: eager["counts"][k] for k in FRONTEND},
               "frame": {"id": CONFIG4_FRAME, **frame, "split": split},
-              "lm_iteration": lm, "loop_closure": loop,
+              "lm_iteration": lm, "loop_closure": loop, "two_view": two_view,
               "segment_sum": {"max_err_f64": seg_err, "ms": seg_ms},
               "host_loop": host}
     print("config4:", json.dumps(report), flush=True)
@@ -3731,13 +4016,14 @@ def print_memory(after: str) -> None:
     from sift_pyocl_tpu_torch.ops.match import MATCH_GRAPHS
     from sift_pyocl_tpu_torch.ops.transform import WARP_GRAPHS
     from sift_pyocl_tpu_torch.parallel.pipeline_octaves import STAGE0_GRAPHS, STAGE1_GRAPHS
-    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp, posegraph
+    from sift_pyocl_tpu_torch.sfm import ba, pipeline, pnp, posegraph, twoview
 
     caches = {"vo_step": STEP_GRAPHS, "detector": DETECT_GRAPHS,
               "registration": pipeline.REGISTER_GRAPHS, "ransac_pnp": pnp.PNP_GRAPHS,
               "pair": pipeline.PAIR_GRAPHS, "lm": ba.LM_GRAPHS,
               "posegraph": posegraph.POSEGRAPH_GRAPHS, "boot_probe": pipeline.BOOT_PROBE_GRAPHS,
-              "loop_probe": pipeline.LOOP_PROBE_GRAPHS, "match": MATCH_GRAPHS,
+              "loop_probe": pipeline.LOOP_PROBE_GRAPHS, "two_view": twoview.TWOVIEW_GRAPHS,
+              "match": MATCH_GRAPHS,
               "warp": WARP_GRAPHS, "stage0": STAGE0_GRAPHS, "stage1": STAGE1_GRAPHS}
     by_pool = {}
     for seg in torch.cuda.memory_snapshot():
@@ -3794,13 +4080,14 @@ def main() -> int:
     p7 = check_vo_fused(base, p1)
     check_fused_scales2(img, x, dev)
     p8 = check_matcher_f32(base["bufs"], rec)
+    check_linalg_kernels(dev, rec)
     print_memory("kernels, P1-P8 and the VO paths")
     check_api_align(dev)
     print_memory("phase A")
     check_invariance(dev)
     print_memory("phase B")
     seq4 = config4_sequence()
-    check_sfm(dev, seq4)
+    c4 = check_sfm(dev, seq4)
     print_memory("phase C")
     p_d = check_batched(dev)
     print_memory("phase D")
@@ -3822,7 +4109,10 @@ def main() -> int:
     # for K9 replay SiftPlan's detector graph: their wrapper calls are read
     # from the replayed frames' device profiles (check_wrapper_launches).
     # The other paths count their wrappers: P5 (one frame) for K11a/K11b,
-    # P8 (two f32 matches) for K7f.
+    # P8 (two f32 matches) for K7f.  K12/K13 run on phase C's bootstrap,
+    # whose two-view inits replay a graph: the first replayed run's inits
+    # times a replayed init's launches by kernel name, and capture_launches
+    # the wrappers' counters over that run (its captures).
     graph_paths = {name: run for run, names in ((base, VO_KERNELS), (p1, ("extrema_masks",)),
                                                 (p7, FUSED_LADDERS)) for name in names}
     counts = {name: VO_STEPS * graph_path_calls(name, run["replay_launches"])
@@ -3830,7 +4120,8 @@ def main() -> int:
     counts.update({"compact_mask": p2["compact_mask"], "refine_octave": p2["refine_octave"],
                    "separable_blur": p4["separable_blur"],
                    "orientation_hist": p5["orientation_hist"],
-                   "descriptor_hist": p5["descriptor_hist"], "best2_l2_f32": p8["best2_l2_f32"]})
+                   "descriptor_hist": p5["descriptor_hist"], "best2_l2_f32": p8["best2_l2_f32"],
+                   **c4["two_view"]["launches"]})
     # and on phase D: K3-K6 at B = 8 (one batch), K8 at B = 4 with "pallas"
     config3 = {**p_d["batches"][8]["counts"], "extrema_masks": p_d["pallas_b4"]["extrema_masks"]}
     kernels = []
@@ -3839,12 +4130,14 @@ def main() -> int:
         if name in graph_paths:
             row["capture_launches"] = graph_paths[name]["counts"][name]
             assert row["capture_launches"] > 0, f"{name}'s wrapper never ran on its path"
+        if name in TWOVIEW_KERNELS:
+            row["capture_launches"] = c4["two_view"]["capture_launches"][name]
         if name in ("compact_masks_multi", "refine_multi", "grad_atlas", "orient_desc_fused",
                     "extrema_masks"):
             row["config3_launches"] = config3[name]
         assert row["launches"] > 0, f"{name} was not launched on its path"
         kernels.append(row)
-    assert len(kernels) == 16, f"{len(kernels)} kernel records"
+    assert len(kernels) == 18, f"{len(kernels)} kernel records"
     print(nvidia_smi_line(), flush=True)        # again, so the output's tail names the card
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

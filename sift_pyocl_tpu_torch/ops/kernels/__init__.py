@@ -14,6 +14,7 @@ from .conv import separable_blur
 from .gradpad import grad_atlas
 from .ladder import (octave0_ladder, octave0_ladder_mask, small_octaves_ladder,
                      small_octaves_ladder_mask)
+from .linalg import svd3, sym_eig_small
 from .maskk import extrema_masks
 from .matchk import best2_l2, best2_l2_f32
 from .refine import refine_multi, refine_octave
@@ -22,7 +23,8 @@ from .window import descriptor_hist, orient_desc_fused, orientation_hist
 KERNEL_WRAPPERS = (octave0_ladder, small_octaves_ladder, compact_masks_multi, refine_multi,
                    grad_atlas, orient_desc_fused, best2_l2, extrema_masks, separable_blur,
                    compact_mask, refine_octave, orientation_hist, descriptor_hist,
-                   octave0_ladder_mask, small_octaves_ladder_mask, best2_l2_f32)
+                   octave0_ladder_mask, small_octaves_ladder_mask, best2_l2_f32,
+                   sym_eig_small, svd3)
 
 
 def reset_launch_counts() -> None:

@@ -14,6 +14,11 @@ leading batch dimensions (the JAX package maps them with ``vmap``); the
 models, as RANSAC calls them.  SVD and ``eigh`` signs differ between
 libraries, so F, E and H agree with the JAX package's up to sign, and
 ``decompose_essential``'s candidates up to the order of the two rotations.
+The eigen- and singular-value decompositions are ``ops.kernels.linalg``'s
+``sym_eig_small`` (K12) and ``svd3`` (K13): on the card hand-written
+kernels that read nothing back to the host (so a CUDA graph holds them),
+on the CPU their plain versions (PyTorch's ``eigh`` and ``svd``).
+Nothing here copies a constant from the host either.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ..ops.kernels.linalg import svd3, sym_eig_small
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -210,13 +217,14 @@ def _det3(A: torch.Tensor) -> torch.Tensor:
 def _smallest_eigvec(A: torch.Tensor) -> torch.Tensor:
     """(..., 9, 9) symmetric -> (..., 3, 3): the eigenvector of the least
     eigenvalue, reshaped row-major."""
-    _, V = torch.linalg.eigh(A)
+    _, V = sym_eig_small(A)
     return V[..., :, 0].reshape(tuple(A.shape[:-2]) + (3, 3))
 
 
-def fit_fundamental_8pt(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted 8-point fundamental/essential fit on (N, 2) correspondences,
-    one per 0/1 weight row w (..., N): F (..., 3, 3) with ||F|| = 1, rank 2."""
+def _eight_point_normal(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor):
+    """The (..., 9, 9) A^T A of the 8-point fit's rows on the Hartley-
+    normalized points, each weighted by w (..., N), and the normalizations
+    (T1, T2)."""
     p1, T1 = _normalize_points(uv1, w)
     p2, T2 = _normalize_points(uv2, w)
     x1, y1 = p1[..., 0], p1[..., 1]
@@ -224,9 +232,16 @@ def fit_fundamental_8pt(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -
     A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, torch.ones_like(x1)],
                     -1)                                          # (..., N, 9)
     Aw = A * w[..., None]
-    F = _smallest_eigvec(Aw.transpose(-1, -2) @ Aw)
-    U, S, Vt = torch.linalg.svd(F)                               # rank-2 projection
-    S = S * torch.tensor([1.0, 1.0, 0.0], dtype=S.dtype, device=S.device)
+    return Aw.transpose(-1, -2) @ Aw, T1, T2
+
+
+def fit_fundamental_8pt(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted 8-point fundamental/essential fit on (N, 2) correspondences,
+    one per 0/1 weight row w (..., N): F (..., 3, 3) with ||F|| = 1, rank 2."""
+    AtA, T1, T2 = _eight_point_normal(uv1, uv2, w)
+    F = _smallest_eigvec(AtA)
+    U, S, Vt = svd3(F)                                           # rank-2 projection
+    S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
     F = T2.transpose(-1, -2) @ ((U * S[..., None, :]) @ Vt) @ T1
     return F / torch.clamp(torch.linalg.matrix_norm(F), min=1e-12)[..., None, None]
 
@@ -234,19 +249,20 @@ def fit_fundamental_8pt(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -
 def essential_from_fundamental(F: torch.Tensor, K1: torch.Tensor, K2: torch.Tensor) -> torch.Tensor:
     """E = K2^T F K1 projected onto the essential manifold (singular values
     1, 1, 0)."""
-    U, _, Vt = torch.linalg.svd(K2.T @ F @ K1)
-    return (U * torch.tensor([1.0, 1.0, 0.0], dtype=U.dtype, device=U.device)) @ Vt
+    U, _, Vt = svd3(K2.T @ F @ K1)
+    return torch.cat([U[..., :2], torch.zeros_like(U[..., 2:])], -1) @ Vt
 
 
 def decompose_essential(E: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """E (3, 3) -> the 4 candidate poses: R (4, 3, 3), t (4, 3), |t| = 1."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = svd3(E)
     U = U * torch.sign(_det3(U))                 # proper rotations
     Vt = Vt * torch.sign(_det3(Vt))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
-    R1 = U @ W @ Vt
-    R2 = U @ W.T @ Vt
+    # U @ W and U @ W^T for W = [[0, -1, 0], [1, 0, 0], [0, 0, 1]]: columns
+    # (u2, -u1, u3) and (-u2, u1, u3)
+    u1, u2, u3 = U[:, 0], U[:, 1], U[:, 2]
+    R1 = torch.stack([u2, -u1, u3], 1) @ Vt
+    R2 = torch.stack([-u2, u1, u3], 1) @ Vt
     t = U[:, 2]
     return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
 
@@ -279,9 +295,10 @@ def sampson_error_F(F: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -> to
     return num / torch.clamp(den, min=1e-12)
 
 
-def fit_homography(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted DLT homography uv2 ~ H uv1 on (N, 2), one per weight row w
-    (..., N): H (..., 3, 3) with H[2, 2] = 1."""
+def _dlt_normal(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor):
+    """The (..., 9, 9) A^T A of the DLT's two rows a point on the Hartley-
+    normalized points, each weighted by w (..., N), and the normalizations
+    (T1, T2)."""
     p1, T1 = _normalize_points(uv1, w)
     p2, T2 = _normalize_points(uv2, w)
     x, y = p1[..., 0], p1[..., 1]
@@ -290,7 +307,14 @@ def fit_homography(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -> tor
     r1 = torch.stack([x, y, one, zero, zero, zero, -u * x, -u * y, -u], -1)
     r2 = torch.stack([zero, zero, zero, x, y, one, -v * x, -v * y, -v], -1)
     A = torch.cat([r1 * w[..., None], r2 * w[..., None]], -2)    # (..., 2N, 9)
-    H = _smallest_eigvec(A.transpose(-1, -2) @ A)
+    return A.transpose(-1, -2) @ A, T1, T2
+
+
+def fit_homography(uv1: torch.Tensor, uv2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted DLT homography uv2 ~ H uv1 on (N, 2), one per weight row w
+    (..., N): H (..., 3, 3) with H[2, 2] = 1."""
+    AtA, T1, T2 = _dlt_normal(uv1, uv2, w)
+    H = _smallest_eigvec(AtA)
     H = torch.linalg.inv_ex(T2).inverse @ H @ T1
     h = H[..., 2, 2]
     return H / torch.where(h.abs() > 1e-12, h, 1e-12)[..., None, None]

@@ -40,10 +40,12 @@ power-of-two buckets (``_pow2_pad``: 256, 512, ... rows; zero descriptors
 and points, rows not valid), as do the host loop's matched rows (weight
 0), both descriptor sets of a host-loop match (rows not valid), the BA's
 observations (weight 0) and points and the loop probe's old map points
-(64, 128, ... rows), and a call's results come home in one copy
-(``graphs.to_host``).  The two-view init (``initialize_two_view``: its
-``eigh`` and ``svd`` read error flags back to the host) and the odometry
-edges (``relative_pose``, one batched call) run eagerly.
+(64, 128, ... rows) and the bootstrap's two-view inits
+(``initialize_two_view``, ``sfm.twoview.TWOVIEW_GRAPHS``: the matched
+pairs padded to ``_pow2_pad(len(m))`` rows with a valid mask, its
+decompositions the kernels K12 and K13), and a call's results come home
+in one copy (``graphs.to_host``).  The odometry edges (``relative_pose``,
+one batched call) run eagerly.
 
 Random draws: the JAX package splits one key a call; here one CPU
 ``torch.Generator`` seeded with `seed` gives each call its seed.  So runs
@@ -71,7 +73,7 @@ from .ba import BAObs, BAParams, run_ba
 from .geometry import project, triangulate_two_view
 from .pnp import pnp_host_draws, pnp_subsets, ransac_pnp, ransac_pnp_given_draws
 from .posegraph import PoseGraph, optimize_pose_graph, relative_pose
-from .twoview import initialize_two_view
+from .twoview import TwoViewInit, initialize_two_view
 
 logger = logging.getLogger(__name__)
 
@@ -529,9 +531,10 @@ class IncrementalSfM:
         return self._boot_fallback(low_flow, best)
 
     def _boot_try(self, b: int, flow: float, best):
-        """Two-view init of frame 0 with candidate b: (the candidate when it
-        has min_matches inliers else None, and the (fallback, score) pair
-        `best` updated with its score inliers * flow)."""
+        """Two-view init of frame 0 with candidate b (its result on the
+        host, sliced to the matches): (the candidate when it has
+        min_matches inliers else None, and the (fallback, score) pair `best`
+        updated with its score inliers * flow)."""
         m, uv0, uvb = self._boot_pair(b)
         init = self._run_two_view_init(m, uv0, uvb)
         n_inl = int(init.n_inliers)
@@ -550,16 +553,25 @@ class IncrementalSfM:
         return best[0]
 
     def _run_two_view_init(self, m, uv0, uvb):
-        return initialize_two_view(self._next_seed(), self.Kt, uv0.astype(np.float32),
-                                   uvb.astype(np.float32), np.ones(len(m), bool),
+        """The two-view init of the M matched pairs, padded to their
+        ``_pow2_pad(M)`` bucket with a valid mask as the JAX package pads
+        them.  Its result comes home in one copy, the points and inliers
+        sliced to the M pairs."""
+        n = len(m)
+        P = _pow2_pad(n)
+        init = initialize_two_view(self._next_seed(), self.Kt, _pad_rows(uv0, P, np.float32),
+                                   _pad_rows(uvb, P, np.float32), np.arange(P) < n,
                                    thresh_px=self.reproj_px, device=self.device)
+        R, t, X, inl, n_inl = graphs.to_host(init)
+        return TwoViewInit(R, t, X[:n], inl[:n], n_inl)
 
     def _init_map_state(self, boot):
-        """Host-side map and observation state from the bootstrap pair."""
+        """Host-side map and observation state from the bootstrap pair (its
+        init on the host, sliced to the matches: ``_run_two_view_init``)."""
         b, m, uv0, uvb, init = boot
         kps = {0: self._kp_np(0), b: self._kp_np(b)}
-        inl = init.inliers.cpu().numpy()
-        map_X = init.points.cpu().numpy()[inl].astype(np.float32)
+        inl = init.inliers.numpy()
+        map_X = init.points.numpy()[inl].astype(np.float32)
         map_desc = kps[0]["desc"][m[inl, 0]]
         obs_cam, obs_pt, obs_uv = [], [], []
         for pi, (i0, ib) in enumerate(m[inl]):
@@ -567,8 +579,8 @@ class IncrementalSfM:
             obs_pt += [pi, pi]
             obs_uv += [[kps[0]["x"][i0], kps[0]["y"][i0]], [kps[b]["x"][ib], kps[b]["y"][ib]]]
         cam_of_frame = {0: 0, b: 1}
-        Rs = [np.eye(3, dtype=np.float32), init.R.cpu().numpy().astype(np.float32)]
-        ts = [np.zeros(3, np.float32), init.t.cpu().numpy().astype(np.float32)]
+        Rs = [np.eye(3, dtype=np.float32), init.R.numpy().astype(np.float32)]
+        ts = [np.zeros(3, np.float32), init.t.numpy().astype(np.float32)]
         pt_first_cam = np.zeros(len(map_X), np.int32)  # all bootstrap points
         return (map_X, map_desc, obs_cam, obs_pt, obs_uv, cam_of_frame, Rs, ts, [0, b],
                 pt_first_cam)

@@ -5,8 +5,12 @@ homography and essential forms.  All hypotheses are drawn, fit and scored
 at once: `n_hypo` minimal samples as (n_hypo, N) 0/1 weight rows, one
 batched weighted fit, one (n_hypo, N) error matrix, and a refit of the
 winner on its inlier set.  No shape depends on the data, and nothing is
-read back to the host but the error flags of ``eigh`` and ``svd`` (the
-8-point and homography fits).
+read back to the host: the 8-point and homography fits' eigen- and
+singular-value decompositions are K12 and K13 on the card
+(``ops.kernels.linalg``), the affine fit's solves ``solve_ex``.  The rows'
+noise is drawn on the host (``ransac_host_noise``) and their top-k taken
+on the device (``sample_rows``), so a CUDA graph can take the noise as an
+input (``ransac(noise=)``, as ``sfm.twoview`` passes it).
 
 The JAX package draws its rows with ``jax.random.gumbel`` under a
 ``PRNGKey``; a ``torch.Generator`` draws other numbers, so ``ransac`` takes
@@ -32,35 +36,55 @@ class RansacResult(NamedTuple):
     best_score: torch.Tensor  # () int32 inlier count of the winning hypothesis
 
 
-def _sample_weights(seed: int, valid: torch.Tensor, n_hypo: int, k: int) -> torch.Tensor:
-    """(n_hypo, N) f32 0/1 weight rows, each selecting k distinct valid
-    indices: masked Gumbel top-k, as the JAX package's.  The noise comes
-    from a ``torch.Generator`` seeded with `seed` on the CPU and is moved to
-    `valid`'s device, so the card and the CPU draw the same rows (which are
-    not the rows JAX draws for the same seed)."""
-    n = valid.shape[0]
+def ransac_host_noise(seed: int, n_hypo: int, n: int) -> torch.Tensor:
+    """The Gumbel noise -log(-log u) of `n_hypo` rows over `n` entries, u
+    from a ``torch.Generator`` seeded with `seed` on the CPU: a CPU tensor
+    (n_hypo, n) f32, the same on every device (not what JAX draws for the
+    same seed)."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     u = torch.rand((n_hypo, n), generator=gen, dtype=torch.float32)
     u = u.clamp(min=torch.finfo(torch.float32).tiny)
-    g = (-torch.log(-torch.log(u))).to(valid.device)
-    g = torch.where(valid.bool()[None, :], g, -torch.inf)
+    return -torch.log(-torch.log(u))
+
+
+def sample_rows(gumbel: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """(n_hypo, N) f32 0/1 weight rows on `valid`'s device, each selecting
+    the k valid entries of largest noise (`gumbel` (n_hypo, N), moved
+    there): the masked Gumbel top-k, as the JAX package's, with no host
+    sync.  A row picks an entry that is not valid only where fewer than k
+    are."""
+    g = torch.where(valid.bool()[None, :], gumbel.to(valid.device), -torch.inf)
     idx = torch.topk(g, k, dim=1).indices
-    w = torch.zeros((n_hypo, n), dtype=torch.float32, device=valid.device)
+    w = torch.zeros(g.shape, dtype=torch.float32, device=valid.device)
     return w.scatter_(1, idx, 1.0)
+
+
+def _sample_weights(seed: int, valid: torch.Tensor, n_hypo: int, k: int) -> torch.Tensor:
+    """(n_hypo, N) f32 0/1 weight rows, each selecting k distinct valid
+    indices: ``sample_rows`` of ``ransac_host_noise(seed, n_hypo, N)``, so
+    the card and the CPU draw the same rows."""
+    return sample_rows(ransac_host_noise(seed, n_hypo, valid.shape[0]), valid, k)
 
 
 def ransac(seed: int, uv1: torch.Tensor, uv2: torch.Tensor, valid: torch.Tensor,
            fit_fn: Callable, error_fn: Callable, min_samples: int, thresh: float,
-           n_hypo: int = 256, weights: Optional[torch.Tensor] = None) -> RansacResult:
+           n_hypo: int = 256, weights: Optional[torch.Tensor] = None,
+           noise: Optional[torch.Tensor] = None) -> RansacResult:
     """Generic batched RANSAC over (N, 2) x (N, 2) correspondences.
 
     ``fit_fn(uv1, uv2, w (B, N)) -> (B, ...)`` models and
     ``error_fn(models (B, ...), uv1, uv2) -> (B, N)`` squared errors are
     batched over weight rows (the JAX package's take one row under
     ``vmap``).  ``weights``: the (n_hypo, N) minimal-sample rows to use in
-    place of drawing them from `seed` (``_sample_weights``)."""
-    w = _sample_weights(seed, valid, n_hypo, min_samples) if weights is None else \
-        weights.to(device=uv1.device, dtype=uv1.dtype)
+    place of drawing them from `seed` (``_sample_weights``); ``noise``: the
+    host noise to draw them from in place of `seed`'s
+    (``ransac_host_noise``; a CUDA graph takes it as an input)."""
+    if weights is not None:
+        w = weights.to(device=uv1.device, dtype=uv1.dtype)
+    elif noise is not None:
+        w = sample_rows(noise, valid, min_samples)
+    else:
+        w = _sample_weights(seed, valid, n_hypo, min_samples)
     valid = valid.bool()
     models = fit_fn(uv1, uv2, w)
     errs = error_fn(models, uv1, uv2)                       # (n_hypo, N)
@@ -112,7 +136,7 @@ def _affine_error(model: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -> 
 
 
 def _ransac_on(seed, uv1, uv2, valid, fit_fn, error_fn, min_samples, thresh, n_hypo,
-              weights, device) -> RansacResult:
+              weights, device, noise=None) -> RansacResult:
     """``ransac`` on tensors or arrays (points as f32): on `device` where
     given, else on `uv1`'s device if it is a tensor, else on the CUDA card
     (raises without one)."""
@@ -122,7 +146,7 @@ def _ransac_on(seed, uv1, uv2, valid, fit_fn, error_fn, min_samples, thresh, n_h
     if weights is not None:
         weights = as_tensor(weights, dev, torch.float32)
     return ransac(seed, uv1, uv2, valid, fit_fn, error_fn, min_samples=min_samples,
-                  thresh=thresh, n_hypo=n_hypo, weights=weights)
+                  thresh=thresh, n_hypo=n_hypo, weights=weights, noise=noise)
 
 
 def ransac_homography(seed: int, uv1, uv2, valid, thresh_px: float = 3.0, n_hypo: int = 256,
@@ -145,10 +169,11 @@ def ransac_affine(seed: int, uv1, uv2, valid, thresh_px: float = 3.0, n_hypo: in
 
 
 def ransac_essential_normalized(seed: int, xy1, xy2, valid, thresh=1e-4, n_hypo: int = 256,
-                                weights=None, device=None) -> RansacResult:
+                                weights=None, noise=None, device=None) -> RansacResult:
     """RANSAC essential matrix on K-normalized image coordinates (model:
     the rank-2 8-point fit, (3, 3)).  xy* are the rays' (x, y) at z = 1;
     `thresh` is the squared Sampson error in normalized units ((px_err /
-    f)^2), a float or a 0-d tensor."""
+    f)^2), a float or a 0-d tensor.  ``weights`` and ``noise`` as in
+    ``ransac``."""
     return _ransac_on(seed, xy1, xy2, valid, fit_fundamental_8pt, sampson_error_F, 8,
-                      thresh, n_hypo, weights, device)
+                      thresh, n_hypo, weights, device, noise)

@@ -33,7 +33,6 @@ from sift_pyocl_tpu_torch import SiftConfig
 from sift_pyocl_tpu_torch.sfm import pipeline as tpipe
 from sift_pyocl_tpu_torch.sfm.evaluate import ate_rmse, camera_centers
 from sift_pyocl_tpu_torch.sfm.pipeline import IncrementalSfM, register_from_buffers
-from sift_pyocl_tpu_torch.sfm.twoview import initialize_two_view
 from sift_pyocl_tpu_torch.utils.convert import keypoint_buffer_from_jax
 from sift_pyocl_tpu_torch.utils.render3d import render_sequence
 
@@ -234,26 +233,26 @@ def _host_kps(buf):
     return {"x": np.asarray(buf.x)[m], "y": np.asarray(buf.y)[m], "desc": np.asarray(buf.desc)[m]}
 
 
-def _jax_two_view_rows(sfm):
-    """``sfm._run_two_view_init`` fed the RANSAC rows the JAX package draws
-    there (its key stream from key 0: one split a call, rows over the
-    power-of-two padded matches)."""
+def _jax_two_view_rows(monkeypatch):
+    """``initialize_two_view`` as ``IncrementalSfM`` calls it (the matches
+    padded to their power-of-two bucket, as the JAX package pads them) fed
+    the RANSAC rows the JAX package draws over the `valid` mask it is
+    given: its key stream from key 0, one split a call, rows over the whole
+    bucket."""
     jr = importlib.import_module("sift_pyocl_tpu.sfm.ransac")
     keys = [jax.random.key(0)]
+    init = tpipe.initialize_two_view
 
-    def init_with_jax_rows(m, uv0, uvb):
+    def init_with_jax_rows(seed, K, uv1, uv2, valid, **kw):
         keys[0], k = jax.random.split(keys[0])
-        n = len(m)
-        rows = jr._sample_weights(k, jnp.arange(jpipe._pow2_pad(n)) < n, 256, 8)
-        return initialize_two_view(0, sfm.Kt, uv0.astype(np.float32), uvb.astype(np.float32),
-                                   np.ones(n, bool), thresh_px=sfm.reproj_px,
-                                   weights=np.asarray(rows)[:, :n], device="cpu")
+        rows = jr._sample_weights(k, jnp.asarray(valid), 256, 8)
+        return init(seed, K, uv1, uv2, valid, weights=np.asarray(rows), **kw)
 
-    sfm._run_two_view_init = init_with_jax_rows
+    monkeypatch.setattr(tpipe, "initialize_two_view", init_with_jax_rows)
 
 
 @pytest.mark.slow
-def test_sequential_bootstrap_matches_jax_given_its_draws():
+def test_sequential_bootstrap_matches_jax_given_its_draws(monkeypatch):
     """The host loop's sequential bootstrap (``_bootstrap``: each candidate
     matched on the host, the flow gate there) on the 7-frame sequence picks
     the JAX package's frame, with its inlier count and matches, when each
@@ -263,7 +262,7 @@ def test_sequential_bootstrap_matches_jax_given_its_draws():
     want = js._bootstrap([js.sift.keypoints(np.asarray(f)) for f in frames], len(frames))
     sfm = IncrementalSfM(K, frames[0].shape, cfg=CFG, ba_every=6, fused=False, device="cpu")
     sfm._frames, sfm._bufs, sfm._kps_cache = frames, {}, {}
-    _jax_two_view_rows(sfm)
+    _jax_two_view_rows(monkeypatch)
     got = sfm._bootstrap(len(frames))
     assert got[0] == want[0]
     assert int(got[4].n_inliers) == int(want[4].n_inliers)
@@ -274,7 +273,7 @@ def test_sequential_bootstrap_matches_jax_given_its_draws():
     "jax_two_view",
     pytest.param("own", marks=pytest.mark.slow),
 ])
-def test_host_loop_registers_the_test_sequence(draws):
+def test_host_loop_registers_the_test_sequence(draws, monkeypatch):
     """IncrementalSfM(fused=False) on tests/test_sfm_pipeline.py's 7-frame
     sequence: 7 of 7 registered, each frame detected once, phase times
     filled.  With the two-view rows the JAX package draws (its bootstrap
@@ -285,7 +284,7 @@ def test_host_loop_registers_the_test_sequence(draws):
     K, frames, gtR, gtT = _test_sequence()
     sfm = IncrementalSfM(K, frames[0].shape, cfg=CFG, ba_every=6, fused=False, device="cpu")
     if draws == "jax_two_view":
-        _jax_two_view_rows(sfm)
+        _jax_two_view_rows(monkeypatch)
     res = sfm.run(frames)
     assert res is not None, "bootstrap failed"
     reg = res.frames_registered
@@ -298,7 +297,7 @@ def test_host_loop_registers_the_test_sequence(draws):
 
 
 @pytest.mark.slow
-def test_bootstrap_matches_jax_given_its_draws():
+def test_bootstrap_matches_jax_given_its_draws(monkeypatch):
     """The bootstrap on the 7-frame sequence picks the JAX package's frame,
     with its inlier count, when each two-view init is fed the RANSAC rows
     JAX draws there (its key stream: one split a call, rows over the
@@ -312,7 +311,7 @@ def test_bootstrap_matches_jax_given_its_draws():
     want = js._bootstrap_fast(js._LazyKps(js), len(frames))
     sfm = IncrementalSfM(K, frames[0].shape, cfg=CFG, ba_every=6, device="cpu")
     sfm._frames, sfm._bufs, sfm._kps_cache = frames, {}, {}
-    _jax_two_view_rows(sfm)
+    _jax_two_view_rows(monkeypatch)
     got = sfm._bootstrap_fast(len(frames))
     assert got[0] == want[0]
     assert int(got[4].n_inliers) == int(want[4].n_inliers)
