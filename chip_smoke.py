@@ -2042,7 +2042,8 @@ def check_matcher_f32(bufs, rec: Kernels) -> dict:
 # are what jnp.linalg.eigh and jnp.linalg.svd are inside the JAX package's
 # jitted two-view init.  Their operations depend on the data (the rotations
 # a matrix needs), so the bound counts this run's rotations with a float32
-# replica of each kernel's loop (jacobi_ops, svd3_ops): per eigen rotation
+# replica of each kernel's loop (jacobi_replica for K12's round-robin order,
+# counted by jacobi_ops; svd3_ops): per eigen rotation
 # the angle (14 operations), the two rows (6 a column of n - 2), the
 # diagonal (4) and V (6 n); 7 a pair tested; per one-sided rotation of the
 # SVD the angle (14) and two columns of A and V (36), 20 a pair tested
@@ -2061,40 +2062,117 @@ def _rotation(app, aqq, apq):
     return c, (t * c).astype(np.float32), t
 
 
-def jacobi_ops(A: np.ndarray) -> int:
-    """K12's operations on A (B, n, n) float32: its loop (cyclic sweeps, a
-    rotation where |a_pq| > eps sqrt|a_pp| sqrt|a_qq|, a matrix done after a
-    sweep with none) run on every matrix at once in float32."""
-    a = A.astype(np.float32).copy()
-    B, n = a.shape[0], a.shape[-1]
-    active = np.ones(B, bool)
+MAX_SWEEPS = 16     # csrc/linalg.cu's MAX_SWEEPS
+
+
+def _eig_rotation(app, aqq, apq):
+    """(c, s, t) of csrc/linalg.cu's eig_angle (K12), in float32: theta =
+    (aqq - app) * (1 / (2 apq)), then as _rotation."""
+    with np.errstate(all="ignore"):
+        theta = (aqq - app) * (np.float32(1) / (np.float32(2) * apq))
+        t = np.float32(1) / (np.abs(theta) + np.sqrt(theta * theta + np.float32(1)))
+        t = np.where(theta < 0, -t, t).astype(np.float32)
+        c = (np.float32(1) / np.sqrt(t * t + np.float32(1))).astype(np.float32)
+    return c, (t * c).astype(np.float32), t
+
+
+def round_pairs(n: int) -> list:
+    """K12's round-robin schedule for n indices padded to even n' (the
+    bye, index n' - 1 when n is odd): n' - 1 rounds, each the n' / 2
+    disjoint pairs (p < q) in slot order; slot 0 pairs (r, n' - 1), slot k
+    ((r + k) mod (n' - 1), (r - k) mod (n' - 1))."""
+    m = n + (n & 1) - 1
+    return [[tuple(sorted((r, m) if k == 0 else ((r + k) % m, (r - k) % m)))
+             for k in range((m + 1) // 2)] for r in range(m)]
+
+
+def jacobi_replica(A: np.ndarray) -> dict:
+    """K12's loop (csrc/linalg.cu) on A (B, n, n) float32, in float32 with
+    one rounding an operation, every matrix at once: the lower triangle
+    mirrored and padded with the bye's zero row and column; each round
+    tests its pairs (|a_pq| > eps sqrt|a_pp| sqrt|a_qq|) and makes their
+    rotations from the same A, rotates each 2 x 2 block of rows of pair P
+    and columns of pair Q (P's slot above Q's) by Q's columns, then P's
+    rows, into both triangles, the pivots by a_pp - t a_pq, a_qq + t a_pq,
+    and V's column pairs; a matrix stops after a sweep with no rotation, or
+    after MAX_SWEEPS (the kernel tests every pair at once in place of that
+    last sweep: A does not change before a rotation, so the two agree).
+    The angle is csrc/linalg.cu's eig_angle (_eig_rotation).  Returns w
+    (B, n) ascending and V (B, n, n) ranked by (value, index), NaN for a
+    matrix with a NaN or inf entry, the sweeps each matrix ran, whether
+    each ended on a sweep with no rotation, and the rotations made and the
+    real pairs tested (byes left out)."""
+    A = np.asarray(A, np.float32)
+    B, n = A.shape[0], A.shape[-1]
+    npad = n + (n & 1)
+    low = np.tril(A)
+    a = np.zeros((B, npad, npad), np.float32)
+    a[:, :n, :n] = low + np.swapaxes(np.tril(A, -1), 1, 2)
+    v = np.broadcast_to(np.eye(n, dtype=np.float32), (B, n, n)).copy()
+    bad = ~np.isfinite(low).all((1, 2))
+    active = ~bad
+    sweeps = np.zeros(B, np.int64)
     rotations = tests = 0
-    for _ in range(16):
+    rounds = round_pairs(n)
+    for _ in range(MAX_SWEEPS):
+        if not active.any():
+            break
+        sweeps += active
         rotated = np.zeros(B, bool)
-        for p in range(n - 1):
-            for q in range(p + 1, n):
-                apq, app, aqq = a[:, p, q], a[:, p, p], a[:, q, q]
+        for pairs in rounds:
+            slot = np.empty(npad, np.int64)
+            rot = []
+            for k, (p, q) in enumerate(pairs):
+                slot[[p, q]] = k
+                if q == n:   # the bye: a zero row and column, never rotated
+                    continue
+                app, aqq, apq = a[:, p, p], a[:, q, q], a[:, q, p]
                 go = active & (np.abs(apq) > LINALG_EPS * np.sqrt(np.abs(app))
                                * np.sqrt(np.abs(aqq)))
                 tests += int(active.sum())
-                if not go.any():
-                    continue
-                rotations += int(go.sum())
+                rot.append((p, q, go) + _eig_rotation(app[go], aqq[go], apq[go]))
+            rotations += sum(int(r[2].sum()) for r in rot)
+            cols = a.copy()
+            for p, q, go, c, s_, _ in rot:   # A J: each pair's columns
+                xp, xq = a[go][:, :, p], a[go][:, :, q]
+                cols[go, :, p] = c[:, None] * xp - s_[:, None] * xq
+                cols[go, :, q] = s_[:, None] * xp + c[:, None] * xq
+            both = cols.copy()
+            for p, q, go, c, s_, _ in rot:   # J^T (A J): each pair's rows
+                yp, yq = cols[go][:, p, :], cols[go][:, q, :]
+                both[go, p, :] = c[:, None] * yp - s_[:, None] * yq
+                both[go, q, :] = s_[:, None] * yp + c[:, None] * yq
+            new = a.copy()
+            hi = slot[:, None] > slot[None, :]
+            new[:, hi] = both[:, hi]
+            new[:, hi.T] = np.swapaxes(both, 1, 2)[:, hi.T]   # the same values mirrored
+            for p, q, go, c, s_, t in rot:   # the pivots
+                app, aqq, apq = a[go, p, p], a[go, q, q], a[go, q, p]
+                new[go, p, p] = app - t * apq
+                new[go, q, q] = aqq + t * apq
+                new[go, p, q] = new[go, q, p] = 0
+                vp, vq = v[go][:, :, p], v[go][:, :, q]
+                v[go, :, p] = c[:, None] * vp - s_[:, None] * vq
+                v[go, :, q] = s_[:, None] * vp + c[:, None] * vq
                 rotated |= go
-                c, s_, t = _rotation(app[go], aqq[go], apq[go])
-                sub = a[go]
-                cp, cq = sub[:, :, p].copy(), sub[:, :, q].copy()
-                sub[:, :, p] = c[:, None] * cp - s_[:, None] * cq
-                sub[:, :, q] = s_[:, None] * cp + c[:, None] * cq
-                sub[:, p, :], sub[:, q, :] = sub[:, :, p], sub[:, :, q]
-                sub[:, p, p] = app[go] - t * apq[go]
-                sub[:, q, q] = aqq[go] + t * apq[go]
-                sub[:, p, q] = sub[:, q, p] = 0
-                a[go] = sub
+            a = new
         active &= rotated
-        if not active.any():
-            break
-    return rotations * (14 + 6 * (n - 2) + 4 + 6 * n) + 7 * tests
+    d = np.diagonal(a, axis1=1, axis2=2)[:, :n]
+    order = np.argsort(np.where(np.isnan(d), np.inf, d), axis=1, kind="stable")
+    w = np.take_along_axis(d, order, 1)
+    V = np.take_along_axis(v, order[:, None, :], 2)
+    w[bad], V[bad] = np.nan, np.nan
+    return {"w": w, "V": V, "sweeps": sweeps, "converged": ~active & ~bad,
+            "rotations": rotations, "tests": tests}
+
+
+def jacobi_ops(A: np.ndarray) -> int:
+    """K12's operations on A (B, n, n) float32, from its loop's replica
+    (jacobi_replica): per rotation the angle (14), the two rows (6 a
+    column of n - 2), the diagonal (4) and V (6 n); 7 a pair tested."""
+    n = A.shape[-1]
+    r = jacobi_replica(A)
+    return r["rotations"] * (14 + 6 * (n - 2) + 4 + 6 * n) + 7 * r["tests"]
 
 
 def svd3_ops(A: np.ndarray) -> int:
@@ -2157,6 +2235,48 @@ def linalg_scene(dev):
     return tg._eight_point_normal(xy[0], xy[1], W)[0].to(dev), gt_in
 
 
+def linalg_dlt_scene(dev):
+    """RANSAC-H's K12 inputs on tests/test_ransac.py's homography scene (120
+    points, 42 outliers): the (257, 9, 9) DLT A^T A of the true inliers and
+    of 256 four-point rows, as tests/test_torch_gpu_twoview_graph.py builds
+    them."""
+    import importlib
+
+    from sift_pyocl_tpu_torch.sfm import geometry as tg
+
+    tr = importlib.import_module("sift_pyocl_tpu_torch.sfm.ransac")
+    rng = np.random.default_rng(0)
+    H = np.array([[1.05, 0.02, 5.0], [-0.01, 0.98, -3.0], [5e-5, -1e-4, 1.0]])
+    p1 = rng.uniform(0, 300, (120, 2))
+    ph = np.concatenate([p1, np.ones((120, 1))], 1) @ H.T
+    p2 = ph[:, :2] / ph[:, 2:] + rng.normal(0, 0.3, (120, 2))
+    out = rng.choice(120, 42, replace=False)
+    p2[out] = rng.uniform(0, 300, (42, 2))
+    gt_in = np.ones(120, bool)
+    gt_in[out] = False
+    rows = tr._sample_weights(4, torch.ones(120, dtype=torch.bool), 256, 4)
+    W = torch.cat([torch.from_numpy(gt_in)[None].float(), rows])
+    return tg._dlt_normal(*(torch.from_numpy(p.astype(np.float32)) for p in (p1, p2)),
+                          W)[0].to(dev)
+
+
+def graded_matrices(count: int, seed: int = 0) -> np.ndarray:
+    """(count, 9, 9) float32 graded matrices D B D: B symmetric positive
+    definite in a random basis (eigenvalues in [0.5, 2]), D = diag(10^-3 ..
+    10^1.5), so A's eigenvalues span ~1e-6 .. 1e3.  Jacobi with the relative
+    threshold keeps their least eigenvector to ~1e-7 of float64's, where
+    a QR-based eigh can lose it entirely."""
+    rng = np.random.default_rng(seed)
+    D = np.logspace(-3, 1.5, 9)
+    out = []
+    for _ in range(count):
+        Q = np.linalg.qr(rng.standard_normal((9, 9)))[0]
+        B = (Q * rng.uniform(0.5, 2.0, 9)) @ Q.T
+        out.append(np.tril(D[:, None] * B * D[None, :]))
+    A = np.stack(out).astype(np.float32)
+    return A + np.tril(A, -1).transpose(0, 2, 1)
+
+
 def check_linalg_kernels(dev, rec: Kernels) -> None:
     """K12 and K13 against their plain versions (torch.linalg.eigh and
     torch.linalg.svd on the card) at the two-view init's shapes: K12 on the
@@ -2166,7 +2286,10 @@ def check_linalg_kernels(dev, rec: Kernels) -> None:
     eigenvalue's vector, where float64 pins it down, no farther from
     float64's than eigh's plus 1e-4; K13: S within 2e-6 of S[0], U and Vh
     orthonormal, A rebuilt within 4e-6.  One launch a call, the same bits on
-    two calls.  The plain version is the library call."""
+    two calls.  The plain version is the library call.  Also prints whether
+    K12 gave its float32 replica's bits (jacobi_replica) and the replica's
+    sweeps, K12's kernel and device ms at the refit's (1, 9, 9), and the
+    launch floor (launch_floor), recorded in both rows."""
     from sift_pyocl_tpu_torch.ops.kernels import linalg
 
     A, _ = linalg_scene(dev)
@@ -2193,14 +2316,30 @@ def check_linalg_kernels(dev, rec: Kernels) -> None:
           f"float64 (eigh {e_p:.3g}) on the {int(apart.sum())} matrices float64 pins down",
           flush=True)
     n = A.shape[0]
+    replica = jacobi_replica(A.cpu().numpy())
+    same = (np.array_equal(w.cpu().numpy(), replica["w"])
+            and np.array_equal(V.cpu().numpy(), replica["V"]))
+    print(f"sym_eig_small (K12): the bits of its float32 replica (jacobi_replica): {same}; "
+          f"the replica's sweeps a matrix {np.bincount(replica['sweeps']).tolist()} "
+          f"(index = sweeps, MAX_SWEEPS {MAX_SWEEPS})", flush=True)
+    assert same and replica["converged"].all(), "K12 left its replica's bits or did not converge"
     ops = jacobi_ops(A.cpu().numpy())
+    floor = launch_floor(dev, n)
     row = rec.record("sym_eig_small", "sift_pyocl_tpu_torch/csrc/linalg.cu",
                      f"{ROOT}/sfm/geometry.py:269", float((w - wp).abs().max()),
                      lambda: linalg.sym_eig_small(A), lambda: linalg.sym_eig_small(A, plain=True),
                      50, n_bytes=4 * n * (81 + 9 + 81), ops=ops,
                      library=lambda: torch.linalg.eigh(A))
     assert row["cuda_launches"] == 1, f"K12 made {row['cuda_launches']} CUDA launches a call"
-    row["jacobi_ops"] = ops
+    one = A[:1]   # the refit's batch: the true inliers' A^T A
+    row.update(jacobi_ops=ops, replica_bits=same, launch_floor_ms=floor,
+               batch1_ms=cuda_ms(lambda: linalg.sym_eig_small(one), 50),
+               batch1_device_ms=profile_calls(lambda: linalg.sym_eig_small(one))[1],
+               batch1_bound_ms=bound(4 * (81 + 9 + 81), jacobi_ops(one.cpu().numpy()),
+                                     F32_OPS)[0])
+    print(f"sym_eig_small (K12) at (1, 9, 9): kernel {row['batch1_ms']:.4f} ms (device "
+          f"{row['batch1_device_ms']:.4f}), bound {row['batch1_bound_ms']:.6f} ms; the launch "
+          f"floor (a {n}-element fill_) {floor:.4f} device ms", flush=True)
 
     F = Vp[:, :, 0].reshape(n, 3, 3).contiguous()
     U, S, Vh = linalg.svd3(F)
@@ -2222,7 +2361,18 @@ def check_linalg_kernels(dev, rec: Kernels) -> None:
                      n_bytes=4 * n * (9 + 9 + 3 + 9), ops=ops,
                      library=lambda: torch.linalg.svd(F))
     assert row["cuda_launches"] == 1, f"K13 made {row['cuda_launches']} CUDA launches a call"
-    row["jacobi_ops"] = ops
+    row.update(jacobi_ops=ops, launch_floor_ms=floor)
+    print(f"svd3 (K13): device {row['device_ms']:.4f} ms, {row['device_ms'] / floor:.2f}x the "
+          f"launch floor ({floor:.4f})", flush=True)
+
+
+def launch_floor(dev, n: int) -> float:
+    """Device ms of the shortest launch the card runs: torch.Tensor.fill_
+    of n floats (torch.profiler, the fullest of five sessions)."""
+    x = torch.empty(n, device=dev)
+    launches, ms = profile_calls(lambda: x.fill_(1.0))
+    assert launches == 1, f"fill_ made {launches} launches"
+    return ms
 
 
 # The API path (phase A): frames are crops of the VO phases' scene, the
@@ -2804,9 +2954,10 @@ def twoview_report(tag: str, sfm, kept_loop) -> dict:
     calls) beside eager's and 0 host syncs; then
     IncrementalSfM._run_two_view_init (padding, the init, its copy home)
     replayed and eager: host ms, CUDA launches and device ms
-    (torch.profiler), host syncs; and the replay's K12 and K13 launches by
-    kernel name (each wrapper's launches a replayed init).  Host clocks are
-    read before any profiler session."""
+    (torch.profiler), host syncs; the replay's K12 and K13 launches by
+    kernel name (each wrapper's launches a replayed init); and a bare
+    replay's device ms and launches by kernel name, the top 8 by device ms
+    (cuda_events).  Host clocks are read before any profiler session."""
     from sift_pyocl_tpu_torch.sfm import pipeline, twoview
 
     (m, uv0, uvb), _ = kept_loop["two_view"]
@@ -2844,10 +2995,23 @@ def twoview_report(tag: str, sfm, kept_loop) -> dict:
     launches = {name: per_call[k] for name in TWOVIEW_KERNELS for k in WRAPPER_KERNELS[name]}
     assert all(v > 0 for v in launches.values()), f"{tag}: a replayed init launched {launches}"
     rows["kernel_launches"] = launches
+    calls = 5
+    events = cuda_events(replay, calls)
+    by_name = {}   # kernel name -> (device ms, launches) a call
+    for e in events:
+        ms, count = by_name.get(e.name, (0.0, 0.0))
+        by_name[e.name] = (ms + e.device_time_total / 1e3 / calls, count + 1 / calls)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    rows["split"] = {"device_ms": sum(ms for ms, _ in by_name.values()),
+                     "launches": len(events) / calls,
+                     "top8": [[name[:70], count, ms] for name, (ms, count) in top]}
     print(f"[config4] {tag}: one two-view init ({n} matches, bucket {P}), with its padding and "
           f"copy home: replayed {rows['replay']} against eager {rows['eager']}; the bare call "
           f"{rows['bare']} (bit-equal); K12 / K13 launches a replayed init {launches}",
           flush=True)
+    print(f"[config4] {tag}: a bare replayed init, {rows['split']['device_ms']:.4f} device ms "
+          f"in {rows['split']['launches']:g} launches; by kernel name, top 8 [name, "
+          f"launches, device ms]: {json.dumps(rows['split']['top8'])}", flush=True)
     return rows
 
 

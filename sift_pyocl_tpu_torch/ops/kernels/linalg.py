@@ -9,6 +9,13 @@ error flags.  The plain versions are those two calls: what the CPU runs,
 and the same function.  Eigenvector and singular-vector signs (and, for
 repeated values, the basis of their subspace) differ between the kernels
 and the plain versions.
+
+K12 is bound by latency, not by bytes or operations: each Jacobi rotation
+waits on a chain of IEEE divides and square roots.  It runs one warp a
+matrix in the parallel (round-robin) order, 9 rounds of disjoint pairs a
+sweep of a 9 x 9 matrix (padded to 10 with a zero bye), each round's
+rotations made at once and its updates spread over the warp's lanes;
+``chip_smoke.py::jacobi_replica`` is its loop in float32 NumPy.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ def sym_eig_small(A: torch.Tensor, plain: bool = False) -> Tuple[torch.Tensor, t
     """(..., n, n) symmetric, n <= 9 (the lower triangle is read) ->
     (eigenvalues (..., n) ascending, eigenvectors (..., n, n), column i
     that of value i), as ``torch.linalg.eigh``.  K12 on a CUDA tensor (f32;
-    one launch a call), the plain version on a CPU tensor or with
-    `plain`."""
+    one launch a call, one warp a matrix: round-robin Jacobi, the same bits
+    for a matrix alone as in any batch, all NaN for a matrix with a NaN or
+    inf entry), the plain version on a CPU tensor or with `plain`."""
     _check_square(A, "sym_eig_small", range(1, EIG_MAX_N + 1))
     if plain or not on_cuda(A):
         return sym_eig_small_ref(A)

@@ -7,6 +7,11 @@ batched one-sided Jacobi 3 x 3 SVD), held against their plain versions
 its eager function bit for bit; and whole IncrementalSfM runs replayed
 against eager.
 
+K12's layout (one warp a matrix, four a block: batches that leave a
+block part-full, a matrix alone against the same matrix in a batch) and
+its round-robin loop (its float32 replica's bits, its sweeps) are held
+too.
+
 Eigenvector and singular-vector signs differ between the kernels and
 cuSOLVER, and within a repeated eigenvalue (an essential matrix's sigma_1
 = sigma_2) so does the basis: vectors are compared up to sign, repeated
@@ -154,6 +159,69 @@ def test_sym_eig_small_eight_point_and_dlt_rows(cuda):
     W = torch.cat([torch.from_numpy(gt_h)[None].float(), rows])
     A = tg._dlt_normal(torch.from_numpy(p1), torch.from_numpy(p2), W)[0].to(cuda)
     print("DLT K12 / eigh from f64:", _check_eig(A, "DLT"))
+
+
+def _eight_point_set(count, seed=3):
+    """The essential scene's (count + 1, 9, 9) eight-point A^T A: the true
+    inliers' refit, then `count` drawn eight-point rows."""
+    _, _, _, xy1, xy2, gt_in = essential_scene()
+    rows = tr._sample_weights(seed, torch.ones(len(gt_in), dtype=torch.bool), count, 8)
+    W = torch.cat([torch.from_numpy(gt_in)[None].float(), rows])
+    return tg._eight_point_normal(torch.from_numpy(xy1), torch.from_numpy(xy2), W)[0]
+
+
+@pytest.mark.parametrize("n", [9, 8])
+def test_sym_eig_small_batches_alone_and_part_full_blocks(cuda, n):
+    """K12's layout (one warp a matrix, four a block) at batches of 1, 2,
+    257 and 4097 (blocks part-full at 1, 2 and 257) on eight-point A^T A
+    (n = 8: their leading 8 x 8): _check_eig's bounds at each batch, one
+    launch a call, and every matrix of the 257 the same bits alone as in
+    the batch."""
+    A = _eight_point_set(4096)[..., :n, :n].contiguous().to(cuda)
+    for B in (1, 2, 257, 4097):
+        before = linalg.sym_eig_small.launches
+        print(f"n = {n}, batch {B}: K12 / eigh from f64:", _check_eig(A[:B], f"{n}, {B}"))
+        assert linalg.sym_eig_small.launches == before + 1
+    w, V = linalg.sym_eig_small(A[:257])
+    for i in range(257):
+        wi, Vi = linalg.sym_eig_small(A[i:i + 1])
+        assert torch.equal(wi[0], w[i]) and torch.equal(Vi[0], V[i]), i
+
+
+def test_sym_eig_small_is_its_replica_and_converges(cuda):
+    """K12 gives the bits of its loop's float32 replica
+    (chip_smoke.py::jacobi_replica, whose rotations are K12's bound) on
+    chip_smoke's two-view rows, RANSAC-H's DLT rows and their leading 8 x 8
+    blocks; the replica ends every one of those matrices on a sweep with no
+    rotation, below MAX_SWEEPS, so the kernel does too."""
+    import chip_smoke as cs
+
+    sets = {"eight-point": cs.linalg_scene("cpu")[0], "dlt": cs.linalg_dlt_scene("cpu")}
+    for name, A in list(sets.items()):
+        sets[f"{name} 8 x 8"] = A[..., :8, :8].contiguous()
+    for name, A in sets.items():
+        r = cs.jacobi_replica(A.numpy())
+        w, V = (x.cpu().numpy() for x in linalg.sym_eig_small(A.to(cuda)))
+        print(f"{name}: sweeps {np.bincount(r['sweeps']).tolist()}")
+        assert r["converged"].all() and int(r["sweeps"].max()) < cs.MAX_SWEEPS, name
+        assert np.array_equal(w, r["w"]) and np.array_equal(V, r["V"]), name
+
+
+def test_sym_eig_small_graded_matrix_least_vector(cuda):
+    """Graded D B D matrices (chip_smoke.graded_matrices: eigenvalues ~1e-6
+    .. 1e3, B in a random basis): K12's least eigenvector no farther from
+    float64's than eigh's is plus EIG_MARGIN, and within 1e-5 (the relative
+    threshold's accuracy)."""
+    import chip_smoke as cs
+
+    A = torch.from_numpy(cs.graded_matrices(8)).to(cuda)
+    _, V = linalg.sym_eig_small(A)
+    _, Vp = linalg.sym_eig_small(A, plain=True)
+    _, V64 = torch.linalg.eigh(A.double())
+    e_k = float(_vec_err(V.double(), V64)[:, 0].max())
+    e_p = float(_vec_err(Vp.double(), V64)[:, 0].max())
+    print(f"graded: least eigenvector from float64: K12 {e_k:.3g}, eigh {e_p:.3g}")
+    assert e_k < 1e-5 and e_k <= e_p + EIG_MARGIN
 
 
 def _projector(V, w, value, tol):
