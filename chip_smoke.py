@@ -16,8 +16,10 @@
    K10a's output; one launch a call) bit for bit, K5, K6, K11a and K11b as
    in their tests; K12 and K13 (csrc/linalg.cu, no Pallas counterpart: the
    two-view init's eigh and svd) at the init's shapes (257 9 x 9 and 3 x 3
-   matrices of a 256-row bucket) against torch.linalg.eigh and svd, their
-   bounds from the rotations this run's data needs (check_linalg_kernels).
+   matrices of a 256-row bucket) against torch.linalg.eigh and svd, each
+   bit for bit against its loop's float32 replica (jacobi_replica,
+   svd3_replica; K13 also on svd3_sets), their bounds from the rotations
+   this run's data needs (check_linalg_kernels).
    Times each with CUDA
    events, beside the plain version, a PyTorch library call where one
    computes the same function, and the least time the card could take, and
@@ -2043,7 +2045,7 @@ def check_matcher_f32(bufs, rec: Kernels) -> dict:
 # jitted two-view init.  Their operations depend on the data (the rotations
 # a matrix needs), so the bound counts this run's rotations with a float32
 # replica of each kernel's loop (jacobi_replica for K12's round-robin order,
-# counted by jacobi_ops; svd3_ops): per eigen rotation
+# counted by jacobi_ops; svd3_replica for K13's, by svd3_ops): per eigen rotation
 # the angle (14 operations), the two rows (6 a column of n - 2), the
 # diagonal (4) and V (6 n); 7 a pair tested; per one-sided rotation of the
 # SVD the angle (14) and two columns of A and V (36), 20 a pair tested
@@ -2052,8 +2054,9 @@ LINALG_EPS = np.float32(1.1920929e-7)
 
 
 def _rotation(app, aqq, apq):
-    """(c, s, t) of csrc/linalg.cu's jacobi_rotation, in float32, where
-    the rotation is made (apq != 0 there)."""
+    """(c, s, t) of csrc/linalg.cu's svd_angle (K13) for (alpha, beta,
+    gamma) = (app, aqq, apq), in float32, where the rotation is made (apq
+    != 0 there)."""
     with np.errstate(all="ignore"):
         theta = (aqq - app) / (np.float32(2) * apq)
         t = np.float32(1) / (np.abs(theta) + np.sqrt(theta * theta + np.float32(1)))
@@ -2175,33 +2178,164 @@ def jacobi_ops(A: np.ndarray) -> int:
     return r["rotations"] * (14 + 6 * (n - 2) + 4 + 6 * n) + 7 * r["tests"]
 
 
-def svd3_ops(A: np.ndarray) -> int:
-    """K13's operations on A (B, 3, 3) float32: its one-sided sweeps over
-    the column pairs (0, 1), (0, 2), (1, 2) run on every matrix at once in
-    float32, and the norms and U at the end."""
-    a = A.astype(np.float32).copy()
-    B = a.shape[0]
-    active = np.ones(B, bool)
+SVD_MAX_SWEEPS = 12     # csrc/linalg.cu's SVD_MAX_SWEEPS
+SVD_PAIRS = ((0, 1), (0, 2), (1, 2))
+
+
+def _dot3(x, y):
+    """csrc/linalg.cu's dot3 over the last axis in float32: x0 y0 + x1 y1,
+    then + x2 y2, one rounding an operation."""
+    return x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1] + x[..., 2] * y[..., 2]
+
+
+def _svd_test(alpha, beta, gamma):
+    """K13's test of a column pair: |gamma| > eps sqrt(alpha) sqrt(beta)."""
+    return np.abs(gamma) > LINALG_EPS * np.sqrt(alpha) * np.sqrt(beta)
+
+
+def svd3_replica(A: np.ndarray) -> dict:
+    """K13's loop (csrc/linalg.cu) on A (B, 3, 3) float32, in float32 with
+    one rounding an operation, every matrix at once.  A sweep tests the
+    column pairs (0, 1), (0, 2), (1, 2) at once and ends the loop if none
+    passes; else it rotates them in turn, pair (0, 1) by that test and the
+    others each tested on the columns the pair before left, with
+    svd_angle's angle (_rotation) and V beside; at most
+    SVD_MAX_SWEEPS sweeps.  Then S is the columns' norms, sorted by the
+    kernel's exchanges (0, 1), (1, 2), (0, 1) on (sigma descending, index),
+    U's first column the first normalised (e0 for a zero matrix), its
+    second the second made orthogonal to it (else the unit vector least
+    along it so made) and normalised, its third their cross product with
+    the sign of its dot product with the third column; every output plus
+    0 (a zero's sign is +) or NaN for a matrix with a NaN or inf entry.
+    The kernel's square roots, reciprocals and quotients are correctly
+    rounded, so they are NumPy's.  Returns U, S, Vh, the sweeps each
+    matrix ran (the last, which ends on the test, counted), whether each
+    ended on a test with no pair passing, the rotations made and the pairs
+    tested."""
+    A = np.asarray(A, np.float32)
+    B = A.shape[0]
+    col = np.ascontiguousarray(np.swapaxes(A, 1, 2))   # col[:, j]: column j
+    vc = np.broadcast_to(np.eye(3, dtype=np.float32), (B, 3, 3)).copy()
+    bad = ~np.isfinite(A).all((1, 2))
+    active = ~bad
+    sweeps = np.zeros(B, np.int64)
+    converged = np.zeros(B, bool)
     rotations = tests = 0
-    for _ in range(12):
-        rotated = np.zeros(B, bool)
-        for p, q in ((0, 1), (0, 2), (1, 2)):
-            x, y = a[:, :, p], a[:, :, q]
-            al, be, ga = ((u * v).sum(1, dtype=np.float32) for u, v in ((x, x), (y, y), (x, y)))
-            go = active & (np.abs(ga) > LINALG_EPS * np.sqrt(al) * np.sqrt(be))
-            tests += int(active.sum())
-            if not go.any():
-                continue
-            rotations += int(go.sum())
-            rotated |= go
-            c, s_, _ = _rotation(al[go], be[go], ga[go])
-            xp, yq = x[go].copy(), y[go].copy()
-            a[go, :, p] = c[:, None] * xp - s_[:, None] * yq
-            a[go, :, q] = s_[:, None] * xp + c[:, None] * yq
-        active &= rotated
-        if not active.any():
-            break
-    return rotations * 50 + 20 * tests + 60 * B
+
+    def rotate(p, q, go, alpha, beta, gamma):
+        c, s_, _ = _rotation(alpha[go], beta[go], gamma[go])
+        for m in (col, vc):
+            x, y = m[go, p], m[go, q]
+            m[go, p] = c[:, None] * x - s_[:, None] * y
+            m[go, q] = s_[:, None] * x + c[:, None] * y
+        return int(go.sum())
+
+    with np.errstate(all="ignore"):
+        for _ in range(SVD_MAX_SWEEPS):
+            if not active.any():
+                break
+            sweeps += active
+            tests += 3 * int(active.sum())
+            n = [_dot3(col[:, j], col[:, j]) for j in range(3)]
+            g01 = _dot3(col[:, 0], col[:, 1])
+            go01 = _svd_test(n[0], n[1], g01)
+            some = (go01 | _svd_test(n[0], n[2], _dot3(col[:, 0], col[:, 2]))
+                    | _svd_test(n[1], n[2], _dot3(col[:, 1], col[:, 2])))
+            converged |= active & ~some
+            active &= some
+            tests += 2 * int(active.sum())
+            rotations += rotate(0, 1, active & go01, n[0], n[1], g01)
+            for p, q in SVD_PAIRS[1:]:
+                al, be = _dot3(col[:, p], col[:, p]), _dot3(col[:, q], col[:, q])
+                ga = _dot3(col[:, p], col[:, q])
+                rotations += rotate(p, q, active & _svd_test(al, be, ga), al, be, ga)
+        sig = np.sqrt(_dot3(col, col))
+        for i, j in ((0, 1), (1, 2), (0, 1)):
+            swap = sig[:, j] > sig[:, i]
+            for m in (col, vc):
+                m[swap, i], m[swap, j] = m[swap, j].copy(), m[swap, i].copy()
+            sig[swap, i], sig[swap, j] = sig[swap, j].copy(), sig[swap, i].copy()
+        pos = sig[:, 0] > 0
+        u0 = np.where(pos[:, None], col[:, 0] / sig[:, :1], np.eye(3, dtype=np.float32)[0])
+        w = col[:, 1] - _dot3(col[:, 1], u0)[:, None] * u0
+        nw = np.sqrt(_dot3(w, w))
+        flat = ~(nw > 0)
+        if flat.any():   # the unit vector least along u1, made orthogonal to it
+            m = np.abs(u0[flat])
+            e = np.where((m[:, 0] <= m[:, 1]) & (m[:, 0] <= m[:, 2]), 0,
+                         np.where(m[:, 1] <= m[:, 2], 1, 2))
+            ue = np.take_along_axis(u0[flat], e[:, None], 1)
+            w[flat] = np.eye(3, dtype=np.float32)[e] - ue * u0[flat]
+            nw[flat] = np.sqrt(_dot3(w[flat], w[flat]))
+        u1 = w / nw[:, None]
+        u2 = np.stack([u0[:, 1] * u1[:, 2] - u0[:, 2] * u1[:, 1],
+                       u0[:, 2] * u1[:, 0] - u0[:, 0] * u1[:, 2],
+                       u0[:, 0] * u1[:, 1] - u0[:, 1] * u1[:, 0]], 1)
+        u2 = np.where((_dot3(u2, col[:, 2]) < 0)[:, None], -u2, u2)
+    poison = np.where(bad, np.float32(np.nan), np.float32(0))
+    U = np.stack([u0, u1, u2], 2) + poison[:, None, None]
+    return {"U": U, "S": sig + poison[:, None], "Vh": vc + poison[:, None, None],
+            "sweeps": sweeps, "converged": converged, "rotations": rotations, "tests": tests}
+
+
+def svd3_ops(A: np.ndarray) -> int:
+    """K13's operations on A (B, 3, 3) float32, from its loop's replica
+    (svd3_replica): per rotation the angle (14) and two columns of A and
+    V (36), 20 a pair tested (three dot products and the test), and 60 a
+    matrix for the norms and U at the end."""
+    r = svd3_replica(A)
+    return r["rotations"] * 50 + 20 * r["tests"] + 60 * A.shape[0]
+
+
+def bits_equal(x: np.ndarray, y: np.ndarray) -> bool:
+    """x and y hold the same float32 bits, NaN (any payload) where either
+    is NaN."""
+    x, y = np.asarray(x, np.float32), np.asarray(y, np.float32)
+    nan = np.isnan(x)
+    return (x.shape == y.shape and np.array_equal(nan, np.isnan(y))
+            and np.array_equal(x[~nan].view(np.uint32), y[~nan].view(np.uint32)))
+
+
+def svd3_sets(seed: int = 0) -> dict:
+    """K13's inputs, (B, 3, 3) float32 each: the two-view init's 257 fits
+    (the least eigenvector of linalg_scene's A^T A, torch.linalg.eigh on
+    the CPU, as 3 x 3), their essential projections (U diag(1, 1, 0) Vh in
+    float64), from a numpy seed 4096 standard normal matrices, 4096 of
+    rank 2 (sigma_3 = 0 in float64, sigma_2 / sigma_1 in [0.1, 1]) and
+    1024 E with sigma = (1, 1, 0) in random bases; and degenerate ones:
+    zero, rank 1, a zero column or row, exact essential and permutation
+    matrices, repeated sigmas, -0 entries, and random matrices scaled to
+    1e-17, 1e-20 and 1e15 and with columns scaled (1, 1e-10, 1e-20), whose
+    norms leave the fast paths' ranges."""
+    rng = np.random.default_rng(seed)
+    A, _ = linalg_scene("cpu")
+    fits = torch.linalg.eigh(A)[1][:, :, 0].reshape(-1, 3, 3).numpy()
+    U, _, Vh = np.linalg.svd(fits.astype(np.float64))
+    essential = (U * [1.0, 1.0, 0.0]) @ Vh
+    M = rng.standard_normal((4096, 3, 3))
+    U, S, Vh = np.linalg.svd(rng.standard_normal((4096, 3, 3)))
+    S[:, 1] = S[:, 0] * rng.uniform(0.1, 1.0, 4096)
+    S[:, 2] = 0
+    rank2 = (U * S[:, None, :]) @ Vh
+    Q = np.linalg.qr(rng.standard_normal((2, 1024, 3, 3)))[0]
+    e110 = (Q[0] * [1.0, 1.0, 0.0]) @ np.swapaxes(Q[1], 1, 2)
+    R = rng.standard_normal((64, 3, 3))
+    x, y = rng.standard_normal((2, 16, 3))
+    rank1 = x[:, :, None] * y[:, None, :]
+    hat = np.array([[0, -1, 0], [1, 0, 0], [0, 0, 0]], np.float64)
+    special = [np.zeros((3, 3)), np.eye(3), np.diag([1.0, 1, 0]), np.diag([3.0, 3, 3]),
+               np.diag([1.0, 2, 3]), hat, hat.T, np.eye(3)[[2, 0, 1]], np.eye(3)[[1, 0, 2]],
+               -np.eye(3), np.where(hat == 0, -0.0, -hat), np.ones((3, 3))]
+    cols = R[:8].copy()
+    cols[:, :, 1] = 0
+    rows = R[8:16].copy()
+    rows[:, 2] = 0
+    degenerate = np.concatenate([np.stack(special), rank1, cols, rows, R[16:24] * 1e-17,
+                                 R[24:32] * 1e-20, R[32:40] * 1e15,
+                                 R[40:48] * [1.0, 1e-10, 1e-20]]).astype(np.float32)
+    return {name: np.ascontiguousarray(a, np.float32) for name, a in (
+        ("fits", fits), ("essential", essential), ("random", M), ("rank2", rank2),
+        ("sigma110", e110), ("degenerate", degenerate))}
 
 
 def linalg_scene(dev):
@@ -2286,10 +2420,13 @@ def check_linalg_kernels(dev, rec: Kernels) -> None:
     eigenvalue's vector, where float64 pins it down, no farther from
     float64's than eigh's plus 1e-4; K13: S within 2e-6 of S[0], U and Vh
     orthonormal, A rebuilt within 4e-6.  One launch a call, the same bits on
-    two calls.  The plain version is the library call.  Also prints whether
-    K12 gave its float32 replica's bits (jacobi_replica) and the replica's
-    sweeps, K12's kernel and device ms at the refit's (1, 9, 9), and the
-    launch floor (launch_floor), recorded in both rows."""
+    two calls.  The plain version is the library call.  Also asserts and
+    prints that K12 gives its float32 replica's bits (jacobi_replica) and
+    K13 its replica's (svd3_replica) on the fits and on every set of
+    svd3_sets, with the replicas' sweeps; K12's and K13's kernel and device
+    ms at batch 1 (the refit's (1, 9, 9), the (1, 3, 3) of the refit and of
+    decompose_essential); and the launch floor (launch_floor), recorded in
+    both rows with K13's device ms over it."""
     from sift_pyocl_tpu_torch.ops.kernels import linalg
 
     A, _ = linalg_scene(dev)
@@ -2354,6 +2491,18 @@ def check_linalg_kernels(dev, rec: Kernels) -> None:
     assert err_s < 2e-6 and ortho < 2e-6 and rebuilt < 4e-6, (err_s, ortho, rebuilt)
     print(f"svd3 (K13, {tuple(F.shape)}): S within {err_s:.3g} of S[0] of svd's, U and Vh "
           f"orthonormal within {ortho:.3g}, A rebuilt within {rebuilt:.3g}", flush=True)
+    sets = {"device fits": F.cpu().numpy(), **svd3_sets()}
+    same = True
+    for name, M in sets.items():
+        replica = svd3_replica(M)
+        got = [x.cpu().numpy() for x in linalg.svd3(torch.from_numpy(M).to(dev))]
+        bits = all(bits_equal(g, replica[k]) for g, k in zip(got, ("U", "S", "Vh")))
+        print(f"svd3 (K13) on {name} {M.shape}: the bits of its float32 replica "
+              f"(svd3_replica): {bits}; the replica's sweeps a matrix "
+              f"{np.bincount(replica['sweeps']).tolist()} (index = sweeps, SVD_MAX_SWEEPS "
+              f"{SVD_MAX_SWEEPS}), {int((~replica['converged']).sum())} at the cap", flush=True)
+        same &= bits
+    assert same, "K13 left its replica's bits"
     ops = svd3_ops(F.cpu().numpy())
     row = rec.record("svd3", "sift_pyocl_tpu_torch/csrc/linalg.cu",
                      f"{ROOT}/sfm/geometry.py:272", float((S - Sp).abs().max()),
@@ -2361,9 +2510,18 @@ def check_linalg_kernels(dev, rec: Kernels) -> None:
                      n_bytes=4 * n * (9 + 9 + 3 + 9), ops=ops,
                      library=lambda: torch.linalg.svd(F))
     assert row["cuda_launches"] == 1, f"K13 made {row['cuda_launches']} CUDA launches a call"
-    row.update(jacobi_ops=ops, launch_floor_ms=floor)
-    print(f"svd3 (K13): device {row['device_ms']:.4f} ms, {row['device_ms'] / floor:.2f}x the "
-          f"launch floor ({floor:.4f})", flush=True)
+    one = F[:1]   # the refit's and decompose_essential's batch
+    row.update(jacobi_ops=ops, replica_bits=same, launch_floor_ms=floor,
+               floor_ratio=row["device_ms"] / floor,
+               batch1_ms=cuda_ms(lambda: linalg.svd3(one), 50),
+               batch1_device_ms=profile_calls(lambda: linalg.svd3(one))[1],
+               batch1_bound_ms=bound(4 * (9 + 9 + 3 + 9), svd3_ops(one.cpu().numpy()),
+                                     F32_OPS)[0])
+    row["batch1_floor_ratio"] = row["batch1_device_ms"] / floor
+    print(f"svd3 (K13): device {row['device_ms']:.4f} ms, {row['floor_ratio']:.2f}x the "
+          f"launch floor ({floor:.4f}); at (1, 3, 3): kernel {row['batch1_ms']:.4f} ms (device "
+          f"{row['batch1_device_ms']:.4f}, {row['batch1_floor_ratio']:.2f}x the floor), bound "
+          f"{row['batch1_bound_ms']:.6f} ms", flush=True)
 
 
 def launch_floor(dev, n: int) -> float:

@@ -10,12 +10,20 @@ and the same function.  Eigenvector and singular-vector signs (and, for
 repeated values, the basis of their subspace) differ between the kernels
 and the plain versions.
 
-K12 is bound by latency, not by bytes or operations: each Jacobi rotation
-waits on a chain of IEEE divides and square roots.  It runs one warp a
-matrix in the parallel (round-robin) order, 9 rounds of disjoint pairs a
+Both are bound by latency, not by bytes or operations: each Jacobi
+rotation waits on a chain of correctly rounded divides, square roots and
+reciprocals, made branch-free (nvcc's own fast paths, its slow path taken
+only outside their range) so that the chains overlap.  K12 runs one warp
+a matrix in the parallel (round-robin) order, 9 rounds of disjoint pairs a
 sweep of a 9 x 9 matrix (padded to 10 with a zero bye), each round's
 rotations made at once and its updates spread over the warp's lanes;
-``chip_smoke.py::jacobi_replica`` is its loop in float32 NumPy.
+``chip_smoke.py::jacobi_replica`` is its loop in float32 NumPy.  K13 runs
+one thread a matrix (a 3 x 3 has no two disjoint column pairs): each
+sweep tests its three column pairs at once and ends the loop if none
+passes, else rotates them in turn, each rotation's angle made beside its
+test and applied by a select; a block's matrices are read and written
+through shared memory by consecutive lanes; ``chip_smoke.py::
+svd3_replica`` is its loop in float32 NumPy, bit for bit.
 """
 
 from __future__ import annotations
@@ -76,10 +84,12 @@ def sym_eig_small_ref(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def svd3(A: torch.Tensor, plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(..., 3, 3) -> (U (..., 3, 3), S (..., 3) descending, Vh (..., 3,
     3)) with A = U diag(S) Vh, as ``torch.linalg.svd``.  K13 on a CUDA
-    tensor (f32; one launch a call), whose U has as third column the cross
-    product of the first two (with the sign of A's third direction), so it
-    is well defined when S[2] is 0; the plain version on a CPU tensor or
-    with `plain`."""
+    tensor (f32; one launch a call, one thread a matrix: one-sided Jacobi
+    on A's columns, a sweep's pairs tested at once; the same bits for a
+    matrix alone as in any batch, all NaN for a matrix with a NaN or inf
+    entry), whose U has as third column the cross product of the first two
+    (with the sign of A's third direction), so it is well defined when S[2]
+    is 0; the plain version on a CPU tensor or with `plain`."""
     _check_square(A, "svd3", range(3, 4))
     if plain or not on_cuda(A):
         return svd3_ref(A)

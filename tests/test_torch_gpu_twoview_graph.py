@@ -10,7 +10,9 @@ against eager.
 K12's layout (one warp a matrix, four a block: batches that leave a
 block part-full, a matrix alone against the same matrix in a batch) and
 its round-robin loop (its float32 replica's bits, its sweeps) are held
-too.
+too; so are K13's (one thread a matrix, 32 a block staged through shared
+memory; its one-sided loop, a sweep's pairs tested at once, bit for bit
+against chip_smoke.py::svd3_replica on every set of chip_smoke.svd3_sets).
 
 Eigenvector and singular-vector signs differ between the kernels and
 cuSOLVER, and within a repeated eigenvalue (an essential matrix's sigma_1
@@ -347,6 +349,71 @@ def test_svd3_random_rank2_and_essential(cuda):
             assert min(float((t - s * u).abs().max()) for u in tc for s in (1, -1)) < 1e-4, b
             assert abs(float(t.norm()) - 1) < 1e-6
     assert linalg.svd3.launches == before + 3
+
+
+SVD3_SETS = ("device fits", "fits", "essential", "random", "rank2", "sigma110", "degenerate",
+             "nan and inf")
+
+
+def _svd3_set(name, cuda):
+    """chip_smoke's K13 inputs by name: svd3_sets, the fits' null vectors
+    from torch.linalg.eigh on the card (as chip_smoke's check takes them),
+    or the fits with NaN and inf entries."""
+    import chip_smoke as cs
+
+    if name == "device fits":
+        A = cs.linalg_scene(cuda)[0]
+        return linalg.sym_eig_small(A, plain=True)[1][:, :, 0].reshape(-1, 3, 3).cpu().numpy()
+    if name == "nan and inf":
+        A = cs.svd3_sets()["fits"][:40].copy()
+        A[3, 1, 2], A[7, 0, 0], A[8, 2, 2], A[33, 1, 1] = np.nan, np.inf, -np.inf, np.nan
+        return A
+    return cs.svd3_sets()[name]
+
+
+@pytest.mark.parametrize("name", SVD3_SETS)
+def test_svd3_is_its_replica(cuda, name):
+    """K13 gives the bits of its loop's float32 replica
+    (chip_smoke.py::svd3_replica, whose rotations and tests are K13's
+    bound) on each of chip_smoke's sets: the init's fits (null vectors from
+    the card's eigh and the CPU's), their essential projections, random,
+    rank-2 and sigma = (1, 1, 0) matrices, degenerate ones (zero, rank 1,
+    zero columns and rows, scales whose norms leave the fast paths'
+    ranges) and fits with NaN and inf entries (all NaN, the rest their
+    bits); the replica ends every matrix of the init's sets below
+    SVD_MAX_SWEEPS, so the kernel does too; one launch a call."""
+    import chip_smoke as cs
+
+    A = _svd3_set(name, cuda)
+    r = cs.svd3_replica(A)
+    before = linalg.svd3.launches
+    got = [x.cpu().numpy() for x in linalg.svd3(torch.from_numpy(A).to(cuda))]
+    assert linalg.svd3.launches == before + 1
+    print(f"{name}: sweeps {np.bincount(r['sweeps']).tolist()}, "
+          f"{int((~r['converged']).sum())} at SVD_MAX_SWEEPS")
+    for g, key in zip(got, ("U", "S", "Vh")):
+        assert cs.bits_equal(g, r[key]), (name, key)
+    if name in ("device fits", "fits", "essential", "rank2", "sigma110"):
+        assert r["converged"].all() and int(r["sweeps"].max()) < cs.SVD_MAX_SWEEPS
+
+
+def test_svd3_batch_one_and_part_full_blocks(cuda):
+    """K13 (32 matrices a block) at batches 1, 2, 31, 32, 33, 65 and 257
+    gives each matrix the bits it has in a batch of 4096 random matrices
+    (the last block part-full), and each of the first 40 alone the same;
+    the fits likewise, alone and in their batch of 257."""
+    import chip_smoke as cs
+
+    sets = cs.svd3_sets()
+    for name in ("random", "fits"):
+        A = torch.from_numpy(sets[name]).to(cuda)
+        whole = linalg.svd3(A)
+        for B in (1, 2, 31, 32, 33, 65, 257):
+            part = linalg.svd3(A[:B].contiguous())
+            assert all(torch.equal(p, w[:B]) for p, w in zip(part, whole)), (name, B)
+        for i in range(40):
+            one = linalg.svd3(A[i:i + 1].contiguous())
+            assert all(torch.equal(o[0], w[i]) for o, w in zip(one, whole)), (name, i)
 
 
 def _padded(uv1, uv2, P):
